@@ -1,0 +1,60 @@
+"""Synthetic surfaces that need no mesh download.
+
+`perturbed_icosphere(4)` is the 2562-vertex bench surface: a subdivided
+icosahedron projected onto the unit sphere, then scaled radially by
+1 + amp sin(3 theta) sin(2 phi) (the perturbation of `bench.make_cloud`)
+so that the sphere's degenerate eigenvalues split.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from eigenpinns_torch.geometry.mesh import TriMesh
+
+
+def icosphere(n_sub: int = 3) -> TriMesh:
+    """Unit icosphere by `n_sub` midpoint subdivisions of an icosahedron
+    (10 * 4**n_sub + 2 vertices)."""
+    t = (1 + 5**0.5) / 2
+    verts = np.array([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], float)
+    faces = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]])
+    for _ in range(n_sub):
+        mid: dict = {}
+        new_faces = []
+        verts = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                verts.append((np.asarray(verts[a]) + np.asarray(verts[b]))
+                             / 2)
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc],
+                          [ab, bc, ca]]
+        faces = np.asarray(new_faces)
+        verts = np.asarray(verts)
+    verts = verts / np.linalg.norm(verts, axis=1, keepdims=True)
+    return TriMesh(verts, faces.astype(np.int32))
+
+
+def perturbed_icosphere(n_sub: int = 4, amp: float = 0.3) -> TriMesh:
+    """Icosphere scaled radially by 1 + amp sin(3 theta) sin(2 phi),
+    theta the azimuth and phi the polar angle (`bench.make_cloud`)."""
+    sphere = icosphere(n_sub)
+    v = sphere.verts
+    theta = np.arctan2(v[:, 1], v[:, 0])
+    phi = np.arccos(np.clip(v[:, 2], -1.0, 1.0))
+    r = 1.0 + amp * np.sin(3 * theta) * np.sin(2 * phi)
+    return TriMesh(v * r[:, None], sphere.faces)
