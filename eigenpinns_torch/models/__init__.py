@@ -5,7 +5,9 @@ from eigenpinns_torch.models.correctors import (
     SpectralCorrector,
     make_corrector,
 )
-from eigenpinns_torch.models.mlp import MLP
+from eigenpinns_torch.models.eigennet import JointEigenNet
+from eigenpinns_torch.models.mlp import ACTIVATIONS, MLP
 
-__all__ = ["MLP", "SimpleCorrector", "SpectralCorrector",
-           "AdaptiveCorrector", "make_corrector", "from_flax_params"]
+__all__ = ["ACTIVATIONS", "MLP", "SimpleCorrector", "SpectralCorrector",
+           "AdaptiveCorrector", "JointEigenNet", "make_corrector",
+           "from_flax_params"]

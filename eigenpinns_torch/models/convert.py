@@ -1,11 +1,11 @@
-"""Carry a flax parameter tree into the torch correctors.
+"""Carry a flax parameter tree into the torch correctors and eigen-nets.
 
 The tree is the one `model.init` returns in the JAX package, with its
 leaves as numpy arrays: {'params': {'MLP_0': {'hidden_0': {'kernel',
-'bias'}, ..., 'out': {...}}}} for the simple and spectral correctors,
-and {'params': {'SimpleCorrector_0': {...}, 'mode_scales': ...}} for the
-adaptive one. A flax `Dense` kernel is (in, out); a torch
-`Linear.weight` is (out, in).
+'bias'}, ..., 'out': {...}}}} for the simple and spectral correctors
+and for `JointEigenNet`, and {'params': {'SimpleCorrector_0': {...},
+'mode_scales': ...}} for the adaptive corrector. A flax `Dense` kernel
+is (in, out); a torch `Linear.weight` is (out, in).
 """
 
 from __future__ import annotations

@@ -1,18 +1,29 @@
 """MLP building block (torch.nn).
 
-Port of `eigenpinns_tpu/models/mlp.py` with the ReLU activation the
-correctors use. Initialization follows flax's
-`Dense` defaults: LeCun-normal hidden kernels (a truncated normal with
-variance 1/fan_in), zero biases, and optionally the reference's
-N(0, 0.01^2) output head with zero bias (src/multigrid_model.py:211-214).
+Port of `eigenpinns_tpu/models/mlp.py` with every activation of its
+`ACTIVATIONS`: ReLU (the correctors), SiLU (the joint eigen-nets), GELU
+(flax's `nn.gelu` is the tanh approximation), tanh, and sin with the
+SIREN-style `first_layer_omega` scaling on the first layer only.
+Initialization follows flax's `Dense` defaults: LeCun-normal hidden
+kernels (a truncated normal with variance 1/fan_in), zero biases, and
+optionally the reference's N(0, 0.01^2) output head with zero bias
+(src/multigrid_model.py:211-214).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
+
+ACTIVATIONS: dict[str, Callable] = {
+    "relu": torch.relu,
+    "silu": nn.functional.silu,
+    "gelu": lambda x: nn.functional.gelu(x, approximate="tanh"),
+    "tanh": torch.tanh,
+    "sin": torch.sin,
+}
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
@@ -30,14 +41,19 @@ def lecun_normal_(weight: torch.Tensor,
 
 
 class MLP(nn.Module):
-    """ReLU hidden layers + linear head. Parameters stay float32;
-    `compute_dtype` (e.g. 'bfloat16') casts the matmuls and activations,
-    and the output is cast back to the input's dtype."""
+    """Hidden layers with `activation` + linear head. Parameters stay
+    float32; `compute_dtype` (e.g. 'bfloat16') casts the matmuls and
+    activations, and the output is cast back to the input's dtype."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
                  dropout: float = 0.0, small_output_init: bool = False,
-                 compute_dtype: str | None = None):
+                 compute_dtype: str | None = None, activation: str = "relu",
+                 first_layer_omega: float = 1.0):
         super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation must be one of {list(ACTIVATIONS)}")
+        self.act = ACTIVATIONS[activation]
+        self.omega = first_layer_omega if activation == "sin" else 1.0
         self.dropout = dropout
         self.compute_dtype = (getattr(torch, compute_dtype) if compute_dtype
                               else None)
@@ -65,11 +81,12 @@ class MLP(nn.Module):
         dt = self.compute_dtype
         if dt is not None:
             x = x.to(dt)
-        for layer in self.hidden:
+        for i, layer in enumerate(self.hidden):
             w, b = layer.weight, layer.bias
             if dt is not None:
                 w, b = w.to(dt), b.to(dt)
-            x = torch.relu(nn.functional.linear(x, w, b))
+            x = nn.functional.linear(x, w, b)
+            x = self.act(self.omega * x if i == 0 and self.omega != 1.0 else x)
             if self.dropout > 0.0 and not deterministic:
                 x = nn.functional.dropout(x, self.dropout)
         w, b = self.out.weight, self.out.bias

@@ -8,10 +8,10 @@ point-cloud Laplacian, kNN, RCM, eigsh) is numpy/scipy; the device tail
 (operator layouts, Jacobi smoothing) runs on `device`.
 
 Ported: the `farthest_point` sampler with kNN edges, the host eigsh
-coarse solve, and operator formats 'ell' and 'auto'/'banded' at k <= 32
-(rolling band). Where the JAX package falls back to the strip-BSR format
-(k > 32, or an RCM band wider than `max_bandwidth`), this port raises
-NotImplementedError: the strip-BSR kernels are not ported yet.
+coarse solve, and operator formats 'ell' and 'auto'/'banded' with the
+JAX package's format choice: the rolling band at k <= 32, strip-BSR at
+k > 32 or where the RCM band is wider than `max_bandwidth` (with the
+same warnings).
 
 `Hierarchy.save` writes the JAX package's on-disk layout byte for byte
 (scipy CSR per sparse operator plus one dense npz), and `Hierarchy.load`
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Any
 
 import numpy as np
@@ -34,24 +35,28 @@ from eigenpinns_torch.sampling.knn import knn_graph, prolongation_matrix
 from eigenpinns_torch.sampling.samplers import farthest_point_levels
 from eigenpinns_torch.solvers.oracle import eigsh_smallest
 from eigenpinns_torch.solvers.smoothers import jacobi_smooth
+from eigenpinns_torch.sparse.bsr import BSRTile
 from eigenpinns_torch.sparse.formats import Diagonal, as_operator
 from eigenpinns_torch.sparse.rolling import RollingBanded
 
 OPERATOR_FORMATS = ("ell", "banded", "auto")
-_BSR_MISSING = ("the strip-BSR format (eigenpinns_tpu/sparse/bsr.py, "
-                "kernels bsr_spmm_pallas_grouped / bsr_spmm_pallas) is "
-                "not ported to CUDA yet")
 
 
-def _rolling_or_raise(A, dtype, device, max_bandwidth, what):
-    """RollingBanded of an already RCM-ordered matrix; where the JAX
-    package would fall back to strip-BSR, raise instead."""
-    try:
-        return RollingBanded.from_scipy(A, dtype=dtype, device=device,
-                                        reorder=False,
-                                        max_bandwidth=max_bandwidth)[0]
-    except ValueError as e:
-        raise NotImplementedError(f"{what}: {e}; {_BSR_MISSING}") from e
+def _banded_op(A, dtype, device, max_bandwidth, prefer_rolling, warning):
+    """Device operator of an already RCM-ordered matrix: the rolling band
+    when `prefer_rolling` and it fits `max_bandwidth`, strip-BSR (no cap)
+    otherwise. `warning` (None: silent) is issued when the band does not
+    fit."""
+    if prefer_rolling:
+        try:
+            return RollingBanded.from_scipy(A, dtype=dtype, device=device,
+                                            reorder=False,
+                                            max_bandwidth=max_bandwidth)[0]
+        except ValueError:
+            if warning is not None:
+                warnings.warn(warning, stacklevel=3)
+    return BSRTile.from_scipy(A, dtype=dtype, device=device,
+                              reorder=False)[0]
 
 
 @dataclasses.dataclass
@@ -88,12 +93,16 @@ class Hierarchy:
             return cache[key]
         K_blk = sp.block_diag([K.tocsr() for K in self.K_scipy],
                               format="csr")
-        banded = isinstance(self.K_ops[-1], RollingBanded)
+        banded = isinstance(self.K_ops[-1], (RollingBanded, BSRTile))
 
         def _op(A):
+            # The finest level's format; block boundaries only widen the
+            # rolling window by < one tile, and a band past max_bandwidth
+            # falls back to strip-BSR, as in the JAX package.
             if banded:
-                return _rolling_or_raise(A, dtype, self.device,
-                                         max_bandwidth, "fused K_blk")
+                return _banded_op(
+                    A, dtype, self.device, max_bandwidth,
+                    isinstance(self.K_ops[-1], RollingBanded), None)
             return as_operator(A, dtype=dtype, device=self.device)
 
         K_op = _op(K_blk)
@@ -167,13 +176,15 @@ class Hierarchy:
         U_list = [torch.as_tensor(dense[f"U_{i}"], dtype=dtype,
                                   device=device) for i in range(n_levels)]
         if operator_format in ("banded", "auto") and has_perms:
-            if U_list[0].shape[1] > 32:
-                raise NotImplementedError(
-                    f"k = {U_list[0].shape[1]} > 32 selects strip-BSR "
-                    f"operators; {_BSR_MISSING}")
-            K_ops = [_rolling_or_raise(K, dtype, device, max_bandwidth,
-                                       f"level {i}")
-                     for i, K in enumerate(K_sp)]
+            # Saved operators are already RCM-permuted; the same per-k
+            # format choice as build_hierarchy (k = saved guess width).
+            prefer_rolling = U_list[0].shape[1] <= 32
+            K_ops = [_banded_op(
+                K, dtype, device, max_bandwidth, prefer_rolling,
+                f"load: level {i} RCM bandwidth exceeds max_bandwidth="
+                f"{max_bandwidth}; using the strip-BSR format instead of "
+                "the rolling band (different HBM/perf profile)")
+                for i, K in enumerate(K_sp)]
         else:
             K_ops = [as_operator(K, dtype=dtype, device=device)
                      for K in K_sp]
@@ -240,18 +251,22 @@ def build_hierarchy(
         M_sp.append(M)
     actual = [x.shape[0] for x in X_list]
 
-    # Per-level RCM order for the rolling band (k <= 32, the JAX
-    # package's format choice); every per-level array is permuted
-    # consistently and `perms` maps back.
+    # Per-level RCM order and the JAX package's format choice: the
+    # rolling band for narrow mode counts (k <= 32), strip-BSR for wide k
+    # or where the band blows past max_bandwidth. Every per-level array
+    # is permuted consistently and `perms` maps back.
     perms = None
     K_ops: list = []
     if operator_format in ("banded", "auto"):
         from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-        if n_modes > 32:
-            raise NotImplementedError(
-                f"n_modes = {n_modes} > 32 selects strip-BSR operators; "
-                f"{_BSR_MISSING}")
+        prefer_rolling = n_modes <= 32
+        if operator_format == "banded" and not prefer_rolling:
+            warnings.warn(
+                f"operator_format='banded' with n_modes={n_modes} > 32: "
+                "building strip-BSR operators (the rolling band is only "
+                "used for k <= 32); pass operator_format='auto' to "
+                "acknowledge the per-k format choice", stacklevel=2)
         perms = []
         for i in range(len(K_sp)):
             perm = np.asarray(reverse_cuthill_mckee(K_sp[i].tocsr(),
@@ -260,8 +275,11 @@ def build_hierarchy(
             M_sp[i] = M_sp[i].tocsr()[perm][:, perm].tocsr()
             X_list[i] = X_list[i][perm]
             indices[i] = np.asarray(indices[i])[perm]
-            K_ops.append(_rolling_or_raise(K_sp[i], dtype, device,
-                                           max_bandwidth, f"level {i}"))
+            K_ops.append(_banded_op(
+                K_sp[i], dtype, device, max_bandwidth, prefer_rolling,
+                f"level {i}: RCM bandwidth exceeds max_bandwidth="
+                f"{max_bandwidth}; using the strip-BSR format instead of "
+                "the rolling band"))
             perms.append(perm)
 
     edge_index_list = [knn_graph(X, k=k_neighbors) for X in X_list]
@@ -273,8 +291,8 @@ def build_hierarchy(
             if not isinstance(op, Diagonal):
                 # Consistent (non-lumped) mass: same format and the same
                 # (already applied) permutation as that level's K.
-                op = _rolling_or_raise(M.tocsr(), dtype, device,
-                                       max_bandwidth, f"level {i} mass")
+                op = _banded_op(M.tocsr(), dtype, device, max_bandwidth,
+                                isinstance(K_ops[i], RollingBanded), None)
             M_ops.append(op)
     else:
         K_ops = [as_operator(K, dtype=dtype, device=device) for K in K_sp]

@@ -1,3 +1,4 @@
+from eigenpinns_torch.solvers.direct import DirectResult, train_joint
 from eigenpinns_torch.solvers.lobpcg import lobpcg, lobpcg_from_random
 from eigenpinns_torch.solvers.multigrid import (
     MultigridResult,
@@ -17,7 +18,8 @@ from eigenpinns_torch.solvers.smoothers import (
 )
 
 __all__ = [
-    "lobpcg", "lobpcg_from_random", "MultigridResult", "MultigridTrainer",
+    "DirectResult", "train_joint", "lobpcg", "lobpcg_from_random",
+    "MultigridResult", "MultigridTrainer",
     "eigsh_smallest", "eigh_generalized", "filtered_whiten",
     "rayleigh_ritz", "rayleigh_ritz_robust", "cg_solve",
     "coarse_grid_correction", "jacobi_smooth",

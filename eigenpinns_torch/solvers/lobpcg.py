@@ -5,9 +5,20 @@ B-inner-product Rayleigh-Ritz on [X, W, P], spectral-filtered whitening,
 Jacobi preconditioning). The JAX `lax.while_loop` exits on tolerance
 without a host sync. Here every iteration runs under an on-device
 `active` flag that freezes the state once max(res) <= tol, and the host
-reads the flag only every `_CHECK_EVERY` iterations: results and the
-iteration count are those of the JAX loop, at one sync per
-`_CHECK_EVERY` iterations.
+reads the flag only every `_CHECK_EVERY` iterations: the iteration count
+is that of the JAX loop, at one sync per `_CHECK_EVERY` iterations.
+
+Two departures from the JAX iteration, both the same iteration in exact
+arithmetic (ROADMAP queue 3):
+
+  * a warm start's whitened-away directions are flagged dropped (F5);
+  * the residual R = K X - M X diag(lam) and the returned eigenvalues use
+    the Rayleigh quotients of X, computed from the K X and M X products
+    the iteration has anyway, not the eigenvalues of the fp32 Gram
+    S^T K S (F9). In fp32 those Gram eigenvalues carry an error far
+    above the Rayleigh quotients' on large clouds (1e-3 against 3e-6
+    relative on a 20k-point Laplacian), so a residual built from them
+    has a floor and the iteration stalls there.
 """
 
 from __future__ import annotations
@@ -50,6 +61,13 @@ def _b_orthonormalize(X, M, eps):
     return Xw * good[None, :], good
 
 
+def _rayleigh_quotients(X, KX, MX):
+    """x^T K x / x^T M x per column; 0 for the zero columns of dropped
+    directions."""
+    den = (X * MX).sum(0)
+    return (X * KX).sum(0) / torch.where(den > 0, den, torch.ones_like(den))
+
+
 def _project_out(Y, X, MX):
     """Y - X (X^T M Y), applied twice for f32 robustness."""
     Y = Y - hdot(X, gram(MX, Y))
@@ -73,9 +91,11 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
     def _deflate(V):
         return _project_out(V, Y, MY) if Y is not None else V
 
-    def body(X, P, lam, good_x):
+    def body(X, P, good_x):
         MX = spmm(M, X)
-        R = spmm(K, X) - MX * lam[None, :]
+        KX = spmm(K, X)
+        lam = _rayleigh_quotients(X, KX, MX)
+        R = KX - MX * lam[None, :]
         res = torch.linalg.vector_norm(R, dim=0) / torch.clamp(
             lam.abs(), min=1.0)
         W = precond[:, None] * R
@@ -98,7 +118,7 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
         # A selected Ritz vector is good when it lies in the kept
         # directions (its unit coefficient vector weighs > 1/2 there).
         good_x = (C[good] ** 2).sum(0) > 0.5
-        return hdot(S, C), hdot(S, C_wp), w[:k], res, good_x
+        return hdot(S, C), hdot(S, C_wp), res, good_x
 
     # Directions of X0 that the whitening drops (a rank-deficient warm
     # start, e.g. a collapsed learned subspace) are zero columns. The JAX
@@ -107,23 +127,23 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
     # the sentinel moves them out, and W/P directions take their place.
     # For a full-rank X0 the two are the same iteration.
     X, good_x = _b_orthonormalize(_deflate(X0), M, whiten_eps)
-    lam = torch.diagonal(gram(X, spmm(K, X)))
     P = torch.zeros_like(X)
     it = torch.zeros((), dtype=torch.int64, device=X.device)
     res = torch.full((k,), float("inf"), dtype=X.dtype, device=X.device)
     for i in range(max_iter):
         active = res.max() > tol
-        X_n, P_n, lam_n, res_n, good_n = body(X, P, lam, good_x)
+        X_n, P_n, res_n, good_n = body(X, P, good_x)
         X = torch.where(active, X_n, X)
         P = torch.where(active, P_n, P)
-        lam = torch.where(active, lam_n, lam)
         res = torch.where(active, res_n, res)
         good_x = torch.where(active, good_n, good_x)
         it = it + active.to(it.dtype)
         if (i + 1) % _CHECK_EVERY == 0 and not bool(res.max() > tol):
             break
 
-    R = spmm(K, X) - spmm(M, X) * lam[None, :]
+    KX, MX = spmm(K, X), spmm(M, X)
+    lam = _rayleigh_quotients(X, KX, MX)
+    R = KX - MX * lam[None, :]
     res = torch.linalg.vector_norm(R, dim=0) / torch.clamp(lam.abs(),
                                                            min=1.0)
     return LobpcgResult(lam, X, it, res)

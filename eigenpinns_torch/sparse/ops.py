@@ -14,6 +14,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from eigenpinns_torch.sparse.bsr import BSRTile, bsr_spmm, bsr_spmm_gram
 from eigenpinns_torch.sparse.formats import Diagonal, SparseELL
 from eigenpinns_torch.sparse.rolling import (
     RollingBanded,
@@ -49,7 +50,8 @@ class _EllSpmm(torch.autograd.Function):
 
 
 def spmm(A, U: torch.Tensor) -> torch.Tensor:
-    """A @ U for A in {Diagonal, SparseELL, RollingBanded}, U (N, k)."""
+    """A @ U for A in {Diagonal, SparseELL, RollingBanded, BSRTile},
+    U (N, k)."""
     if isinstance(A, Diagonal):
         return A.diag[:, None] * U
     if isinstance(A, SparseELL):
@@ -57,6 +59,8 @@ def spmm(A, U: torch.Tensor) -> torch.Tensor:
         return _EllSpmm.apply(U, A.indices, A.values, t.indices, t.values)
     if isinstance(A, RollingBanded):
         return rolling_spmm(A, U)
+    if isinstance(A, BSRTile):
+        return bsr_spmm(A, U)
     raise TypeError(f"unsupported operator {type(A)}")
 
 
@@ -67,9 +71,12 @@ def spmv(A, u: torch.Tensor) -> torch.Tensor:
 
 def spmm_gram(A, U: torch.Tensor):
     """(A @ U, U^T A U): one fused kernel pass for the rolling band, the
-    two-pass form for other formats."""
+    kernel plus an fp32 matmul epilogue for strip-BSR, the two-pass form
+    for other formats."""
     if isinstance(A, RollingBanded):
         return rolling_spmm_gram(A, U)
+    if isinstance(A, BSRTile):
+        return bsr_spmm_gram(A, U)
     W = spmm(A, U)
     return W, gram(U, W)
 

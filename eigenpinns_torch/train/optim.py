@@ -1,9 +1,17 @@
-"""Adam + weight decay + clipping + reduce-on-plateau, as optax chains it.
+"""Adam stacks as optax builds them.
 
-Port of `eigenpinns_tpu/train/optim.py::adam_plateau`, which chains
-optax `clip_by_global_norm` -> `add_decayed_weights` -> `adam` and then
-multiplies the updates by the `optax.contrib.reduce_on_plateau` scale.
-This class reproduces that arithmetic step for step:
+Port of `eigenpinns_tpu/train/optim.py`:
+
+  * `adam_exp_decay`: `optax.adam` on `optax.exponential_decay(lr_start,
+    steps, lr_end / lr_start)`, lr(t) = lr_start (lr_end/lr_start)^(t /
+    steps) in fp32, with t the number of updates made before (the first
+    update uses lr_start);
+  * `AdamPlateau` (`adam_plateau`): optax `clip_by_global_norm` ->
+    `add_decayed_weights` -> `adam`, then the updates times the
+    `optax.contrib.reduce_on_plateau` scale.
+
+Both share one Adam core, `Adam`. `AdamPlateau` reproduces optax's
+arithmetic step for step:
 
   1. clip: g <- (g / |g|) * max only when |g| >= max (not torch's
      `clip_grad_norm_`, which adds 1e-6 to the norm);
@@ -16,10 +24,12 @@ This class reproduces that arithmetic step for step:
      floored at `min_scale`. Not torch's `ReduceLROnPlateau`.
 
 All state stays on the parameters' device; `step` never reads a value
-back to the host.
+back to the host. (`adamw_cosine_restarts` is not ported.)
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -29,19 +39,82 @@ B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adam defaults
 RTOL = 1e-4                      # optax reduce_on_plateau default
 
 
-class AdamPlateau:
+class Adam:
+    """`optax.adam(schedule)`: the parameters' `.grad` in, an update of
+    -schedule(t) * mu_hat / (sqrt(nu_hat) + eps) applied in place, t the
+    number of updates made before."""
+
+    def __init__(self, params, schedule: Callable[[int], float]):
+        self.params = list(params)
+        self.schedule = schedule
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Apply one update from the parameters' `.grad`."""
+        torch._foreach_add_(self.params,
+                            self._adam_update([p.grad for p in self.params]))
+
+    def _adam_update(self, g: list) -> list:
+        lr = self.schedule(self.count)
+        self.count += 1
+        torch._foreach_mul_(self.mu, B1)
+        torch._foreach_add_(self.mu, g, alpha=1.0 - B1)
+        torch._foreach_mul_(self.nu, B2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(g, g), alpha=1.0 - B2)
+        mu_hat = torch._foreach_div(self.mu, self._bias_correction(B1))
+        nu_hat = torch._foreach_div(self.nu, self._bias_correction(B2))
+        den = torch._foreach_add(torch._foreach_sqrt(nu_hat), EPS)
+        upd = torch._foreach_div(mu_hat, den)
+        torch._foreach_mul_(upd, -lr)
+        return upd
+
+    def _bias_correction(self, decay: float) -> float:
+        """1 - decay**count as optax computes it, in fp32: at small
+        counts the subtraction cancels, and a float64 value differs from
+        the fp32 one by up to 2e-5 relative, a bias that Adam's
+        normalized steps carry into every parameter."""
+        return float(np.float32(1.0) - np.float32(decay**self.count))
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float) -> Callable[[int], float]:
+    """`optax.exponential_decay(init_value, transition_steps, decay_rate)`
+    in its fp32 arithmetic: init * rate^(t / steps), constant when
+    transition_steps <= 0 or decay_rate == 0."""
+    if transition_steps <= 0 or decay_rate == 0:
+        return lambda t: float(np.float32(init_value))
+
+    def schedule(t: int) -> float:
+        if t <= 0:
+            return float(np.float32(init_value))
+        p = np.float32(t) / np.float32(transition_steps)
+        return float(np.float32(init_value)
+                     * np.power(np.float32(decay_rate), p))
+
+    return schedule
+
+
+def adam_exp_decay(params, lr_start: float = 1e-2, lr_end: float = 1e-4,
+                   steps: int = 20000):
+    """Adam with exponential LR decay (simplified_loss.ipynb stack);
+    returns (optimizer, schedule) like the JAX function."""
+    schedule = exponential_decay(lr_start, steps, lr_end / lr_start)
+    return Adam(params, schedule), schedule
+
+
+class AdamPlateau(Adam):
     def __init__(self, params, learning_rate: float,
                  weight_decay: float = 0.0, grad_clip: float = 0.0,
                  plateau_factor: float = 0.5, plateau_patience: int = 2000,
                  min_scale: float = 1e-3):
-        self.params = list(params)
-        self.lr, self.wd, self.clip = learning_rate, weight_decay, grad_clip
+        super().__init__(params, lambda t: learning_rate)
+        self.wd, self.clip = weight_decay, grad_clip
         self.factor, self.patience = plateau_factor, plateau_patience
         self.min_scale = min_scale
         dev = self.params[0].device
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
         self.scale = torch.ones((), device=dev)
         self.best = torch.full((), float("inf"), device=dev)
         self.plateau_count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -57,25 +130,9 @@ class AdamPlateau:
             g = [torch.where(keep, x, (x / norm) * self.clip) for x in g]
         if self.wd:
             g = torch._foreach_add(g, self.params, alpha=self.wd)
-        self.count += 1
-        torch._foreach_mul_(self.mu, B1)
-        torch._foreach_add_(self.mu, g, alpha=1.0 - B1)
-        torch._foreach_mul_(self.nu, B2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(g, g), alpha=1.0 - B2)
-        mu_hat = torch._foreach_div(self.mu, self._bias_correction(B1))
-        nu_hat = torch._foreach_div(self.nu, self._bias_correction(B2))
-        den = torch._foreach_add(torch._foreach_sqrt(nu_hat), EPS)
-        upd = torch._foreach_div(mu_hat, den)
-        torch._foreach_mul_(upd, -self.lr)
+        upd = self._adam_update(g)
         torch._foreach_mul_(upd, self._plateau_scale(value))
         torch._foreach_add_(self.params, upd)
-
-    def _bias_correction(self, decay: float) -> float:
-        """1 - decay**count as optax computes it, in fp32: at small
-        counts the subtraction cancels, and a float64 value differs from
-        the fp32 one by up to 2e-5 relative, a bias that Adam's
-        normalized steps carry into every parameter."""
-        return float(np.float32(1.0) - np.float32(decay**self.count))
 
     def _plateau_scale(self, value: torch.Tensor) -> torch.Tensor:
         value = value.detach().to(self.best.dtype)

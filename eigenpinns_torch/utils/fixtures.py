@@ -1,9 +1,11 @@
-"""Synthetic surfaces that need no mesh download.
+"""Synthetic surfaces and clouds that need no mesh download.
 
 `perturbed_icosphere(4)` is the 2562-vertex bench surface: a subdivided
 icosahedron projected onto the unit sphere, then scaled radially by
 1 + amp sin(3 theta) sin(2 phi) (the perturbation of `bench.make_cloud`)
-so that the sphere's degenerate eigenvalues split.
+so that the sphere's degenerate eigenvalues split. `make_cloud(n, seed)`
+is `bench.make_cloud` itself: n random points on that perturbed sphere,
+the cloud of the bench's 300k and 1M direct-training phases.
 """
 
 from __future__ import annotations
@@ -58,3 +60,15 @@ def perturbed_icosphere(n_sub: int = 4, amp: float = 0.3) -> TriMesh:
     phi = np.arccos(np.clip(v[:, 2], -1.0, 1.0))
     r = 1.0 + amp * np.sin(3 * theta) * np.sin(2 * phi)
     return TriMesh(v * r[:, None], sphere.faces)
+
+
+def make_cloud(n: int, seed: int = 0) -> np.ndarray:
+    """n points uniform in (azimuth, cos polar angle) on the sphere scaled
+    radially by 1 + 0.3 sin(3 theta) sin(2 phi); (n, 3) float64."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 2 * np.pi, n)
+    phi = np.arccos(rng.uniform(-1, 1, n))
+    r = 1.0 + 0.3 * np.sin(3 * theta) * np.sin(2 * phi)
+    return (r[:, None] * np.stack(
+        [np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
+         np.cos(phi)], 1)).astype(np.float64)

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.sparse import diags as sp_diags
 
 from eigenpinns_tpu import solvers as jsolvers
 from eigenpinns_tpu import sparse as jsparse
@@ -141,3 +142,42 @@ def test_lobpcg_from_random_is_seeded(problem):
         tol=1e-5)
     assert torch.equal(a.eigenvalues, b.eigenvalues)
     assert _rel(a.eigenvalues.numpy()[1:], problem["vals"][1:5]) < 1e-3
+
+
+def test_lobpcg_fp32_converges_past_the_gram_eigenvalue_floor():
+    """F9: on a 6000-point cloud (largest eigenvalue ~1e6 times the
+    wanted ones), steering the residual by the Rayleigh quotients of X
+    reaches rel 2e-5 of eigsh in 200 fp32 iterations; the JAX iteration,
+    which steers by the eigenvalues of the fp32 Gram S^T K S, stalls
+    above 5e-5 (1.7e-4 when measured) from the same start."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from eigenpinns_torch.utils.fixtures import make_cloud
+
+    X = make_cloud(6000)
+    L, M = point_cloud_laplacian(X, n_neighbors=15)
+    perm = np.asarray(reverse_cuthill_mckee(L.tocsr(), symmetric_mode=True))
+    L, m, X = L.tocsr()[perm][:, perm], np.asarray(M.diagonal())[perm], X[perm]
+    vals, _ = eigsh_smallest(L, sp_diags(m), 20)
+    x, y, z = X.T
+    feats = np.stack([np.ones_like(x), x, y, z, x * x, y * y, z * z, x * y,
+                      x * z, y * z, x**3, y**3, z**3, x * x * y, x * x * z,
+                      y * y * x, y * y * z, z * z * x, z * z * y, x * y * z],
+                     axis=1)
+    X0 = np.concatenate([feats / np.linalg.norm(feats, axis=0),
+                         np.random.default_rng(3).normal(size=(6000, 8))],
+                        axis=1).astype(np.float32)
+
+    def err(lam):
+        lam = np.sort(np.asarray(lam))[:20]
+        return np.max(np.abs(lam[1:] - vals[1:]) / vals[1:])
+
+    res = tsolvers.lobpcg(tsparse.SparseELL.from_scipy(L),
+                          tsparse.Diagonal(torch.tensor(m,
+                                                        dtype=torch.float32)),
+                          torch.from_numpy(X0), max_iter=200, tol=1e-6)
+    resj = jsolvers.lobpcg(jsparse.SparseELL.from_scipy(L),
+                           jsparse.Diagonal(jnp.asarray(m, jnp.float32)),
+                           jnp.asarray(X0), max_iter=200, tol=1e-6)
+    assert err(res.eigenvalues.numpy()) < 2e-5
+    assert err(resj.eigenvalues) > 5e-5

@@ -5,7 +5,8 @@ The same numpy inputs go through `eigenpinns_tpu.sparse` and
 (fp32 sums in another order), 1e-4 for gradients (two products deep),
 2e-3 against the bf16-rounded operator in 'bf16' mode (as
 tests/test_sparse.py states). The CUDA kernel itself is checked against
-its plain version by the `cuda`-marked test, which runs only on a card.
+its plain version by the `cuda`-marked tests of tests/test_torch_cuda.py,
+which run only on a card.
 """
 
 import jax
@@ -18,7 +19,6 @@ import torch
 from eigenpinns_tpu import sparse as jsparse
 from eigenpinns_tpu.geometry import point_cloud_laplacian as j_pcl
 from eigenpinns_torch import sparse as tsparse
-from eigenpinns_torch.sparse import rolling as trolling
 
 
 def _rel(a, b):
@@ -142,28 +142,6 @@ def test_rolling_cuda_wrapper_refuses_cpu_tensors():
     op, _ = tsparse.RollingBanded.from_scipy(A)
     with pytest.raises(ValueError, match="CUDA"):
         tsparse.rolling_spmm_cuda(op, torch.zeros(op.n, 3))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["highest", "high", "bf16"])
-@pytest.mark.parametrize("k", [10, 39])
-def test_rolling_cuda_kernel_matches_plain(precision, k):
-    """Kernel vs plain version on the card (rel 1e-5; bf16 2e-3)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
-    A, _ = _case("point_cloud")
-    op, _ = tsparse.RollingBanded.from_scipy(A, device="cuda")
-    op = op.with_precision(precision)
-    U = torch.from_numpy(np.random.default_rng(4).normal(
-        size=(op.n, k)).astype(np.float32)).cuda()
-    before = trolling.rolling_kernel_launches
-    W, G = tsparse.rolling_spmm_cuda(op, U, with_gram=True)
-    torch.cuda.synchronize()
-    assert trolling.rolling_kernel_launches == before + 1
-    Wp, Gp = tsparse.rolling_spmm_gram_plain(op, U)
-    tol = 2e-3 if precision == "bf16" else 1e-5
-    assert _rel(W.cpu(), Wp.cpu()) < tol
-    assert _rel(G.cpu(), Gp.cpu()) < tol
 
 
 def _ell_case():
