@@ -157,7 +157,7 @@ class Hierarchy:
                             **dense)
 
     @classmethod
-    def load(cls, directory: str, dtype=torch.float32, device="cpu",
+    def load(cls, directory: str, dtype=torch.float32, device="cuda",
              operator_format: str = "ell",
              max_bandwidth: int = 4096) -> "Hierarchy":
         """Rebuild a Hierarchy from `save` output (either package's),
@@ -228,7 +228,7 @@ def build_hierarchy(
     dtype=torch.float32,
     operator_format: str = "ell",   # 'ell' | 'banded' | 'auto'
     max_bandwidth: int = 4096,
-    device="cpu",
+    device="cuda",
 ) -> Hierarchy:
     """Build the full multiresolution problem on `device`
     (Sampler.preprocess_mesh parity, src/samplers.py:283-286)."""

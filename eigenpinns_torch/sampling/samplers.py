@@ -1,9 +1,9 @@
-"""Farthest-point samplers for nested multigrid hierarchies.
+"""Farthest-point and voxel samplers for nested hierarchies.
 
-Capability parity with `src/samplers.py:97-143`: nested FPS index sets
-per hierarchy level, each sorted, with the full cloud appended as the
-finest level. Host-side numpy, run once per mesh in preprocessing. A copy
-of the numpy path of `eigenpinns_tpu/sampling/samplers.py`.
+Capability parity with `src/samplers.py:9-143`: nested index sets per
+hierarchy level, each sorted, with the full cloud appended as the finest
+level. Host-side numpy, run once per mesh in preprocessing. A copy of the
+numpy path of `eigenpinns_tpu/sampling/samplers.py`.
 """
 
 from __future__ import annotations
@@ -42,4 +42,47 @@ def farthest_point_levels(points: np.ndarray, hierarchy: list[int],
     order = farthest_point_indices(points, hierarchy[-1], seed=seed)
     levels = [np.sort(order[:n].copy()) for n in hierarchy]
     levels.append(np.arange(points.shape[0]))
+    return levels
+
+
+def voxel_levels(points: np.ndarray, hierarchy: list[int]) -> list[np.ndarray]:
+    """Voxel-grid downsampling with target-count size search.
+
+    Parity with `_voxel_downsampling` (src/samplers.py:9-94): per level,
+    scan voxel scales [0.7..1.5], pick one point per voxel (closest to the
+    voxel center), keep the scale whose count is nearest the target;
+    truncate overshoot; sorted indices; full cloud appended. Vectorized
+    with a lexsort/group-reduce: O(N log N) total.
+    """
+    n = points.shape[0]
+    min_b = points.min(axis=0)
+    extent = points.max(axis=0) - min_b
+    levels = []
+    for target in hierarchy:
+        if target >= n:
+            levels.append(np.arange(n))
+            continue
+        volume = np.prod(extent)
+        base = (volume / (target * 2)) ** (1 / 3)
+        best, best_diff = None, np.inf
+        for scale in (0.7, 0.85, 1.0, 1.15, 1.3, 1.5):
+            vox = base * scale
+            dims = np.ceil(extent / vox).astype(int) + 1
+            vidx = np.clip((points - min_b) / vox, 0, dims - 1).astype(int)
+            vid = (vidx[:, 0] * dims[1] * dims[2]
+                   + vidx[:, 1] * dims[2] + vidx[:, 2])
+            centers = min_b + (vidx + 0.5) * vox
+            d2 = np.sum((points - centers) ** 2, axis=1)
+            # One representative per voxel: the point closest to its center.
+            order = np.lexsort((d2, vid))
+            first = np.ones(n, dtype=bool)
+            first[1:] = vid[order][1:] != vid[order][:-1]
+            sel = order[first]
+            diff = abs(sel.size - target)
+            if diff < best_diff:
+                best, best_diff = sel, diff
+            if sel.size >= target * 0.95:
+                break
+        levels.append(np.sort(best[:target] if best.size > target else best))
+    levels.append(np.arange(n))
     return levels

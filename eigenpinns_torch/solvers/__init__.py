@@ -1,5 +1,9 @@
 from eigenpinns_torch.solvers.direct import DirectResult, train_joint
-from eigenpinns_torch.solvers.lobpcg import lobpcg, lobpcg_from_random
+from eigenpinns_torch.solvers.lobpcg import (
+    lobpcg,
+    lobpcg_blocked,
+    lobpcg_from_random,
+)
 from eigenpinns_torch.solvers.multigrid import (
     MultigridResult,
     MultigridTrainer,
@@ -16,9 +20,17 @@ from eigenpinns_torch.solvers.smoothers import (
     coarse_grid_correction,
     jacobi_smooth,
 )
+from eigenpinns_torch.solvers.spectral_basis import (
+    SpectralBasisResult,
+    family_operators,
+    spectral_basis,
+    spectral_basis_family,
+)
 
 __all__ = [
-    "DirectResult", "train_joint", "lobpcg", "lobpcg_from_random",
+    "DirectResult", "train_joint", "lobpcg", "lobpcg_blocked",
+    "lobpcg_from_random", "SpectralBasisResult", "spectral_basis",
+    "spectral_basis_family", "family_operators",
     "MultigridResult", "MultigridTrainer",
     "eigsh_smallest", "eigh_generalized", "filtered_whiten",
     "rayleigh_ritz", "rayleigh_ritz_robust", "cg_solve",

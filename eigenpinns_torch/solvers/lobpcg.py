@@ -8,8 +8,10 @@ without a host sync. Here every iteration runs under an on-device
 reads the flag only every `_CHECK_EVERY` iterations: the iteration count
 is that of the JAX loop, at one sync per `_CHECK_EVERY` iterations.
 
-Two departures from the JAX iteration, both the same iteration in exact
-arithmetic (ROADMAP queue 3):
+`lobpcg_blocked` runs it in deflated sweeps for large mode counts.
+
+Departures from the JAX iteration (ROADMAP queue 3). The first three
+are the same iteration in exact arithmetic; the fourth is an added step:
 
   * a warm start's whitened-away directions are flagged dropped (F5);
   * the residual R = K X - M X diag(lam) and the returned eigenvalues use
@@ -18,17 +20,34 @@ arithmetic (ROADMAP queue 3):
     S^T K S (F9). In fp32 those Gram eigenvalues carry an error far
     above the Rayleigh quotients' on large clouds (1e-3 against 3e-6
     relative on a 20k-point Laplacian), so a residual built from them
-    has a floor and the iteration stalls there.
+    has a floor and the iteration stalls there;
+  * the Rayleigh-Ritz eigh runs in fp64 (F11). The W directions carry
+    Rayleigh quotients near the top of the spectrum, so fp32 eigh of
+    S^T K S errs by more than the gap of a near-degenerate pair and
+    returns an arbitrary rotation of the pair;
+  * `lobpcg_blocked` ends with one fp64 Rayleigh-Ritz over all its
+    sweeps' modes and the last sweep's guard columns (F11), a projection
+    the JAX package does not make: a pair split across two sweeps is
+    mixed otherwise. It changes the returned vectors whenever a sweep
+    stopped short of convergence.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import tempfile
+import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from eigenpinns_torch.sparse.ops import gram, hdot, spmm
-from eigenpinns_torch.solvers.rayleigh_ritz import filtered_whiten
+from eigenpinns_torch.solvers.rayleigh_ritz import (
+    eigh_generalized,
+    filtered_whiten,
+)
 
 _CHECK_EVERY = 10   # iterations between host reads of the stop flag
 
@@ -66,6 +85,12 @@ def _rayleigh_quotients(X, KX, MX):
     directions."""
     den = (X * MX).sum(0)
     return (X * KX).sum(0) / torch.where(den > 0, den, torch.ones_like(den))
+
+
+def _residual_norms(X, KX, MX, lam):
+    R = KX - MX * lam[None, :]
+    return torch.linalg.vector_norm(R, dim=0) / torch.clamp(lam.abs(),
+                                                            min=1.0)
 
 
 def _project_out(Y, X, MX):
@@ -111,8 +136,9 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
         A = 0.5 * (A + A.T)
         A = A + torch.diag(torch.where(good, torch.zeros((), device=A.device),
                                        _sentinel(A)))
-        w, V = torch.linalg.eigh(A)
-        C = V[:, :k]
+        # fp64 eigh (F11): fp32's error, eps * |A|, reaches the gaps of
+        # near-degenerate pairs once W holds high Rayleigh quotients.
+        C = torch.linalg.eigh(A.double())[1][:, :k].to(A.dtype)
         C_wp = C.clone()
         C_wp[:k] = 0.0                              # W/P contribution only
         # A selected Ritz vector is good when it lies in the kept
@@ -143,10 +169,20 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
 
     KX, MX = spmm(K, X), spmm(M, X)
     lam = _rayleigh_quotients(X, KX, MX)
-    R = KX - MX * lam[None, :]
-    res = torch.linalg.vector_norm(R, dim=0) / torch.clamp(lam.abs(),
-                                                           min=1.0)
-    return LobpcgResult(lam, X, it, res)
+    return LobpcgResult(lam, X, it, _residual_norms(X, KX, MX, lam))
+
+
+@torch.no_grad()
+def _rayleigh_ritz_f64(K, M, V: torch.Tensor):
+    """Rayleigh-Ritz of span(V) with the k x k Grams and their eigh in
+    fp64: (Ritz values, rotated V, residual norms)."""
+    KV, MV = spmm(K, V), spmm(M, V)
+    A = V.double().T @ KV.double()
+    B = V.double().T @ MV.double()
+    C = eigh_generalized(0.5 * (A + A.T), 0.5 * (B + B.T))[1].to(V.dtype)
+    V, KV, MV = hdot(V, C), hdot(KV, C), hdot(MV, C)
+    lam = _rayleigh_quotients(V, KV, MV)
+    return lam, V, _residual_norms(V, KV, MV, lam)
 
 
 def lobpcg_from_random(K, M, k: int, generator: torch.Generator | None = None,
@@ -160,3 +196,122 @@ def lobpcg_from_random(K, M, k: int, generator: torch.Generator | None = None,
                      device=device)
     X0[:, 0] = 1.0
     return lobpcg(K, M, X0, k=k, **kw)
+
+
+def lobpcg_blocked(K, M, k_total: int, block: int = 16, guard: int = 4,
+                   max_iter: int = 200, tol: float = 1e-6,
+                   generator: torch.Generator | None = None,
+                   dtype=torch.float32, X0_full: torch.Tensor | None = None,
+                   checkpoint_dir: str = "", log_fn=None):
+    """k_total smallest eigenpairs in deflated sweeps of `block` modes.
+
+    Port of `lobpcg_blocked` (`eigenpinns_tpu/solvers/lobpcg.py`). Each
+    sweep runs `lobpcg` on `block + guard` vectors, M-orthogonally
+    deflated against every mode already converged (the `Y` constraint,
+    a fixed-width (N, k_total) basis whose zero columns are inert), and
+    keeps the first `block`. `X0_full` (N, >= k_total) warm-starts the
+    kept columns of every sweep (e.g. prolongated coarse eigenvectors);
+    the guard columns, and the rest without a warm start, are drawn from
+    `generator` (default: one on K's device seeded with 0). The JAX
+    package draws them from `jax.random`, so the two solvers agree after
+    convergence, not bit for bit. The sweeps' modes, with the last
+    sweep's guard columns, end with one fp64 Rayleigh-Ritz that keeps the
+    lowest k_total (F11; the JAX package returns each sweep's modes as
+    they are).
+
+    `checkpoint_dir` persists every converged sweep, with the
+    generator's state, to `<dir>/lobpcg_blocked.npz` (written to a temp
+    file and `os.replace`d) and resumes from it on restart, giving the
+    same result as an uninterrupted run. A problem fingerprint (the
+    operators' leading diagonals, tol, guard, max_iter) keeps a
+    checkpoint of another problem from being resumed. The file holds a
+    `torch.Generator` state where the JAX package stores its PRNG key:
+    neither package can read the other's checkpoint.
+
+    Returns (eigenvalues (k_total,), eigenvectors (N, k_total),
+    residual_norms (k_total,)) as numpy arrays.
+    """
+    n = K.shape[0]
+    device = K.diagonal().device
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    Y = torch.zeros((n, k_total), dtype=dtype, device=device)
+    vals, vecs, resids = [], [], []
+    b0 = 0
+
+    ckpt_path = None
+    fingerprint = ""
+    if checkpoint_dir:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        ckpt_path = os.path.join(checkpoint_dir, "lobpcg_blocked.npz")
+        h = hashlib.sha1()
+        for op in (K, M):
+            d = op.diagonal().detach().double().cpu().numpy()
+            h.update(d[:4096].tobytes())
+        h.update(np.float64([tol, guard, max_iter]).tobytes())
+        fingerprint = h.hexdigest()
+        if os.path.exists(ckpt_path):
+            z = np.load(ckpt_path)
+            if (int(z["n"]) == n and int(z["k_total"]) == k_total
+                    and int(z["block"]) == block
+                    and str(z["fingerprint"]) == fingerprint):
+                b0 = int(z["b0"])
+                if b0 > 0:
+                    vals, vecs, resids = [z["vals"]], [z["vecs"]], [
+                        z["resids"]]
+                    Y[:, :b0] = torch.as_tensor(z["vecs"], dtype=dtype,
+                                                device=device)
+                generator.set_state(torch.from_numpy(z["generator"]))
+            else:
+                warnings.warn(
+                    "lobpcg_blocked: ignoring checkpoint in "
+                    f"{checkpoint_dir} (different problem/settings)",
+                    stacklevel=2)
+
+    def _save(b_next):
+        fd, tmp = tempfile.mkstemp(dir=checkpoint_dir, suffix=".npz")
+        os.close(fd)
+        np.savez(tmp, n=n, k_total=k_total, block=block, b0=b_next,
+                 fingerprint=fingerprint, vals=np.concatenate(vals),
+                 vecs=np.concatenate(vecs, axis=1),
+                 resids=np.concatenate(resids),
+                 generator=generator.get_state().numpy())
+        os.replace(tmp, ckpt_path)
+
+    guards = None   # the guard columns of the latest sweep
+    while b0 < k_total:
+        keep = min(block, k_total - b0)
+        kb = min(block + guard, k_total + guard - b0)
+        X0 = torch.randn((n, kb), generator=generator, dtype=dtype,
+                         device=device)
+        if X0_full is not None and b0 + keep <= X0_full.shape[1]:
+            X0[:, :keep] = torch.as_tensor(X0_full[:, b0:b0 + keep],
+                                           dtype=dtype, device=device)
+        elif b0 == 0:
+            X0[:, 0] = 1.0   # rigid-body mode
+        res = lobpcg(K, M, X0, k=kb, max_iter=max_iter, tol=tol, Y=Y)
+        vals.append(res.eigenvalues[:keep].cpu().numpy())
+        vecs.append(res.eigenvectors[:, :keep].cpu().numpy())
+        resids.append(res.residual_norms[:keep].cpu().numpy())
+        if log_fn is not None:
+            log_fn(b0, keep, res)
+        Y[:, b0:b0 + keep] = res.eigenvectors[:, :keep]
+        guards = res.eigenvectors[:, keep:]
+        b0 += keep
+        if ckpt_path is not None:
+            _save(b0)
+    if ckpt_path is not None:
+        # A finished sweep's checkpoint must not shadow the next run.
+        try:
+            os.remove(ckpt_path)
+        except OSError:
+            pass
+    # Y now holds every sweep's modes. One Rayleigh-Ritz over them and the
+    # last sweep's guard columns, keeping the lowest k_total (F11): the
+    # halves of a pair split at a sweep boundary, or at k_total, come back
+    # unmixed.
+    if guards is not None:
+        Y = torch.cat([Y, guards], dim=1)
+    lam, V, res = _rayleigh_ritz_f64(K, M, Y)
+    return (lam[:k_total].cpu().numpy(), V[:, :k_total].cpu().numpy(),
+            res[:k_total].cpu().numpy())

@@ -128,7 +128,7 @@ class BSRTile:
         return self.diag
 
     @classmethod
-    def from_scipy(cls, A, dtype=torch.float32, device="cpu",
+    def from_scipy(cls, A, dtype=torch.float32, device="cuda",
                    tile: int = 128, reorder: bool = True,
                    with_transpose: bool = True,
                    pad_rows_to: int | None = None,

@@ -44,7 +44,7 @@ class SparseELL:
         return (self.indices.shape[0], self.n_cols)
 
     @classmethod
-    def from_scipy(cls, A, dtype=torch.float32, device="cpu",
+    def from_scipy(cls, A, dtype=torch.float32, device="cuda",
                    pad_multiple: int = 8, with_transpose: bool = True):
         """Canonicalize any scipy sparse matrix into ELL (host-side, once).
 
@@ -114,7 +114,7 @@ class Diagonal:
         return (n, n)
 
     @classmethod
-    def from_scipy(cls, A, dtype=torch.float32, device="cpu"):
+    def from_scipy(cls, A, dtype=torch.float32, device="cuda"):
         return cls(torch.as_tensor(np.asarray(A.diagonal()), dtype=dtype,
                                    device=device))
 
@@ -122,7 +122,7 @@ class Diagonal:
         return self.diag
 
 
-def as_operator(A, dtype=torch.float32, device="cpu", pad_multiple: int = 8):
+def as_operator(A, dtype=torch.float32, device="cuda", pad_multiple: int = 8):
     """scipy sparse -> Diagonal if (numerically) diagonal, else SparseELL."""
     if sp.issparse(A):
         if A.shape[0] == A.shape[1]:

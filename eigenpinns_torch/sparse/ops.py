@@ -14,12 +14,22 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from eigenpinns_torch.sparse.banded import (
+    BandedELL,
+    banded_spmm,
+    banded_spmm_gram,
+)
 from eigenpinns_torch.sparse.bsr import BSRTile, bsr_spmm, bsr_spmm_gram
 from eigenpinns_torch.sparse.formats import Diagonal, SparseELL
 from eigenpinns_torch.sparse.rolling import (
     RollingBanded,
     rolling_spmm,
     rolling_spmm_gram,
+)
+from eigenpinns_torch.sparse.split import (
+    SplitBanded,
+    split_spmm,
+    split_spmm_gram,
 )
 
 
@@ -50,15 +60,19 @@ class _EllSpmm(torch.autograd.Function):
 
 
 def spmm(A, U: torch.Tensor) -> torch.Tensor:
-    """A @ U for A in {Diagonal, SparseELL, RollingBanded, BSRTile},
-    U (N, k)."""
+    """A @ U for A in {Diagonal, SparseELL, BandedELL, RollingBanded,
+    SplitBanded, BSRTile}, U (N, k)."""
     if isinstance(A, Diagonal):
         return A.diag[:, None] * U
     if isinstance(A, SparseELL):
         t = A.transpose_ell if A.transpose_ell is not None else A
         return _EllSpmm.apply(U, A.indices, A.values, t.indices, t.values)
+    if isinstance(A, BandedELL):
+        return banded_spmm(A, U)
     if isinstance(A, RollingBanded):
         return rolling_spmm(A, U)
+    if isinstance(A, SplitBanded):
+        return split_spmm(A, U)
     if isinstance(A, BSRTile):
         return bsr_spmm(A, U)
     raise TypeError(f"unsupported operator {type(A)}")
@@ -70,11 +84,15 @@ def spmv(A, u: torch.Tensor) -> torch.Tensor:
 
 
 def spmm_gram(A, U: torch.Tensor):
-    """(A @ U, U^T A U): one fused kernel pass for the rolling band, the
-    kernel plus an fp32 matmul epilogue for strip-BSR, the two-pass form
-    for other formats."""
+    """(A @ U, U^T A U): one fused kernel pass for the banded, rolling and
+    split formats, the kernel plus an fp32 matmul epilogue for strip-BSR,
+    the two-pass form for other formats."""
+    if isinstance(A, BandedELL):
+        return banded_spmm_gram(A, U)
     if isinstance(A, RollingBanded):
         return rolling_spmm_gram(A, U)
+    if isinstance(A, SplitBanded):
+        return split_spmm_gram(A, U)
     if isinstance(A, BSRTile):
         return bsr_spmm_gram(A, U)
     W = spmm(A, U)
@@ -111,7 +129,7 @@ def residual(U: torch.Tensor, K, M, lam: torch.Tensor) -> torch.Tensor:
     return spmm(K, U) - spmm(M, U) * lam[None, :]
 
 
-def gcn_normalized_adjacency(edge_index, n_nodes: int, device="cpu",
+def gcn_normalized_adjacency(edge_index, n_nodes: int, device="cuda",
                              dtype=torch.float32) -> SparseELL:
     """D^{-1/2} (A + I) D^{-1/2} as SparseELL — the SpectralCorrector's
     aggregation operator (src/utils.py:78-124). Host-side build."""
@@ -137,7 +155,7 @@ def neighbor_mean_scipy(edge_index, n_nodes: int):
     return (sp.diags(1.0 / np.clip(deg, 1.0, None)) @ A).tocsr()
 
 
-def neighbor_mean_operator(edge_index, n_nodes: int, device="cpu",
+def neighbor_mean_operator(edge_index, n_nodes: int, device="cuda",
                            dtype=torch.float32) -> SparseELL:
     """D^{-1} A as SparseELL with its transpose attached:
     `spmm(op, x)[i]` is the mean of x over i's out-neighbors."""

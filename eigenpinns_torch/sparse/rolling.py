@@ -85,7 +85,7 @@ class RollingBanded:
         return self.band[rows, (rows + self.pre) % bp][: self.n]
 
     @classmethod
-    def from_scipy(cls, A, dtype=torch.float32, device="cpu",
+    def from_scipy(cls, A, dtype=torch.float32, device="cuda",
                    tile: int = 128, reorder: bool = True,
                    max_bandwidth: int = 4096, with_transpose: bool = True):
         """Convert a scipy sparse matrix; returns (op, perm). Raises

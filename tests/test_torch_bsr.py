@@ -33,6 +33,10 @@ from eigenpinns_tpu.sparse import bsr as jbsr
 from eigenpinns_torch import sparse as tsparse
 from eigenpinns_torch.sparse import bsr as tbsr
 
+# The suite runs in several worker processes on a few cores; one torch
+# thread per core in each makes their thread pools contend.
+torch.set_num_threads(2)
+
 PRECISIONS = ("highest", "high", "bf16")
 
 
@@ -96,7 +100,7 @@ def _build(case):
         base, _ = jbsr.BSRTile.from_scipy(A, with_transpose=False)
         kw["pad_chunks_to"] = base.n_chunks + 5
     jop, jperm = jbsr.BSRTile.from_scipy(A, **kw)
-    top, tperm = tbsr.BSRTile.from_scipy(A, **kw)
+    top, tperm = tbsr.BSRTile.from_scipy(A, device="cpu", **kw)
     return A, jop, jperm, top, tperm
 
 
@@ -152,7 +156,8 @@ def test_bsr_layout_matches_jax(ops, case):
 
 def test_bsr_static_layout_false_builds_no_group_tables():
     A = _matrix("sym700")
-    top, _ = tbsr.BSRTile.from_scipy(A, static_layout=False)
+    top, _ = tbsr.BSRTile.from_scipy(A, static_layout=False,
+                                    device="cpu")
     jop, _ = jbsr.BSRTile.from_scipy(A, static_layout=False)
     assert top.gcid is None and jop.gcid is None
     _assert_layout_equal(top, jop)

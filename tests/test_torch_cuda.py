@@ -10,7 +10,10 @@ machine without it:
 Tolerances: W and the fused Gram rel 1e-5 in fp32 modes (sums in another
 order); in 'bf16' rel 2e-3 for the rolling band, whose plain product
 keeps the operator's own rounding, and rel 1e-4 for strip-BSR, where the
-plain version rounds U exactly as the kernels do.
+plain version rounds U exactly as the kernels do. The full-window band
+(K4, K5): W rel 1e-5, G rel 2e-5 and the gradient through the fused Gram
+rel 1e-4, with an fp32 or a bf16 band (the plain version rounds U as the
+kernels do).
 """
 
 import dataclasses
@@ -22,6 +25,7 @@ import torch
 
 from eigenpinns_torch import sparse as tsparse
 from eigenpinns_torch.geometry import point_cloud_laplacian
+from eigenpinns_torch.sparse import banded as tbanded
 from eigenpinns_torch.sparse import bsr as tbsr
 from eigenpinns_torch.sparse import rolling as trolling
 
@@ -97,3 +101,47 @@ def test_bsr_cuda_kernels_match_plain(precision, k):
     (tbsr.bsr_spmm(op, Ut) * g).sum().backward()
     ref = tbsr.bsr_spmm_plain(op.transpose_bsr, g)
     assert _rel(Ut.grad.cpu(), ref.cpu()) < tol
+
+
+def _banded_op(case, dtype):
+    if case == "cloud":
+        X = np.random.default_rng(7).normal(size=(700, 3))
+        X /= np.linalg.norm(X, axis=1, keepdims=True)
+        A = point_cloud_laplacian(X, n_neighbors=12)[0]
+        return tsparse.SplitBanded.from_scipy(A, X=X, window=256,
+                                              order="hilbert", dtype=dtype,
+                                              device="cuda")[0].core
+    return tbanded.BandedELL.from_scipy(_asym800(), dtype=dtype,
+                                        reorder=False, device="cuda")[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [5, 40])
+@pytest.mark.parametrize("case", ["cloud", "asym800"])
+def test_banded_cuda_kernels_match_plain(case, k, dtype):
+    """K4 and K5 vs the plain version: a split core whose windows reach
+    past n, and a nonsymmetric band whose gradient applies the stored
+    transpose."""
+    _need_card()
+    op = _banded_op(case, dtype)
+    gen = torch.Generator("cuda").manual_seed(k)
+    U = torch.randn((op.n, k), generator=gen, device="cuda")
+    gW = torch.randn((op.n, k), generator=gen, device="cuda")
+    gG = torch.randn((k, k), generator=gen, device="cuda")
+    before = dict(tbanded.banded_kernel_launches)
+    W = tbanded.banded_spmm_cuda(op, U)
+    W2, G = tbanded.banded_spmm_cuda(op, U, with_gram=True)
+    torch.cuda.synchronize()
+    assert tbanded.banded_kernel_launches == {
+        "spmm": before["spmm"] + 1, "spmm_gram": before["spmm_gram"] + 1}
+    Wp, Gp = tbanded.banded_spmm_gram_plain(op, U)
+    assert torch.equal(W, W2)
+    assert _rel(W.cpu(), Wp.cpu()) < 1e-5
+    assert _rel(G.cpu(), Gp.cpu()) < 2e-5
+    Uk = U.clone().requires_grad_(True)
+    Wk, Gk = tbanded.banded_spmm_gram(op, Uk)
+    ((Wk * gW).sum() + (Gk * gG).sum()).backward()
+    At = op.transpose_banded if op.transpose_banded is not None else op
+    ref = tbanded.banded_spmm_plain(At, gW + U @ gG) + Wp @ gG.T
+    assert _rel(Uk.grad.cpu(), ref.cpu()) < 1e-4

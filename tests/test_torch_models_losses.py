@@ -29,6 +29,10 @@ from eigenpinns_torch import sparse as tsparse
 from eigenpinns_torch.models import MLP, from_flax_params, make_corrector
 from eigenpinns_torch.train import AdamPlateau, run_chunked_loop
 
+# The suite runs in several worker processes on a few cores; one torch
+# thread per core in each makes their thread pools contend.
+torch.set_num_threads(2)
+
 
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -91,7 +95,7 @@ def test_correctors_match_flax_with_copied_params(model_type):
     build = ("gcn_normalized_adjacency" if model_type == "spectral"
              else "neighbor_mean_operator")
     jg = getattr(jsparse, build)(edges, n)
-    tg = getattr(tsparse, build)(edges, n)
+    tg = getattr(tsparse, build)(edges, n, device="cpu")
     x = rng.normal(size=(n, f)).astype(np.float32)
     jm = j_make_corrector(model_type, [16, 16], 4)
     jp = jm.init(jax.random.PRNGKey(3), jnp.asarray(x), jg)
@@ -138,12 +142,12 @@ def loss_ops():
     X /= np.linalg.norm(X, axis=1, keepdims=True)
     L, M = j_pcl(X, n_neighbors=12)
     jK, perm = jsparse.RollingBanded.from_scipy(L)
-    tK, _ = tsparse.RollingBanded.from_scipy(L)
+    tK, _ = tsparse.RollingBanded.from_scipy(L, device="cpu")
     Lp = L.tocsr()[perm][:, perm]
     Mp = M.tocsr()[perm][:, perm]
     return {"rolling": (jK, tK), "ell": (jsparse.as_operator(Lp),
-                                         tsparse.as_operator(Lp)),
-            "M": (jsparse.as_operator(Mp), tsparse.as_operator(Mp))}
+                                         tsparse.as_operator(Lp, device="cpu")),
+            "M": (jsparse.as_operator(Mp), tsparse.as_operator(Mp, device="cpu"))}
 
 
 @pytest.mark.parametrize("kfmt", ["rolling", "ell"])
@@ -154,7 +158,7 @@ def test_losses_match_jax(loss_ops, kfmt):
     U = rng.normal(size=(300, 5)).astype(np.float32)
     Uc = rng.normal(size=(60, 5)).astype(np.float32)
     Pt = sp.random(60, 300, density=0.05, random_state=7, format="csr")
-    jPt, tPt = jsparse.as_operator(Pt), tsparse.as_operator(Pt)
+    jPt, tPt = jsparse.as_operator(Pt), tsparse.as_operator(Pt, device="cpu")
     lam_t = np.linspace(0, 2, 5).astype(np.float32)
 
     def jterms(u):

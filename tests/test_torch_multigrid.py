@@ -44,6 +44,10 @@ from eigenpinns_torch.solvers import MultigridTrainer, eigsh_smallest
 from eigenpinns_torch.sparse import BSRTile, RollingBanded
 from eigenpinns_torch.utils.fixtures import perturbed_icosphere
 
+# The suite runs in several worker processes on a few cores; one torch
+# thread per core in each makes their thread pools contend.
+torch.set_num_threads(2)
+
 LEVELS, K_MODES = [64, 160], 5
 CFG = dict(n_modes=K_MODES, hierarchy=LEVELS, hidden_layers=[32, 32],
            epochs=50, scan_chunk=25, scale_ramp_epochs=100,
@@ -102,7 +106,7 @@ def jax_run(jax_hierarchy):
 
 def test_load_reads_jax_layout_into_identical_operators(jax_hierarchy):
     jh, d = jax_hierarchy
-    h = Hierarchy.load(d, operator_format="auto")
+    h = Hierarchy.load(d, operator_format="auto", device="cpu")
     assert h.actual_hierarchy == jh.actual_hierarchy
     for top, jop in zip(h.K_ops, jh.K_ops):
         assert isinstance(top, RollingBanded)
@@ -122,7 +126,8 @@ class _Stop(Exception):
 
 def test_features_match_jax_but_coarsest_residual(jax_hierarchy, jax_run):
     feats_j = jax_run[3]
-    h = Hierarchy.load(jax_hierarchy[1], operator_format="auto")
+    h = Hierarchy.load(jax_hierarchy[1], operator_format="auto",
+                       device="cpu")
     seen = {}
     build = MultigridTrainer._build_features
 
@@ -145,7 +150,8 @@ def test_features_match_jax_but_coarsest_residual(jax_hierarchy, jax_run):
 
 def test_training_and_polish_match_jax(jax_hierarchy, jax_run, monkeypatch):
     jres, jparams, guard, feats_j = jax_run
-    h = Hierarchy.load(jax_hierarchy[1], operator_format="auto")
+    h = Hierarchy.load(jax_hierarchy[1], operator_format="auto",
+                       device="cpu")
     model = from_flax_params(
         make_corrector("simple", feats_j.shape[1], CFG["hidden_layers"],
                        K_MODES),
@@ -171,7 +177,7 @@ def test_training_and_polish_match_jax(jax_hierarchy, jax_run, monkeypatch):
 def test_build_hierarchy_matches_jax_build(mesh, jax_hierarchy):
     jh, _ = jax_hierarchy
     h = build_hierarchy(mesh, LEVELS, n_modes=K_MODES, pc_neighbors=15,
-                        operator_format="auto")
+                        operator_format="auto", device="cpu")
     assert h.actual_hierarchy == jh.actual_hierarchy
     for i in range(h.n_levels):
         np.testing.assert_array_equal(h.perms[i], jh.perms[i])
@@ -186,7 +192,7 @@ def test_build_hierarchy_matches_jax_build(mesh, jax_hierarchy):
 
 def test_save_writes_the_jax_layout(mesh, jax_hierarchy, tmp_path):
     jh, jdir = jax_hierarchy
-    h = Hierarchy.load(jdir, operator_format="auto")
+    h = Hierarchy.load(jdir, operator_format="auto", device="cpu")
     h.save(str(tmp_path))
     assert sorted(os.listdir(tmp_path)) == sorted(os.listdir(jdir))
     back = JHierarchy.load(str(tmp_path), operator_format="auto")
@@ -206,7 +212,8 @@ def test_fused_loss_equals_per_level_loss(jax_hierarchy, options):
     """The block-diagonal K_blk loss and the per-level loss (spmm_gram on
     each level's operators) are the same function: equal histories over
     5 epochs to rel 1e-5."""
-    h = Hierarchy.load(jax_hierarchy[1], operator_format="auto")
+    h = Hierarchy.load(jax_hierarchy[1], operator_format="auto",
+                       device="cpu")
     cfg = dict(CFG, epochs=5, scan_chunk=5, polish_iters=0, **options)
     fused = MultigridTrainer(Config(**cfg)).train(h)
     per_level = MultigridTrainer(Config(**cfg, fuse_level_ops=False)).train(h)
@@ -222,7 +229,8 @@ def test_fused_loss_equals_per_level_loss(jax_hierarchy, options):
                                     "profile_dir", "timing_chunks",
                                     "eval_callback"])
 def test_unported_options_raise(jax_hierarchy, option):
-    h = Hierarchy.load(jax_hierarchy[1], operator_format="auto")
+    h = Hierarchy.load(jax_hierarchy[1], operator_format="auto",
+                       device="cpu")
     kw, train_kw = {}, {}
     if option == "eval_callback":
         train_kw["eval_callback"] = print
@@ -253,7 +261,7 @@ def test_wide_k_raises_for_unported_bsr(mesh):
         jh = j_build(JTriMesh(mesh.verts, mesh.faces), [64], n_modes=40,
                      pc_neighbors=15, operator_format="auto")
     h = build_hierarchy(mesh, [64], n_modes=40, pc_neighbors=15,
-                        operator_format="auto")
+                        operator_format="auto", device="cpu")
     assert h.actual_hierarchy == jh.actual_hierarchy
     for i in range(h.n_levels):
         np.testing.assert_array_equal(h.perms[i], jh.perms[i])

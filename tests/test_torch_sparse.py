@@ -20,6 +20,10 @@ from eigenpinns_tpu import sparse as jsparse
 from eigenpinns_tpu.geometry import point_cloud_laplacian as j_pcl
 from eigenpinns_torch import sparse as tsparse
 
+# The suite runs in several worker processes on a few cores; one torch
+# thread per core in each makes their thread pools contend.
+torch.set_num_threads(2)
+
 
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -52,7 +56,8 @@ def ops():
     for name in CASES:
         A, reorder = _case(name)
         jop, jperm = jsparse.RollingBanded.from_scipy(A, reorder=reorder)
-        top, tperm = tsparse.RollingBanded.from_scipy(A, reorder=reorder)
+        top, tperm = tsparse.RollingBanded.from_scipy(A, reorder=reorder,
+                                                       device="cpu")
         out[name] = (A, jop, jperm, top, tperm)
     return out
 
@@ -124,7 +129,7 @@ def test_rolling_bf16_mode_rounds_operator_and_u():
     X = r2.normal(size=(600, 3))
     X /= np.linalg.norm(X, axis=1, keepdims=True)
     L, _ = j_pcl(X, n_neighbors=12)
-    op, p = tsparse.RollingBanded.from_scipy(L)
+    op, p = tsparse.RollingBanded.from_scipy(L, device="cpu")
     opb = op.with_precision("bf16")
     assert opb.band.dtype == torch.bfloat16
     assert opb.with_precision("highest").band.dtype == torch.float32
@@ -139,7 +144,7 @@ def test_rolling_bf16_mode_rounds_operator_and_u():
 def test_rolling_cuda_wrapper_refuses_cpu_tensors():
     """The kernel wrapper never falls back: CPU tensors are refused."""
     A, _ = _case("pentadiagonal")
-    op, _ = tsparse.RollingBanded.from_scipy(A)
+    op, _ = tsparse.RollingBanded.from_scipy(A, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tsparse.rolling_spmm_cuda(op, torch.zeros(op.n, 3))
 
@@ -155,7 +160,7 @@ def _ell_case():
 def test_ell_spmm_and_transpose_gather_backward():
     A = _ell_case()
     jop = jsparse.SparseELL.from_scipy(A)
-    top = tsparse.SparseELL.from_scipy(A)
+    top = tsparse.SparseELL.from_scipy(A, device="cpu")
     assert top.transpose_ell is not None
     np.testing.assert_array_equal(top.indices.numpy(), np.asarray(jop.indices))
     np.testing.assert_array_equal(top.values.numpy(), np.asarray(jop.values))
@@ -177,12 +182,12 @@ def test_ell_spmm_and_transpose_gather_backward():
 
 def test_diagonal_and_as_operator():
     M = sp.diags(np.linspace(1.0, 2.0, 40)).tocsr()
-    op = tsparse.as_operator(M)
+    op = tsparse.as_operator(M, device="cpu")
     assert isinstance(op, tsparse.Diagonal)
     np.testing.assert_allclose(op.diag.numpy(), M.diagonal(), rtol=1e-7)
-    assert isinstance(tsparse.as_operator(_ell_case()), tsparse.SparseELL)
+    assert isinstance(tsparse.as_operator(_ell_case(), device="cpu"), tsparse.SparseELL)
     with pytest.raises(TypeError):
-        tsparse.as_operator(np.eye(3))
+        tsparse.as_operator(np.eye(3), device="cpu")
 
 
 def test_gram_reductions_match_jax():
@@ -190,7 +195,8 @@ def test_gram_reductions_match_jax():
     A = (A + A.T).tocsr()
     M = sp.diags(np.random.default_rng(8).uniform(0.5, 1.5, A.shape[0]))
     jK, jM = jsparse.as_operator(A), jsparse.as_operator(M.tocsr())
-    tK, tM = tsparse.as_operator(A), tsparse.as_operator(M.tocsr())
+    tK = tsparse.as_operator(A, device="cpu")
+    tM = tsparse.as_operator(M.tocsr(), device="cpu")
     U = np.random.default_rng(9).normal(size=(A.shape[0], 6)).astype(
         np.float32)
     lam = np.linspace(0.1, 1.0, 6).astype(np.float32)
@@ -219,6 +225,6 @@ def test_graph_operators_match_jax():
                     jsparse.neighbor_mean_operator),
                    (tsparse.gcn_normalized_adjacency,
                     jsparse.gcn_normalized_adjacency)):
-        t, j = tf(edges, n), jf(edges, n)
+        t, j = tf(edges, n, device="cpu"), jf(edges, n)
         assert abs(t.to_scipy() - j.to_scipy()).max() < 1e-7
         assert (t.transpose_ell is None) == (j.transpose_ell is None)
