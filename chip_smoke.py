@@ -21,8 +21,9 @@ present or the package is not beside it. On the card it:
      `rolling_spmm_gram` in 'highest' and 'high' (rel 1e-5 for W and
      G, 1e-4 for the gradient), and in 'bf16' against the plain product
      of the same bf16-rounded operator (rel 2e-3); it times both
-     (median of 50 synced launches) and torch.sparse.mm of the same
-     operator as a CSR tensor (the library yardstick);
+     (median of 20 samples of 5 back-to-back launches) and
+     torch.sparse.mm of the same operator as a CSR tensor (the library
+     yardstick);
   3. runs the multigrid path at the bench's full width: build_hierarchy
      on a 2562-vertex perturbed icosphere (levels [128, 512, 1024] + the
      full cloud, k = 10, operator_format='auto'), then MultigridTrainer
@@ -34,13 +35,22 @@ present or the package is not beside it. On the card it:
      cloud (`make_cloud`), its point-cloud Laplacian (15 neighbors), the
      strip-BSR K (RCM, C = 8, G = 32) on the card and the lumped M; the
      eigsh oracle (50 modes) runs in a worker process meanwhile;
-  5. holds K2 (the 300k K) and K3 (the same K without its group tables,
-     sharing the strips) against the plain version at k = 20 (training),
-     28 (the polish block) and 128 (the SpMM probe) in 'highest', 'high'
+  5. holds the occupancy-driven K2 (the 300k K) and K3 (the same K
+     without its group tables, sharing the strips and the occupancy
+     table) against the plain version at k = 20 (training), 28 (the
+     polish block), 60 and 128 (the SpMM probe) in 'highest', 'high'
      and 'bf16': W to rel 1e-5 (1e-4 in 'bf16', where the plain version
      rounds U the same way), the gradient through `bsr_spmm` to rel
-     1e-4; times both, torch.sparse.mm, and `bsr_spmm_gram` at k = 128
-     in 'highest' and 'bf16' with the bytes the kernel moves;
+     1e-4, W the same bit for bit from a second launch and from the
+     other column block (32 or 64 output columns per block); prints the
+     occupied share of the tiles' 16 x 16 sub-blocks; times both
+     kernels (both column blocks at k = 60 and 128), torch.sparse.mm,
+     and `bsr_spmm_gram` at k = 128 in 'highest' and 'bf16' with the
+     bytes the kernel moves; then one adversarial operator per format
+     (strip-BSR and band, n = 1000: a single nonzero in the last
+     sub-block of a tile, entries in the last row and column, a column
+     tile and a window that reach past n) against the plain version and
+     the dense product;
   6. builds the split operators of the 300k cloud: the cluster-ordered
      SplitBanded of the spectral-basis driver (window 1024, fp32) and the
      Hilbert-ordered training operator (window 512) in bf16 and, from
@@ -48,7 +58,10 @@ present or the package is not beside it. On the card it:
      version on the cluster core at k = 20 and 60, on the Hilbert core in
      fp32 at k = 20 and 28 (the polish block) and in bf16 at k = 20 (W rel
      1e-5, G rel 2e-5, the gradient
-     through `banded_spmm_gram` rel 1e-4), times them, their plain
+     through `banded_spmm_gram` rel 1e-4; W the same bit for bit from a
+     second launch, from the other column block and from K5), prints each
+     core's occupied share of 16 x 16 sub-blocks, times them (K4 with
+     both column blocks), their plain
      version and torch.sparse.mm of the core (+ U^T W for K5), and K2
      at k = 20 and 60 beside them;
   7. runs the direct-training slice: `train_joint` on the strip-BSR K
@@ -166,8 +179,12 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def median_ms(fn, n: int = 50) -> float:
-    """Median of n launches, each timed by CUDA events and synced."""
+def median_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Time of one launch: the median over n samples, each the mean of
+    `reps` back-to-back launches between two CUDA events, synced after.
+    The launches of a sample queue up behind the first, so the host's
+    launch latency (tens of microseconds a call) is not counted as the
+    card's time."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -175,10 +192,11 @@ def median_ms(fn, n: int = 50) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -222,6 +240,17 @@ def band_csr(core) -> torch.Tensor:
     coo = torch.sparse_coo_tensor(torch.stack([r, c]), band[r, j],
                                   (core.n, core.n_cols))
     return coo.coalesce().to_sparse_csr()
+
+
+def occupied_share(table: torch.Tensor, n_words: int | None = None) -> str:
+    """The occupied 16 x 16 sub-blocks of an occupancy table, as a count
+    and as a share of the sub-blocks of `n_words` 128 x 128 pieces (the
+    whole table when not given)."""
+    from eigenpinns_torch.sparse import occupied_blocks
+
+    n = occupied_blocks(table)
+    total = 64 * (table.numel() if n_words is None else n_words)
+    return f"{n} of {total} ({n / total:.4f})"
 
 
 class Phases:
@@ -346,8 +375,11 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
     kernels = {"bsr_spmm_grouped": (K, bsr.bsr_spmm_grouped_cuda),
                "bsr_spmm": (K3, bsr.bsr_spmm_burst_cuda)}
     gen = torch.Generator("cuda").manual_seed(seed)
+    print(f"[kernel] strip-BSR K: occupied 16 x 16 sub-blocks of the real "
+          f"tiles {occupied_share(K.occupancy, K.n_slots)}; of every slot, "
+          f"pad slots included, {occupied_share(K.occupancy)}", flush=True)
     rows = {}
-    for k in (DIRECT_K, DIRECT_K + POLISH_GUARD, 128):
+    for k in (DIRECT_K, DIRECT_K + POLISH_GUARD, SPEC_K + 10, 128):
         U = torch.randn((K.n, k), generator=gen, device="cuda")
         G = torch.randn((K.n, k), generator=gen, device="cuda")
         for prec in ("highest", "high", "bf16"):
@@ -355,6 +387,13 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
                 A = op.with_precision(prec)
                 W = launch(A, U)
                 Wp = bsr.bsr_spmm_plain(A, U)
+                # No atomics, one summation order: a second launch and
+                # the other column block give the same bits.
+                check(torch.equal(launch(A, U), W),
+                      f"{name} k={k} {prec}: two launches differ")
+                other = 96 - bsr.default_col_block(k, A.data.dtype)
+                check(torch.equal(launch(A, U, col_block=other), W),
+                      f"{name} k={k} {prec}: col_block {other} differs")
                 # Gradient through the dispatcher (A is symmetric, so
                 # A^T = A): against torch autograd through the plain
                 # version in fp32; in 'bf16', where the kernel rounds the
@@ -372,9 +411,15 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
                 del Uk, g_ref
                 ms = median_ms(lambda: launch(A, U))
                 plain_ms = median_ms(lambda: bsr.bsr_spmm_plain(A, U))
+                both = ""
+                if k > 32 and prec != "high":
+                    other_ms = median_ms(
+                        lambda: launch(A, U, col_block=other))
+                    both = (f" (col_block {96 - other}; {other_ms:.4f} ms "
+                            f"with {other})")
                 print(f"[kernel] {name} {tuple(A.data.shape)} k={k} {prec}: "
                       f"rel_err_W={errs['W']:.3e} rel_err_dU={errs['dU']:.3e}"
-                      f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}",
+                      f" kernel_ms={ms:.4f}{both} plain_ms={plain_ms:.4f}",
                       flush=True)
                 check(errs["W"] <= BSR_TOL[prec],
                       f"{name} k={k} {prec} W: rel err {errs['W']:.3e}")
@@ -401,7 +446,8 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
         ms = median_ms(lambda: bsr.bsr_spmm_gram(A, U))
         moved = bsr.bsr_spmm_hbm_bytes(A, 128)
         print(f"[kernel] bsr_spmm_gram k=128 {prec}: {ms:.4f} ms, "
-              f"{moved / 1e9:.3f} GB moved by the kernel + W, "
+              f"{moved / 1e9:.3f} GB moved by the kernel (occupied "
+              f"sub-blocks, their U rows, tables, W), "
               f"{moved / ms / 1e6:.1f} GB/s", flush=True)
     return rows
 
@@ -485,6 +531,100 @@ def burst_slice(bsr, K, M, X, ref_loss):
     return launches["burst"]
 
 
+def check_adversarial(bsr, banded, device, seed):
+    """One small operator per format whose nonzeros sit where a walk over
+    the occupancy bits is easiest to get wrong, against the plain version
+    and the dense product: n = 1000 (the last row tile is ragged: U rows
+    and W rows 1000..1023 do not exist), a single nonzero in the last
+    16 x 16 sub-block of a tile (bit 63 of its word, the sign bit), an
+    entry in the last row and column, and a column tile (strip-BSR) or a
+    window (band) that reaches past n."""
+    import scipy.sparse as sp
+
+    from eigenpinns_torch.sparse import BandedELL, BSRTile, occupancy_mask
+
+    n = 1000
+    gen = torch.Generator("cuda").manual_seed(seed)
+    # Strip-BSR: tile (0, 0) holds only (127, 127); the last row tile's
+    # column tile 7 covers U rows 896..1023.
+    ij = np.array([[127, 127], [999, 999], [900, 5], [640, 998], [300, 300]])
+    vals = np.array([1.5, -2.25, 0.75, 3.0, -1.0])
+    A_sp = sp.csr_matrix((vals, (ij[:, 0], ij[:, 1])), shape=(n, n))
+    A, _ = BSRTile.from_scipy(A_sp, device=device, reorder=False,
+                              with_transpose=False)
+    check(int(A.occupancy[0, 0]) == -2**63,
+          "adversarial strip-BSR: tile (0, 0) is not the single last "
+          "sub-block")
+    dense = torch.as_tensor(A_sp.toarray(), dtype=torch.float32,
+                            device=device)
+    worst = 0.0
+    for prec in ("highest", "bf16"):
+        Ap = A.with_precision(prec)
+        burst = dataclasses.replace(Ap, gcid=None, lcid=None, gid=None)
+        for k in (DIRECT_K, SPEC_K + 10):
+            U = torch.randn((n, k), generator=gen, device=device)
+            Ur = U.bfloat16().float() if prec == "bf16" else U
+            refs = (bsr.bsr_spmm_plain(Ap, U),
+                    dense.to(Ap.data.dtype).float() @ Ur)
+            for cb in (32, 64):
+                for op, launch in ((Ap, bsr.bsr_spmm_grouped_cuda),
+                                   (burst, bsr.bsr_spmm_burst_cuda)):
+                    W = launch(op, U, col_block=cb)
+                    torch.cuda.synchronize()
+                    err = max(rel_err(W, ref) for ref in refs)
+                    worst = max(worst, err)
+                    check(err <= BSR_TOL[prec], f"adversarial strip-BSR "
+                          f"{prec} k={k} col_block={cb}: rel err {err:.3e}")
+    words = [hex(w & (2**64 - 1)) for w in A.occupancy.flatten().tolist()
+             if w]
+    print(f"[kernel] adversarial strip-BSR (n = {n}, {A_sp.nnz} nonzeros, "
+          f"occupancy words {words}): K2 and K3 (both column blocks) vs "
+          f"plain and dense, max rel err {worst:.3e}", flush=True)
+
+    # Band: n_pad = 1024, B = 256; tile 0 holds only its last sub-block
+    # (row 127, local column 255); the last tile's window [768, 1024)
+    # reaches past n, with an entry on column 999 (the last U row, in a
+    # sub-block whose U rows 992..1007 straddle n), one on column 1023
+    # (no such U row: it multiplies zero) and one in pad row 1010 (no
+    # such W row).
+    B, n_pad = 256, 1024
+    starts = torch.tensor([0, 64, 192, 320, 448, 576, 704, 768],
+                          dtype=torch.int32, device=device)
+    band = torch.zeros((n_pad, B), device=device)
+    for i, j, v in ((127, 255, 1.5), (999, 231, -2.25), (998, 255, 4.0),
+                    (1010, 3, 5.0), (500, 0, 0.75), (640, 130, -1.0)):
+        band[i, j] = v
+    dense = torch.zeros((n_pad, n_pad + B), device=device)
+    rows = torch.arange(n_pad, device=device)
+    cols = starts.long()[rows // 128, None] + torch.arange(B, device=device)
+    dense[rows[:, None], cols] = band
+    dense = dense[:n, :n]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        b = band.to(dtype)
+        core = BandedELL(b, starts, n, n, 128, occupancy=occupancy_mask(b))
+        check(core.occupancy[0].tolist() == [0, -2**63],
+              "adversarial band: tile 0 is not the single last sub-block")
+        for k in (DIRECT_K, SPEC_K + 10):
+            U = torch.randn((n, k), generator=gen, device=device)
+            Ur = U.bfloat16().float() if dtype == torch.bfloat16 else U
+            Wp, Gp = banded.banded_spmm_gram_plain(core, U)
+            Wd = dense @ Ur
+            W5, G = banded.banded_spmm_cuda(core, U, with_gram=True)
+            outs = [W5] + [banded.banded_spmm_cuda(core, U, col_block=cb)
+                           for cb in (32, 64)]
+            torch.cuda.synchronize()
+            err = max(max(rel_err(W, Wp), rel_err(W, Wd)) for W in outs)
+            err_g = max(rel_err(G, Gp), rel_err(G, U.T @ Wd))
+            worst = max(worst, err, err_g)
+            check(err <= BANDED_TOL["W"] and err_g <= BANDED_TOL["G"],
+                  f"adversarial band {dtype} k={k}: rel err W {err:.3e} "
+                  f"G {err_g:.3e}")
+    print(f"[kernel] adversarial band (n = {n}, n_pad = {n_pad}, B = {B}): "
+          f"K4 (both column blocks) and K5 vs plain and dense, max rel err "
+          f"{worst:.3e}", flush=True)
+
+
 def check_banded_kernels(banded, bsr, cores, K, seed):
     """K4 and K5 vs the plain version on the split cores at the widths
     their paths give them, with torch.sparse.mm of the same core as the
@@ -492,10 +632,13 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
     them; returns the rows of K4 (cluster core, k = 60: the Rayleigh-Ritz
     basis of the spectral solve) and K5 (Hilbert bf16 core, k = 20: the
     training loss). The bound counts the core's nonzeros (`least_bytes`);
-    the kernels read the whole band, zeros included."""
+    the kernels read the band's occupied 16 x 16 sub-blocks."""
+    from eigenpinns_torch.sparse import occupied_blocks
+
     gen = torch.Generator("cuda").manual_seed(seed)
     rows = {}
     for name, core, k in cores:
+        other = 96 - banded.default_col_block(k, core.band.dtype)
         U = torch.randn((core.n, k), generator=gen, device="cuda")
         gW = torch.randn((core.n, k), generator=gen, device="cuda")
         gG = torch.randn((k, k), generator=gen, device="cuda")
@@ -513,8 +656,21 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         errs = {"W": max(rel_err(W, Wp), rel_err(W2, Wp)),
                 "G": rel_err(G, Gp), "dU": rel_err(Uk.grad, dU_ref)}
         del Uk, Wk, Gk, dU_ref
+        # No atomics, one summation order: K4 again, K4 with the other
+        # column block and K5 give the same W bit for bit, K5 again the
+        # same G.
+        check(torch.equal(banded.banded_spmm_cuda(core, U), W)
+              and torch.equal(
+                  banded.banded_spmm_cuda(core, U, col_block=other), W)
+              and torch.equal(W2, W), f"{name} k={k}: W differs between "
+              "launches, column blocks or K4 and K5")
+        check(torch.equal(
+            banded.banded_spmm_cuda(core, U, with_gram=True)[1], G),
+            f"{name} k={k}: G differs between two launches")
         csr = band_csr(core)
         t = {"spmm": median_ms(lambda: banded.banded_spmm_cuda(core, U)),
+             "spmm_other": median_ms(
+                 lambda: banded.banded_spmm_cuda(core, U, col_block=other)),
              "spmm_plain": median_ms(
                  lambda: banded.banded_spmm_plain(core, U)),
              "spmm_library": median_ms(lambda: torch.sparse.mm(csr, U)),
@@ -531,17 +687,23 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         b4 = bound(least_bytes(nnz, vb, core.n, k), {kind: 2 * nnz * k})
         b5 = bound(least_bytes(nnz, vb, core.n, k, gram=True),
                    {kind: 2 * nnz * k, "fp32": 2 * core.n * k * k})
-        dense_gb = banded.banded_spmm_hbm_bytes(core, k) / 1e9
+        moved_gb = banded.banded_spmm_hbm_bytes(core, k) / 1e9
         print(f"[kernel] {name} {tuple(core.band.shape)} {kind} k={k}: "
+              f"occupied 16 x 16 sub-blocks {occupied_share(core.occupancy)};"
+              " "
               + " ".join(f"rel_err_{key}={v:.3e}" for key, v in errs.items())
-              + f"; K4 {t['spmm']:.4f} ms (plain {t['spmm_plain']:.4f}, "
+              + f"; K4 {t['spmm']:.4f} ms (col_block {96 - other}; "
+              f"{t['spmm_other']:.4f} with {other}; plain "
+              f"{t['spmm_plain']:.4f}, "
               f"torch.sparse.mm {t['spmm_library']:.4f}, bound "
               f"{b4['bound_ms']:.4f} {b4['bound_by']}); K5 {t['gram']:.4f}"
               f" ms (plain {t['gram_plain']:.4f}, library "
               f"{t['gram_library']:.4f}, bound {b5['bound_ms']:.4f}); nnz "
-              f"{nnz}, executed FLOP {2 * core.band.numel() * k / 1e9:.2f}"
-              f" G; K4 reads the dense band: {dense_gb:.3f} GB, "
-              f"{dense_gb / t['spmm'] * 1e3:.1f} GB/s", flush=True)
+              f"{nnz}, executed FLOP "
+              f"{2 * 256 * occupied_blocks(core.occupancy) * k / 1e9:.2f} G;"
+              f" K4 moves (occupied sub-blocks, their U rows, tables, W) "
+              f"{moved_gb:.3f} GB, {moved_gb / t['spmm'] * 1e3:.1f} GB/s",
+              flush=True)
         for key, v in errs.items():
             check(v <= BANDED_TOL[key],
                   f"{name} k={k} {kind} {key}: rel err {v:.3e}")
@@ -895,6 +1057,7 @@ def main() -> int:
 
         # 5. K2 and K3 vs plain at the slice's shapes.
         bsr_rows = check_bsr_kernels(bsr, K, L[perm][:, perm], seed=2)
+        check_adversarial(bsr, banded, device, seed=6)
         torch.cuda.empty_cache()
         phases.done("K2/K3 checks")
 

@@ -1,180 +1,134 @@
 // Full-window banded SpMM W = A U, and its fused k x k Gram, for Hopper
-// (sm_90a).
+// (sm_90a): kernels that read and multiply only the occupied 16 x 16
+// sub-blocks of the band.
 //
 // Replaces the Pallas TPU kernels of eigenpinns_tpu/sparse/banded.py:
 //   banded_spmm_kernel<..., kGram = false>  <-  banded_spmm_pallas (K4)
 //   banded_spmm_kernel<..., kGram = true>   <-  banded_spmm_gram_pallas (K5)
 //
 // Layout (built on the host by BandedELL.from_scipy or the core of
-// SplitBanded.from_scipy): band is (n_pad, B) row-major, B a multiple of
-// 128; row i of tile t = i / 128 multiplies the window
+// SplitBanded.from_scipy, unchanged): band is (n_pad, B) row-major, B a
+// multiple of 128; row i of tile t = i / 128 multiplies the window
 // U[starts[t] : starts[t] + B], so W[i, :] = sum_j band[i, j] U[starts[t]
 // + j, :]. starts is clamped to n_pad - B, so a window may reach past n:
-// those U rows read as zero (no padded copy of U is made).
+// those U rows read as zero (no padded copy of U is made). occupancy
+// (n_pad / 128, B / 128) holds one 64-bit word per 128 x 128 piece of a
+// tile's window: bit 8 i + j is set when the piece's 16 x 16 sub-block
+// (i, j) holds a nonzero.
 //
 // The Pallas kernels walked the tiles in order on a sequential grid,
-// double-buffering each tile's U window into VMEM and (K5) carrying the
-// Gram in a VMEM-resident output across the grid. CUDA blocks run in no
-// order, so each block owns one (128-row tile, 32-column block) pair: it
-// streams the tile's (128, B) band rows and the matching U window rows
-// through shared memory in slabs of 32 along B and accumulates in fp32
-// registers. Any k works, in masked blocks of 32 columns (no padding of
-// k to 128 lanes). Offsets into the band are 64-bit: at 1M rows and
-// B = 1024 the band holds 1.0e9 elements.
+// double-buffering each tile's whole U window into VMEM, multiplying the
+// dense (128, B) slice on the MXU and (K5) carrying the Gram in a
+// VMEM-resident output across the grid. CUDA blocks run in no order, so
+// each block owns one (128-row tile, column block of 32 or 64) pair and
+// writes each output once. Inside it a warp owns a 16-row stripe and
+// walks the set bits of its byte of the tile's words
+// (occupancy_spmm.cuh: the entry list, the per-warp stages, the register
+// prefetch of the next sub-block and its U rows); no block-wide barrier
+// in the loop. Any k works, in masked column blocks (no padding of k to
+// 128 lanes). Offsets into the band are 64-bit: at 1M rows and B = 1024
+// the band holds 1.0e9 elements.
 //
 // K5's Gram: each block writes the partial U[tile]^T W[tile, cols] of its
-// tile (from the fp32 W in registers and the tile's own, unrounded U
-// rows) into partial[t] (n_tiles, k, k); a second kernel sums the
-// partials in a fixed order, so G is the same bit for bit from run to
-// run (no fp32 atomics).
+// tile (from the fp32 W staged in shared memory and the tile's own,
+// unrounded U rows) into partial[t] (n_tiles, k, k); a second kernel sums
+// the partials in a fixed order, so G is the same bit for bit from run
+// to run (no fp32 atomics). K5 always takes 32-column blocks, so that
+// its W is K4's bit for bit and a block's W tile fits the stage.
 //
-// Work split: 256 threads; thread (ty, tx) = (tid / 8, tid % 8) holds the
-// 4 x 4 outputs of rows ty + 32 i and columns 4 tx + j. Each slab stages
-// the 128 x 32 band slice (16-byte loads, converted to fp32) and the
-// 32 x 32 U slice, then every thread does 16 FFMA per reduction step.
+// What bounds it. On a 300k-point cloud the cluster-ordered core
+// (B = 1024, fp32, 2.16M nonzeros) has 15.3% of its sub-blocks occupied
+// (184k sub-blocks, 12 nonzeros each), the Hilbert core (B = 512) 21.6%.
+// The kernel reads 0.19 GB of the 1.229 GB band (56 microseconds at
+// 3.35 TB/s) and per sub-block 16 U rows of the column block's width
+// from L2 and L1 (0.75 GB at k = 60, far more than U's 72 MB: the price
+// of 16-row stripes). In fp32 a dense product of every occupied
+// sub-block would be 256 FFMA per lane and 32 columns (94 M warp
+// instructions at k = 60, ~0.1 ms over 132 SMs) fed by as many
+// shared-memory loads as the FFMA pipe can take; but a sub-block holds
+// ~12 nonzeros, so the warp votes on its 64 groups of 1 x 4 values and
+// skips the zero ones (about five in six), loads and FFMA alike. What a
+// nonzero group costs is then one broadcast load for 4 FFMA at 32
+// columns per block and for 8 at 64, which is why k = 60 runs as one
+// block of 64 columns (faster than two of 32 that read the band twice;
+// chip_smoke.py times both). A bf16 band is multiplied by
+// mma.sync.m16n8k16, one per sub-block and 8 columns, with both
+// fragments loaded straight from global memory. A warp sees about 10
+// sub-blocks per tile, the busiest stripe of a tile 1.3 times the mean,
+// so latency (table, first sub-block) is hidden only by the other
+// resident blocks. On an NVIDIA H100 80GB HBM3 (700 W) K4 on the cluster
+// core at k = 60 takes about the time of torch.sparse.mm of the same
+// core as fp32 CSR; K5's Gram epilogue (plain FFMA from shared memory, k
+// rows of U per tile) adds about 0.1 ms to the product at k = 20 and
+// 0.5 ms at k = 60.
 //
-// What bounds it: the band is dense, so the kernel reads every band
-// entry and executes 2 n_pad B k FLOP where the product needs only the
-// nonzeros and 2 nnz k. At 300k points with the cluster core (B = 1024,
-// fp32, 2.16M nonzeros) and k = 60 the product must move ~0.16 GB (each
-// nonzero with its column index, U and W): 0.05 ms at 3.35 TB/s. The
-// kernel moves ~1.37 GB (the 1.229 GB band, U and W; 0.41 ms) and its
-// 36.9 GFLOP of FFMA take >= 0.55 ms at the 67 TFLOP/s fp32 peak, more
-// at the ~40% of peak this staging reaches (see bsr_spmm.cu): the band's
-// zeros, multiplied by FFMA, set its time. The design is the simple one:
-// no skipping of the band's all-zero slabs, no double-buffered slabs, no
-// tensor cores for a bf16 band.
+// Left open: the masked columns at k = 20 in fp32 (12 of a warp's 32
+// lanes), sharing a U row between the stripes of a tile, the Gram
+// epilogue, and a compact copy of the occupied sub-blocks. TMA
+// descriptors and wgmma do not fit this work: the sub-blocks are tiny,
+// irregularly placed, and wgmma wants 64-row tiles. K4's blocks of 32
+// columns run three to an SM, its blocks of 64 and K5's two (K5 was
+// slower with three).
 //
 // Precision: an fp32 band is exact fp32 FFMA (the TPU's
-// Precision.HIGHEST). A bf16 band rounds U to bf16 before the product and
-// accumulates in fp32, as both Pallas kernels do.
+// Precision.HIGHEST). A bf16 band rounds U to bf16 before the product
+// (tensor cores, fp32 accumulation), as both Pallas kernels do.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "occupancy_spmm.cuh"
 
 namespace {
 
-constexpr int kT = 128;        // rows per tile
-constexpr int kBN = 32;        // output columns per block
-constexpr int kBK = 32;        // band columns per shared-memory slab
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kTM = 4;         // rows per thread: ty + 32 i
-constexpr int kTN = 4;         // columns per thread: 4 tx + j
+using occ::kSub;
+using occ::kT;
+using occ::kThreads;
 
-// Stage band[0:128, 0:32] (row pitch ld) into As as fp32.
-__device__ __forceinline__ void load_slab(const float* __restrict__ band,
-                                          size_t ld, float (*As)[kBK + 1],
-                                          int tid) {
-#pragma unroll
-  for (int it = 0; it < kT * kBK / 4 / kThreads; ++it) {
-    const int e = tid + it * kThreads;
-    const int m = e >> 3;          // 8 threads per row
-    const int q = (e & 7) * 4;
-    const float4 v =
-        __ldg(reinterpret_cast<const float4*>(band + (size_t)m * ld + q));
-    As[m][q] = v.x;
-    As[m][q + 1] = v.y;
-    As[m][q + 2] = v.z;
-    As[m][q + 3] = v.w;
-  }
-}
+constexpr int kBN = 32;  // K5's column block
 
-__device__ __forceinline__ void load_slab(
-    const __nv_bfloat16* __restrict__ band, size_t ld, float (*As)[kBK + 1],
-    int tid) {
-#pragma unroll
-  for (int it = 0; it < kT * kBK / 8 / kThreads; ++it) {
-    const int e = tid + it * kThreads;
-    const int m = e >> 2;          // 4 threads per row
-    const int q = (e & 3) * 8;
-    const uint4 raw =
-        __ldg(reinterpret_cast<const uint4*>(band + (size_t)m * ld + q));
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) As[m][q + c] = __bfloat162float(h[c]);
-  }
-}
-
-template <typename BandT, bool kRoundU, bool kGram>
-__global__ void __launch_bounds__(kThreads)
+template <typename BandT, bool kRoundU, bool kGram, int kCols>
+__global__ void __launch_bounds__(kThreads, kCols == 1 && !kGram ? 3 : 2)
 banded_spmm_kernel(const BandT* __restrict__ band,
                    const int* __restrict__ starts,
+                   const unsigned char* __restrict__ occupancy,
                    const float* __restrict__ U, float* __restrict__ W,
                    float* __restrict__ partial, int n, int B, int k,
                    int n_cb) {
-  __shared__ float As[kT][kBK + 1];  // +1: conflict-free staging writes
-  __shared__ __align__(16) float Us[kBK][kBN];
+  static_assert(!kGram || kCols == 1, "K5 takes 32-column blocks");
+  __shared__ occ::WarpScratch scratch[kThreads / 32];
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
+  const int stripe = tid >> 5;
   const int t = blockIdx.x / n_cb;   // row tile; its column blocks are
   const int cb = blockIdx.x % n_cb;  // neighbours and share it through L2
-  const int col0 = cb * kBN;
+  const int col0 = cb * 32 * kCols;
   const int row0 = t * kT;
   const int start = starts[t];
-  const size_t ld = (size_t)B;
-  const BandT* tile_band = band + (size_t)row0 * ld;
+  const int P = B / kT;              // pieces (table words) per tile
 
-  float acc[kTM][kTN];
+  float acc[kSub * kCols];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < kSub * kCols; ++i) acc[i] = 0.f;
 
-  for (int kk0 = 0; kk0 < B; kk0 += kBK) {
-    load_slab(tile_band + kk0, ld, As, tid);
-#pragma unroll
-    for (int it = 0; it < kBK * kBN / kThreads; ++it) {
-      const int e = tid + it * kThreads;
-      const int kk = e / kBN, c = e % kBN;
-      const int urow = start + kk0 + kk;
-      const int col = col0 + c;
-      float v = 0.f;
-      if (urow < n && col < k) {
-        v = __ldg(U + (size_t)urow * k + col);
-        if (kRoundU) v = __bfloat162float(__float2bfloat16(v));
-      }
-      Us[kk][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = As[ty + 32 * i][kk];
-      const float4 b = *reinterpret_cast<const float4*>(&Us[kk][tx * 4]);
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        acc[i][0] = fmaf(a[i], b.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i], b.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i], b.w, acc[i][3]);
-      }
-    }
-    __syncthreads();
-  }
+  // Piece q = t * P + i: columns [128 i, 128 i + 128) of the tile's window.
+  auto piece = [&](int q, int& ub, long long& off) {
+    const int i = q - t * P;
+    ub = start + i * kT;
+    off = (long long)(row0 + stripe * kSub) * B + (long long)i * kT;
+  };
+  occ::stripe_product<kRoundU, kCols>(
+      band, (size_t)B, occupancy, t * P, (t + 1) * P, piece, U, n, k, col0,
+      scratch[stripe], acc);
+  occ::store_stripe<BandT, kCols>(W, row0 + stripe * kSub, n, k, col0, acc);
 
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int row = row0 + ty + 32 * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = col0 + tx * kTN + j;
-      if (col < k) W[(size_t)row * k + col] = acc[i][j];
-    }
-  }
   if constexpr (kGram) {
     // Partial Gram of this tile and column block: U[rows, :]^T W[rows,
-    // cols], with W staged in As (the slab loop has ended and
-    // synchronised).
+    // cols], with W staged in shared memory.
+    __shared__ float Ws[kT][kBN + 1];
+    using L = occ::Layout<BandT, kCols>;
+    const int lane = tid & 31;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const bool live = row0 + ty + 32 * i < n;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        As[ty + 32 * i][tx * kTN + j] = live ? acc[i][j] : 0.f;
+    for (int i = 0; i < kSub * kCols; ++i) {
+      const int row = stripe * kSub + L::row(i, lane);
+      Ws[row][L::col(i, lane)] = row0 + row < n ? acc[i] : 0.f;
     }
     __syncthreads();
     const int rows_here = min(kT, n - row0);
@@ -186,7 +140,7 @@ banded_spmm_kernel(const BandT* __restrict__ band,
       if (col >= k) continue;
       float s = 0.f;
       for (int r = 0; r < rows_here; ++r)
-        s = fmaf(__ldg(U + (size_t)(row0 + r) * k + i), As[r][c], s);
+        s = fmaf(__ldg(U + (size_t)(row0 + r) * k + i), Ws[r][c], s);
       out[(size_t)i * k + col] = s;
     }
   }
@@ -213,21 +167,33 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename BandT, bool kRoundU>
-cudaError_t launch(const void* band, const int* starts, const float* U,
-                   float* W, float* partial, int n, int n_pad, int B, int k,
-                   cudaStream_t s) {
-  const int n_cb = (k + kBN - 1) / kBN;
+template <typename BandT, bool kRoundU, bool kGram, int kCols>
+cudaError_t launch_cols(const void* band, const int* starts,
+                        const void* occupancy, const float* U, float* W,
+                        float* partial, int n, int n_pad, int B, int k,
+                        cudaStream_t s) {
+  const int n_cb = (k + 32 * kCols - 1) / (32 * kCols);
   const dim3 grid((unsigned)(n_pad / kT) * n_cb);
-  const BandT* b = static_cast<const BandT*>(band);
-  if (partial != nullptr) {
-    banded_spmm_kernel<BandT, kRoundU, true><<<grid, kThreads, 0, s>>>(
-        b, starts, U, W, partial, n, B, k, n_cb);
-  } else {
-    banded_spmm_kernel<BandT, kRoundU, false><<<grid, kThreads, 0, s>>>(
-        b, starts, U, W, partial, n, B, k, n_cb);
-  }
+  banded_spmm_kernel<BandT, kRoundU, kGram, kCols><<<grid, kThreads, 0, s>>>(
+      static_cast<const BandT*>(band), starts,
+      static_cast<const unsigned char*>(occupancy), U, W, partial, n, B, k,
+      n_cb);
   return cudaGetLastError();
+}
+
+template <typename BandT, bool kRoundU>
+cudaError_t launch(const void* band, const int* starts, const void* occupancy,
+                   const float* U, float* W, float* partial, int n, int n_pad,
+                   int B, int k, int col_block, cudaStream_t s) {
+  if (partial != nullptr) {
+    return launch_cols<BandT, kRoundU, true, 1>(band, starts, occupancy, U, W,
+                                                partial, n, n_pad, B, k, s);
+  }
+  return col_block == 64
+             ? launch_cols<BandT, kRoundU, false, 2>(
+                   band, starts, occupancy, U, W, partial, n, n_pad, B, k, s)
+             : launch_cols<BandT, kRoundU, false, 1>(
+                   band, starts, occupancy, U, W, partial, n, n_pad, B, k, s);
 }
 
 }  // namespace
@@ -235,20 +201,23 @@ cudaError_t launch(const void* band, const int* starts, const float* U,
 extern "C" {
 
 // W = A U (K4), and when partial and G are given also G = U^T A U (K5).
-// Shapes: band (n_pad, B) fp32 or bf16, starts (n_pad / 128,) int32, U and
-// W (n, k) fp32, partial (n_pad / 128, k, k) and G (k, k) fp32. The
-// wrapper checks types, shapes, contiguity, B % 128 == 0 and 16-byte
-// alignment of the band. Returns cudaGetLastError() after the launches.
+// Shapes: band (n_pad, B) fp32 or bf16, starts (n_pad / 128,) int32,
+// occupancy (n_pad / 128, B / 128) int64, U and W (n, k) fp32, partial
+// (n_pad / 128, k, k) and G (k, k) fp32; col_block is 32 or 64 output
+// columns per block (K5 always takes 32). The wrapper checks types,
+// shapes, contiguity, B % 128 == 0 and 16-byte alignment of the band.
+// Returns cudaGetLastError() after the launches.
 int epk_banded_spmm(const void* band, int band_is_bf16, const int* starts,
-                    const float* U, float* W, float* partial, float* G,
-                    int n, int n_pad, int B, int k, void* stream) {
+                    const void* occupancy, const float* U, float* W,
+                    float* partial, float* G, int n, int n_pad, int B, int k,
+                    int col_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       band_is_bf16
-          ? launch<__nv_bfloat16, true>(band, starts, U, W, partial, n, n_pad,
-                                        B, k, s)
-          : launch<float, false>(band, starts, U, W, partial, n, n_pad, B, k,
-                                 s);
+          ? launch<__nv_bfloat16, true>(band, starts, occupancy, U, W,
+                                        partial, n, n_pad, B, k, col_block, s)
+          : launch<float, false>(band, starts, occupancy, U, W, partial, n,
+                                 n_pad, B, k, col_block, s);
   if (err != cudaSuccess || partial == nullptr) return (int)err;
   const int kk = k * k;
   gram_reduce_kernel<<<(kk + 31) / 32, dim3(32, 32), 0, s>>>(partial, G,

@@ -17,6 +17,7 @@ from eigenpinns_torch.sparse.bsr import (
     bsr_spmm_plain,
 )
 from eigenpinns_torch.sparse.formats import Diagonal, SparseELL, as_operator
+from eigenpinns_torch.sparse.occupancy import occupancy_mask, occupied_blocks
 from eigenpinns_torch.sparse.ops import (
     gcn_normalized_adjacency,
     gram,
@@ -59,4 +60,5 @@ __all__ = [
     "gcn_normalized_adjacency", "gram", "hdot", "m_gram",
     "m_normalize_columns", "neighbor_mean_operator", "rayleigh_quotients",
     "residual", "spmm", "spmm_gram", "spmv",
+    "occupancy_mask", "occupied_blocks",
 ]

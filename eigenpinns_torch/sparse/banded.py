@@ -15,8 +15,11 @@ the contiguous window U[starts[t] : starts[t] + B]:
 
 Two kernels in `csrc/banded_spmm.cu` compute W = A U for CUDA tensors:
 K4 (port of the Pallas kernel `banded_spmm_pallas`) and K5, which adds
-the fused Gram G = U^T A U (port of `banded_spmm_gram_pallas`). CPU
-tensors take `banded_spmm_plain` / `banded_spmm_gram_plain`, the plain
+the fused Gram G = U^T A U (port of `banded_spmm_gram_pallas`). Both
+walk the band's occupancy table (`occupancy`, one 64-bit word per
+128 x 128 piece of a tile's window: `sparse/occupancy.py`) and read and
+multiply only the 16 x 16 sub-blocks that hold a nonzero. CPU tensors
+take `banded_spmm_plain` / `banded_spmm_gram_plain`, the plain
 torch version of the same functions. A CUDA tensor always reaches a
 kernel or raises.
 
@@ -40,6 +43,12 @@ import functools
 import numpy as np
 import torch
 
+from eigenpinns_torch.sparse.occupancy import (
+    default_col_block,
+    occupancy_mask,
+    occupied_blocks,
+)
+
 # Launches of each CUDA kernel (one per wrapper call that reaches it).
 banded_kernel_launches = {"spmm": 0, "spmm_gram": 0}
 
@@ -61,6 +70,12 @@ def scatter_band(rows: np.ndarray, local: np.ndarray, data: np.ndarray,
     return band.to(dtype)
 
 
+def band_occupancy(band: torch.Tensor, tile: int) -> torch.Tensor | None:
+    """The band's occupancy table (None for a tile the kernels do not
+    take)."""
+    return occupancy_mask(band) if tile == 128 else None
+
+
 @dataclasses.dataclass(frozen=True)
 class BandedELL:
     """Row-tiled banded-dense matrix.
@@ -72,6 +87,10 @@ class BandedELL:
     n_cols: column count of the (square) operator
     tile:   rows per tile
     transpose_banded: A^T in the same layout (None = symmetric)
+    occupancy: (N_pad / 128, B / 128) int64 — bit 8 i + j of a word is
+            set when the 16 x 16 sub-block (i, j) of that 128 x 128 piece
+            of the band holds a nonzero (`occupancy_mask(band)`, taken
+            from the band as stored); the CUDA kernels need it
     """
 
     band: torch.Tensor
@@ -80,6 +99,7 @@ class BandedELL:
     n_cols: int
     tile: int
     transpose_banded: "BandedELL | None" = None
+    occupancy: torch.Tensor | None = None
 
     @property
     def bandwidth(self) -> int:
@@ -158,7 +178,7 @@ class BandedELL:
                     with_transpose=False)[0]
 
         op = cls(band, torch.as_tensor(starts, device=band.device), n, n,
-                 tile, transpose)
+                 tile, transpose, band_occupancy(band, tile))
         return op, perm
 
 
@@ -197,16 +217,24 @@ def build_kernel() -> ctypes.CDLL:
     lib = load_library("banded_spmm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.epk_banded_spmm.restype = i
-    lib.epk_banded_spmm.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
+    lib.epk_banded_spmm.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
+                                    p]
     lib.epk_banded_error_string.restype = ctypes.c_char_p
     lib.epk_banded_error_string.argtypes = [i]
     return lib
 
 
-def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False):
+def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
+                     col_block: int | None = None):
     """Launch csrc/banded_spmm.cu: W = A U (K4), and with `with_gram` also
-    G = U^T A U (K5). Raises on anything the kernels do not take."""
+    G = U^T A U (K5). `col_block` (32 or 64 output columns per block of
+    K4) defaults to `default_col_block(k, band.dtype)`; K5 always takes
+    32. Raises on anything the kernels do not take."""
     band, starts = A.band, A.starts
+    if A.occupancy is None:
+        raise ValueError("the banded kernels need the band's occupancy "
+                         "table (from_scipy makes it; "
+                         "occupancy_mask(band) for a hand-made operator)")
     if not (U.is_cuda and band.is_cuda and U.device == band.device
             and starts.device == band.device):
         raise ValueError("banded_spmm_cuda needs U, the band and starts on "
@@ -228,11 +256,22 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False):
     if (starts.dtype != torch.int32 or starts.shape != (n_pad // 128,)
             or not starts.is_contiguous()):
         raise ValueError("starts must be contiguous int32 (n_pad / 128,)")
+    occ = A.occupancy
+    if (occ.dtype != torch.int64 or occ.shape != (n_pad // 128, B // 128)
+            or occ.device != band.device or not occ.is_contiguous()):
+        raise ValueError("the occupancy table must be contiguous int64 "
+                         "(n_pad / 128, B / 128) on the band's device")
     if not (band.is_contiguous() and U.is_contiguous()
             and band.data_ptr() % 16 == 0):
         raise ValueError("the band must be contiguous and 16-byte aligned, "
                          "U contiguous")
     k = U.shape[1]
+    if with_gram:
+        col_block = 32
+    elif col_block is None:
+        col_block = default_col_block(k, band.dtype)
+    if col_block not in (32, 64):
+        raise ValueError(f"col_block must be 32 or 64, got {col_block}")
     W = torch.empty((A.n, k), dtype=torch.float32, device=U.device)
     partial = G = None
     if with_gram:
@@ -243,9 +282,10 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False):
     stream = torch.cuda.current_stream(U.device).cuda_stream
     err = lib.epk_banded_spmm(
         band.data_ptr(), int(band.dtype == torch.bfloat16),
-        starts.data_ptr(), U.data_ptr(), W.data_ptr(),
+        starts.data_ptr(), occ.data_ptr(), U.data_ptr(), W.data_ptr(),
         None if partial is None else partial.data_ptr(),
-        None if G is None else G.data_ptr(), A.n, n_pad, B, k, stream)
+        None if G is None else G.data_ptr(), A.n, n_pad, B, k, col_block,
+        stream)
     if err != 0:
         raise RuntimeError("banded_spmm kernel launch failed: "
                            + lib.epk_banded_error_string(err).decode())
@@ -254,13 +294,21 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False):
 
 
 def banded_spmm_hbm_bytes(A: BandedELL, k: int, with_gram: bool = False) -> int:
-    """Bytes the kernels move for one (n, k) fp32 product: the whole band
-    (its zeros too) and starts read once, U read once, W (and G) written
-    once. This is the kernels' traffic, not the least the product needs:
-    that counts only the band's nonzeros."""
-    out = A.band.numel() * A.band.element_size() + A.starts.numel() * 4
-    out += 2 * A.n * k * 4
-    return out + (k * k * 4 if with_gram else 0)
+    """Bytes the kernels move for one (n, k) fp32 product. For every
+    occupied 16 x 16 sub-block of the band: its 256 band values and the
+    16 x k fp32 U rows it multiplies. Then the occupancy table and
+    starts read once and W written once; with the Gram, the tile's own U
+    rows read once more, the per-tile partials written and read, and G
+    written. A sub-block and its U rows count once per product: the
+    column blocks of a row tile are launched next to each other and
+    share them through L2. This is the kernels' traffic, not the least
+    the product needs: that counts only the band's nonzeros."""
+    sub_b = 16 * 16 * A.band.element_size() + 16 * k * 4
+    out = occupied_blocks(A.occupancy) * sub_b
+    out += A.occupancy.numel() * 8 + A.starts.numel() * 4 + A.n * k * 4
+    if with_gram:
+        out += A.n * k * 4 + (2 * A.starts.numel() + 1) * k * k * 4
+    return int(out)
 
 
 def _impl(A: BandedELL, U: torch.Tensor) -> torch.Tensor:

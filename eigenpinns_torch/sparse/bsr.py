@@ -17,11 +17,14 @@ multiple of `chunk` (C) tiles:
 
 Two kernels in `csrc/bsr_spmm.cu` compute W = A U for CUDA tensors: the
 grouped one (port of the Pallas kernel `bsr_spmm_pallas_grouped`, which
-reads column tiles through the group tables and skips pad slots) when the
-operator has group tables, the burst one (port of `bsr_spmm_pallas`,
-which reads them through `cid` and multiplies every slot) otherwise. CPU
-tensors take `bsr_spmm_plain`, the plain torch version of the same
-function. A CUDA tensor always reaches a kernel or raises.
+reads column tiles through the group tables) when the operator has group
+tables, the burst one (port of `bsr_spmm_pallas`, which reads them
+through `cid`) otherwise. Both walk the operator's occupancy table
+(`occupancy`, one 64-bit word per slot: `sparse/occupancy.py`) and read
+and multiply only the 16 x 16 sub-blocks of each tile that hold a
+nonzero; a pad slot's word is 0. CPU tensors take `bsr_spmm_plain`, the
+plain torch version of the same function. A CUDA tensor always reaches a
+kernel or raises.
 
 Autograd matches the JAX custom VJP: the operator is a constant and the
 backward pass applies A^T through the same dispatcher (the stored
@@ -37,6 +40,12 @@ import functools
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from eigenpinns_torch.sparse.occupancy import (
+    default_col_block,
+    occupancy_mask,
+    occupied_blocks,
+)
 
 PRECISIONS = ("highest", "high", "bf16")
 
@@ -62,6 +71,9 @@ class BSRTile:
     static_layout: kept for layout compatibility with the JAX package,
           where it selects compile-time layout tables; here it only
           decides whether `from_scipy` builds group tables
+    occupancy: (S, C) int64 — bit 8 i + j of a slot's word is set when
+          the 16 x 16 sub-block (i, j) of its tile holds a nonzero
+          (`occupancy_mask(data)`); the CUDA kernels need it
 
     Every array lives on one device. 'highest' and 'high' are both exact
     fp32 here; 'bf16' stores bf16 strips, rounds U to bf16 and
@@ -84,11 +96,15 @@ class BSRTile:
     gid: torch.Tensor | None = None
     first_chunk_of_row: torch.Tensor | None = None
     nv: torch.Tensor | None = None
+    occupancy: torch.Tensor | None = None
 
     def with_precision(self, precision: str) -> "BSRTile":
         """Same operator, another precision mode. 'bf16' stores a bf16
         copy of the strips; the other modes keep (or restore, as an
-        upcast that keeps the bf16 rounding) fp32 strips."""
+        upcast that keeps the bf16 rounding) fp32 strips. The occupancy
+        table is kept: rounding to bf16 can only turn a nonzero into a
+        zero, and the upcast turns none, so the table of the source
+        strips covers every nonzero of the copy."""
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         t = (None if self.transpose_bsr is None
@@ -243,6 +259,8 @@ class BSRTile:
              torch.as_tensor(d_cols, device=device)] = torch.as_tensor(
                  coo.data[order], dtype=torch.float32, device=device)
         data = data.to(dtype)
+        # From the strips as stored (the bf16 ones for a bf16 build).
+        occupancy = occupancy_mask(data) if T == 128 else None
         diag = torch.as_tensor(np.asarray(Ap.diagonal()), dtype=dtype,
                                device=device)
 
@@ -268,7 +286,8 @@ class BSRTile:
         precision = "bf16" if dtype == torch.bfloat16 else "highest"
         op = cls(data, dev(cid), dev(rowid), dev(nw), diag, n, n_cols, T,
                  transpose, precision, static_layout, dev(gcid), dev(lcid),
-                 dev(gid), dev(chunk_start.astype(np.int32)), dev(nv))
+                 dev(gid), dev(chunk_start.astype(np.int32)), dev(nv),
+                 occupancy)
         return op, perm
 
 
@@ -305,14 +324,19 @@ def build_kernel() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.epk_bsr_spmm.restype = i
     lib.epk_bsr_spmm.argtypes = [p, i, p, p, p, p, p, i, i, i, p, p, i, i,
-                                 i, i, p]
+                                 i, i, i, p]
     lib.epk_bsr_error_string.restype = ctypes.c_char_p
     lib.epk_bsr_error_string.argtypes = [i]
     return lib
 
 
-def _launch(A: BSRTile, U: torch.Tensor, grouped: bool) -> torch.Tensor:
+def _launch(A: BSRTile, U: torch.Tensor, grouped: bool,
+            col_block: int | None = None) -> torch.Tensor:
     data = A.data
+    if A.occupancy is None:
+        raise ValueError("the BSR kernels need the operator's occupancy "
+                         "table (BSRTile.from_scipy builds it; "
+                         "occupancy_mask(data) for a hand-made operator)")
     if not (U.is_cuda and data.is_cuda and U.device == data.device):
         raise ValueError("the BSR kernels need U and the strips on one CUDA "
                          f"device (got {U.device}, {data.device})")
@@ -320,9 +344,10 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool) -> torch.Tensor:
     if data.dtype != want:
         raise ValueError(f"'{A.mxu_precision}' needs {want} strips, got "
                          f"{data.dtype}")
-    if U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != A.n_cols:
-        raise ValueError(f"U must be float32 ({A.n_cols}, k), got {U.dtype} "
-                         f"{tuple(U.shape)}")
+    if (U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != A.n_cols
+            or U.shape[1] == 0):
+        raise ValueError(f"U must be float32 ({A.n_cols}, k >= 1), got "
+                         f"{U.dtype} {tuple(U.shape)}")
     if A.tile != 128:
         raise ValueError(f"the BSR kernels take 128-wide tiles, got {A.tile}")
     if grouped and A.gcid is None:
@@ -333,7 +358,12 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool) -> torch.Tensor:
                          "aligned, U contiguous")
     if A.n_row_tiles > 65535:
         raise ValueError("the BSR kernels take at most 65535 row tiles")
-    tables = [A.cid, A.nv, A.first_chunk_of_row]
+    occ = A.occupancy
+    if (occ.dtype != torch.int64 or occ.shape != A.cid.shape
+            or occ.device != data.device or not occ.is_contiguous()):
+        raise ValueError("the occupancy table must be contiguous int64 "
+                         f"{tuple(A.cid.shape)} on the strips' device")
+    tables = [A.cid, A.first_chunk_of_row]
     if grouped:
         tables += [A.gcid, A.lcid, A.gid]
     if any(t.dtype != torch.int32 or t.device != data.device
@@ -341,6 +371,10 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool) -> torch.Tensor:
         raise ValueError("layout tables must be contiguous int32 on the "
                          "strips' device")
     k = U.shape[1]
+    if col_block is None:
+        col_block = default_col_block(k, data.dtype)
+    if col_block not in (32, 64):
+        raise ValueError(f"col_block must be 32 or 64, got {col_block}")
     W = torch.empty((A.n, k), dtype=torch.float32, device=U.device)
     lib = build_kernel()
     stream = torch.cuda.current_stream(U.device).cuda_stream
@@ -348,10 +382,10 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool) -> torch.Tensor:
     err = lib.epk_bsr_spmm(
         data.data_ptr(), int(data.dtype == torch.bfloat16),
         col_tab.data_ptr(), A.lcid.data_ptr() if grouped else None,
-        A.gid.data_ptr() if grouped else None, A.nv.data_ptr(),
+        A.gid.data_ptr() if grouped else None, occ.data_ptr(),
         A.first_chunk_of_row.data_ptr(), int(grouped), A.chunk,
         A.gcid.shape[1] if grouped else 0, U.data_ptr(), W.data_ptr(),
-        A.n, A.n_cols, A.n_row_tiles, k, stream)
+        A.n, A.n_cols, A.n_row_tiles, k, col_block, stream)
     if err != 0:
         raise RuntimeError("bsr_spmm kernel launch failed: "
                            + lib.epk_bsr_error_string(err).decode())
@@ -359,16 +393,21 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool) -> torch.Tensor:
     return W
 
 
-def bsr_spmm_grouped_cuda(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_grouped_cuda(A: BSRTile, U: torch.Tensor,
+                          col_block: int | None = None) -> torch.Tensor:
     """Launch the grouped kernel (port of `bsr_spmm_pallas_grouped`):
-    column tiles through `gcid`/`lcid`/`gid`, pad slots skipped."""
-    return _launch(A, U, grouped=True)
+    column tiles through `gcid`/`lcid`/`gid`, occupied sub-blocks only.
+    `col_block` (32 or 64 output columns per block) defaults to
+    `default_col_block(k, A.data.dtype)`."""
+    return _launch(A, U, grouped=True, col_block=col_block)
 
 
-def bsr_spmm_burst_cuda(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_burst_cuda(A: BSRTile, U: torch.Tensor,
+                        col_block: int | None = None) -> torch.Tensor:
     """Launch the burst kernel (port of `bsr_spmm_pallas`): column tiles
-    through `cid`, every slot of every chunk."""
-    return _launch(A, U, grouped=False)
+    through `cid`, occupied sub-blocks only (a pad slot costs the read of
+    its empty occupancy word)."""
+    return _launch(A, U, grouped=False, col_block=col_block)
 
 
 def _impl(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
@@ -385,14 +424,19 @@ def _impl(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
 
 def bsr_spmm_hbm_bytes(A: BSRTile, k: int) -> int:
     """Bytes one `bsr_spmm(A, U)` with an (n_cols, k) fp32 U moves through
-    the kernel `_impl` dispatches: the strip tiles it reads (the grouped
-    kernel reads only real slots, the burst kernel every slot), one
-    (T, k) U tile per slot read, and W. The strip counts once per row
-    tile: the column blocks of a row tile are launched next to each other
-    and share it through L2. No lane padding: the kernels mask k."""
-    tile_b = A.tile * A.tile * A.data.element_size()
-    slots = A.n_slots if A.gcid is not None else A.n_chunks * A.chunk
-    return int(slots * (tile_b + A.tile * k * 4) + A.n * k * 4)
+    the kernel `_impl` dispatches. For every occupied 16 x 16 sub-block:
+    its 256 strip values and the 16 x k fp32 U rows it multiplies. For
+    every slot, pad slots too: its 8-byte occupancy word and its 4-byte
+    column entry (`cid`, or `lcid` with the group tables `gcid` and `gid`
+    on top). Then `first_chunk_of_row`, and W written once. A sub-block
+    and its U rows count once per product: the column blocks of a row
+    tile are launched next to each other and share them through L2. No
+    lane padding: the kernels mask k."""
+    sub_b = 16 * 16 * A.data.element_size() + 16 * k * 4
+    tables = A.n_chunks * A.chunk * (8 + 4) + (A.n_row_tiles + 1) * 4
+    if A.gcid is not None:
+        tables += A.gcid.numel() * 4 + A.gid.numel() * 4
+    return int(occupied_blocks(A.occupancy) * sub_b + tables + A.n * k * 4)
 
 
 class _BsrSpmm(torch.autograd.Function):

@@ -25,6 +25,7 @@ import torch
 from eigenpinns_torch.sparse.banded import (
     BandedELL,
     _round_up,
+    band_occupancy,
     banded_spmm,
     banded_spmm_gram,
     scatter_band,
@@ -208,7 +209,7 @@ class SplitBanded:
                             coo.data[in_band], (n_pad, B), dtype, device)
         core = BandedELL(band, torch.as_tensor(starts.astype(np.int32),
                                                device=band.device),
-                         n, n, tile)
+                         n, n, tile, occupancy=band_occupancy(band, tile))
 
         remainder = None
         if int((~in_band).sum()):

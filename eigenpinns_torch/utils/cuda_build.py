@@ -3,8 +3,8 @@
 `nvcc` compiles the file into `build/eigenpinns_torch/<name>-<hash>.so`
 at the root of the checkout, with a plain C interface that the caller
 binds with ctypes (no PyTorch headers: seconds to build, not minutes).
-The hash covers the source bytes and the flags, so an edited `.cu` is
-rebuilt; the compiler writes to a process-unique temp name that is
+The hash covers the source bytes, the headers (`csrc/*.cuh`) and the
+flags, so an edited source is rebuilt; the compiler writes to a process-unique temp name that is
 `os.replace`d into place, so concurrent processes never load a
 half-written library. Nothing is built when a module is imported.
 """
@@ -44,8 +44,11 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu` as a ctypes library."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     target = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
     if not os.path.exists(target):
         os.makedirs(BUILD_DIR, exist_ok=True)

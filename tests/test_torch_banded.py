@@ -215,11 +215,22 @@ def test_banded_cuda_wrapper_refuses_cpu_tensors(ops):
 
 
 def test_banded_hbm_bytes(ops):
+    """The occupied 16 x 16 sub-blocks of the band with 16 U rows each,
+    the occupancy table, starts and W; with the Gram also the tiles' own
+    U rows, the per-tile partials (written, then read) and G."""
     top = ops["cloud642", "f32"][3]
-    band_b = top.band.numel() * 4 + top.starts.numel() * 4
-    assert tbanded.banded_spmm_hbm_bytes(top, 20) == band_b + 2 * top.n * 80
-    assert tbanded.banded_spmm_hbm_bytes(top, 20, with_gram=True) == (
-        band_b + 2 * top.n * 80 + 1600)
+    d = top.band.numpy() != 0
+    occupied = int(d.reshape(d.shape[0] // 16, 16, d.shape[1] // 16, 16)
+                   .any(axis=(1, 3)).sum())
+    assert 0 < occupied < d.size // 256
+    n_tiles = top.starts.numel()
+    k = 20
+    spmm = (occupied * (256 * 4 + 16 * k * 4)
+            + n_tiles * (top.bandwidth // 128) * 8 + n_tiles * 4
+            + top.n * k * 4)
+    assert tbanded.banded_spmm_hbm_bytes(top, k) == spmm
+    assert tbanded.banded_spmm_hbm_bytes(top, k, with_gram=True) == (
+        spmm + top.n * k * 4 + (2 * n_tiles + 1) * k * k * 4)
 
 
 def _entry_points():

@@ -244,16 +244,32 @@ def test_bsr_cuda_wrappers_refuse_cpu_tensors(ops):
             launch(top, U)
 
 
+def _occupied_sub_blocks(dense: torch.Tensor) -> int:
+    """16 x 16 sub-blocks of a dense layout that hold a nonzero."""
+    d = dense.float().numpy() != 0
+    r, c = d.shape
+    return int(d.reshape(r // 16, 16, c // 16, 16).any(axis=(1, 3)).sum())
+
+
 def test_bsr_hbm_bytes_follow_the_dispatched_kernel(ops):
-    """Grouped: real slots only; burst (no group tables): every slot."""
+    """Both kernels read the occupied 16 x 16 sub-blocks (with 16 U rows
+    each), every slot's occupancy word and column entry, the row tiles'
+    chunk ranges, and write W; the grouped kernel reads its group tables
+    on top."""
     _, _, _, top, _ = ops["banded900_G8"]
     _, _, _, top0, _ = ops["group0"]
-    tile_b = 128 * 128 * 4
     k = 20
-    assert tsparse.bsr_spmm_hbm_bytes(top, k) == (
-        top.n_slots * (tile_b + 128 * k * 4) + top.n * k * 4)
-    assert tsparse.bsr_spmm_hbm_bytes(top0, k) == (
-        top0.n_chunks * top0.chunk * (tile_b + 128 * k * 4)
-        + top0.n * k * 4)
-    assert (tsparse.bsr_spmm_hbm_bytes(top.with_precision("bf16"), k)
-            < tsparse.bsr_spmm_hbm_bytes(top, k))
+    for op in (top, top0):
+        occupied = _occupied_sub_blocks(op.data)
+        assert 0 < occupied < 64 * op.n_slots
+        want = (occupied * (256 * 4 + 16 * k * 4)
+                + op.n_chunks * op.chunk * 12 + (op.n_row_tiles + 1) * 4
+                + op.n * k * 4)
+        if op.gcid is not None:
+            want += (op.gcid.numel() + op.gid.numel()) * 4
+        assert tsparse.bsr_spmm_hbm_bytes(op, k) == want
+    assert top.gcid is not None and top0.gcid is None
+    bf16 = top.with_precision("bf16")
+    assert (tsparse.bsr_spmm_hbm_bytes(top, k)
+            - tsparse.bsr_spmm_hbm_bytes(bf16, k)
+            == _occupied_sub_blocks(top.data) * 256 * 2)

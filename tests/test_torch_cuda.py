@@ -96,6 +96,12 @@ def test_bsr_cuda_kernels_match_plain(precision, k):
         "grouped": before["grouped"] + 1, "burst": before["burst"] + 1}
     assert _rel(Wg.cpu(), Wp.cpu()) < tol
     assert _rel(Wb.cpu(), Wp.cpu()) < tol
+    # One summation order whatever the kernel and its column block.
+    for cb in (32, 64):
+        assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U, col_block=cb),
+                           Wg)
+        assert torch.equal(tbsr.bsr_spmm_burst_cuda(burst, U, col_block=cb),
+                           Wg)
     g = torch.randn_like(U)
     Ut = U.clone().requires_grad_(True)
     (tbsr.bsr_spmm(op, Ut) * g).sum().backward()
@@ -137,6 +143,8 @@ def test_banded_cuda_kernels_match_plain(case, k, dtype):
         "spmm": before["spmm"] + 1, "spmm_gram": before["spmm_gram"] + 1}
     Wp, Gp = tbanded.banded_spmm_gram_plain(op, U)
     assert torch.equal(W, W2)
+    for cb in (32, 64):
+        assert torch.equal(tbanded.banded_spmm_cuda(op, U, col_block=cb), W)
     assert _rel(W.cpu(), Wp.cpu()) < 1e-5
     assert _rel(G.cpu(), Gp.cpu()) < 2e-5
     Uk = U.clone().requires_grad_(True)
