@@ -9,18 +9,22 @@ It exits non-zero, before printing any result, when no CUDA device is
 present or the package is not beside it. On the card it:
 
   1. prints the card (torch's name; nvidia-smi's name and power limit)
-     and builds the three kernel sources with nvcc, one process each, in
-     parallel: eigenpinns_torch/csrc/rolling_spmm.cu (K1, the rolling-band
-     SpMM), bsr_spmm.cu (K2 and K3, the grouped and burst strip-BSR
-     SpMMs) and banded_spmm.cu (K4 and K5, the full-window band SpMM and
-     its fused Gram), printing the -Xptxas -v reports;
+     and builds the two kernel sources with nvcc, one process each, in
+     parallel: eigenpinns_torch/csrc/bsr_spmm.cu (K2 and K3, the grouped
+     and burst strip-BSR SpMMs) and banded_spmm.cu (K4 and K5, the
+     full-window band SpMM and its fused Gram, and K1, the rolling-band
+     SpMM with and without the Gram: the same kernel with implicit,
+     wrapping window starts), printing the -Xptxas -v reports;
   2. holds K1 against its plain torch version on the card, at the
      shapes the multigrid path gives it: the fused block-diagonal K_blk
      at k = 10 and the finest level's K at k = 39 (the LOBPCG block),
      for W, the fused Gram G and the gradient through
      `rolling_spmm_gram` in 'highest' and 'high' (rel 1e-5 for W and
      G, 1e-4 for the gradient), and in 'bf16' against the plain product
-     of the same bf16-rounded operator (rel 2e-3); it times both
+     of the same bf16-rounded operator (rel 2e-3); W must be the same
+     bit for bit from a second launch, from the other column block and
+     with the Gram, G from a second launch; it prints each band's
+     occupied 16 x 16 sub-blocks, times the kernel and its plain version
      (median of 20 samples of 5 back-to-back launches) and
      torch.sparse.mm of the same operator as a CSR tensor (the library
      yardstick);
@@ -47,10 +51,11 @@ present or the package is not beside it. On the card it:
      kernels (both column blocks at k = 60 and 128), torch.sparse.mm,
      and `bsr_spmm_gram` at k = 128 in 'highest' and 'bf16' with the
      bytes the kernel moves; then one adversarial operator per format
-     (strip-BSR and band, n = 1000: a single nonzero in the last
-     sub-block of a tile, entries in the last row and column, a column
-     tile and a window that reach past n) against the plain version and
-     the dense product;
+     (strip-BSR, band and rolling band, n = 1000: a single nonzero in
+     the last sub-block of a tile, entries in the last row and column, a
+     column tile and a window that reach past n, for the rolling band
+     also a window that starts before row 0 and the stored transpose)
+     against the plain version and the dense product;
   6. builds the split operators of the 300k cloud: the cluster-ordered
      SplitBanded of the spectral-basis driver (window 1024, fp32) and the
      Hilbert-ordered training operator (window 512) in bf16 and, from
@@ -71,7 +76,18 @@ present or the package is not beside it. On the card it:
      counting K2's launches from zero; it checks the polished eigenvalues
      against the oracle's first 20 (max rel err of modes 1..19 <= 1e-3);
      then the same training on K3 (no group tables), counting K3's
-     launches from zero, which must repeat K2's loss history;
+     launches from zero, which must repeat K2's loss history; then the
+     rolling-band slice, the bench's 300k training phase at its own
+     size: the RCM-ordered rolling band of the same Laplacian
+     (max_bandwidth 8192; its pre, B, size and occupied share are
+     printed), K1 against its plain version on it at k = 20 (training),
+     28 and 84 (the polish's K X and K S) in all three modes, with
+     torch.sparse.mm of the same matrix beside it; `train_joint` with
+     the same configuration (K1 with the fused Gram on a bf16 copy of
+     the band; timed, then once more under torch.profiler, which must
+     repeat the loss history), then the guarded polish on the
+     fp32 band, counting K1's launches from zero for each; the polished
+     modes 1..19 must be within 1e-3 of the oracle;
   8. runs the spectral-basis slice: `spectral_basis` on the 300k cloud
      with the configuration of scripts/run_1m_50modes_split.py (k = 50,
      SplitBanded window 1024, blocks of 16 + 4 guard, 120 iterations, tol
@@ -93,7 +109,8 @@ present or the package is not beside it. On the card it:
      start), counting K3's launches from zero, and checks each member
      against its own eigsh (<= 1e-3);
  11. prints a JSON line describing the five kernels (launches on their
-     path, max abs err, kernel, plain and library times, and the bound:
+     path, max abs err, kernel, plain and library times; K1 with its
+     300k row beside the multigrid one; and the bound:
      the larger of the bytes the product must move -- each nonzero's
      value and column index, the row pointers, U and W, the Gram for K5
      -- over 3.35 TB/s and its operations, 2 nnz k (+ 2 n k^2 for the
@@ -101,12 +118,12 @@ present or the package is not beside it. On the card it:
      power limit, then, as the last line, {"ok": true, "device": {...}}.
      Each phase prints its wall time.
 
-Steps 8 and 9 run under torch.profiler (CPU and CUDA activities) and
-print, over the spectral solve (the `spectral_basis.solve` span) and over
-the fused-Gram training, the card's kernel time, its copy time and its
-idle share, and the kernels with the most device time; those two phases'
-wall times include the profiler's own cost (mostly the parsing of the
-trace after each).
+Steps 8 and 9 and the rolling-band training run under torch.profiler
+(CPU and CUDA activities) and print, over the spectral solve (the
+`spectral_basis.solve` span) and over each training, the card's kernel
+time, its copy time and its idle share, and the kernels with the most
+device time; those phases' wall times include the profiler's own cost
+(mostly the parsing of the trace after each).
 """
 
 from __future__ import annotations
@@ -200,6 +217,39 @@ def median_ms(fn, n: int = 20, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, n: int = 5, reps: int = 20) -> float:
+    """One call's time on the card when the host is not in its way: the
+    median over n samples of `reps` calls queued behind a busy-wait
+    kernel, which holds the stream while the host enqueues them, so that
+    they run back to back between the two events. For a small operator
+    the host's launch path (tens of microseconds a call) is longer than
+    the kernel, and `median_ms` then times the host. The wait is doubled
+    until the host's enqueue loop fits inside it."""
+    fn()
+    cycles = 4_000_000
+    while True:
+        torch.cuda.synchronize()
+        times, fits = [], True
+        for _ in range(n):
+            wait, start, end = (torch.cuda.Event(enable_timing=True)
+                                for _ in range(3))
+            wait.record()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
+            torch.cuda.synchronize()
+            fits = fits and host_ms < wait.elapsed_time(start)
+            times.append(start.elapsed_time(end) / reps)
+        if fits:
+            return float(np.median(times))
+        check(cycles < 10**9, "device_ms: the host never fits in the wait")
+        cycles *= 2
+
+
 def bound(n_bytes: float, flops: dict) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move over the HBM rate and its operations ({type:
@@ -253,6 +303,22 @@ def occupied_share(table: torch.Tensor, n_words: int | None = None) -> str:
     return f"{n} of {total} ({n / total:.4f})"
 
 
+def stripe_counts(table: torch.Tensor, n: int) -> str:
+    """Occupied sub-blocks per 16-row stripe of a band with `n` real rows:
+    the mean and the largest count, and the mean over the tiles of (the
+    busiest stripe / the tile's mean stripe). Byte i of a table word is
+    stripe i's column-group mask."""
+    masks = table.contiguous().view(torch.uint8).view(*table.shape, 8)
+    bits = (masks.unsqueeze(-1) >> torch.arange(8, device=table.device)) & 1
+    per_stripe = bits.sum(dim=(1, 3)).double()          # (tiles, 8)
+    real = per_stripe.flatten()[: -(-n // 16)]
+    tile_mean = per_stripe.mean(dim=1).clamp(min=1e-30)
+    skew = (per_stripe.max(dim=1).values / tile_mean)[tile_mean >= 1 / 8]
+    return (f"{float(real.mean()):.2f} sub-blocks per stripe (at most "
+            f"{int(real.max())}; busiest stripe of a tile / its mean "
+            f"{float(skew.mean()):.2f})")
+
+
 class Phases:
     """Wall time of each phase, printed as it ends."""
 
@@ -274,13 +340,14 @@ def traced():
 
 
 def device_report(label: str, prof, span: str, steps: int = 1,
-                  top: int = 10) -> None:
+                  top: int = 10, pick: str | None = None) -> None:
     """What the card did inside the record_function `span` of a profiler
     run: the span's CPU interval is the window (it ends on a sync, so the
     work launched in it ends in it), a device event belongs to it when it
     starts inside. Kernels are summed by name, memory copies and sets on
     their own; one stream, so none overlap. The idle share is the part of
-    the window in which neither ran."""
+    the window in which neither ran. `pick`: also print the sum over the
+    kernels whose name contains it."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -316,12 +383,29 @@ def device_report(label: str, prof, span: str, steps: int = 1,
             :top]:
         print(f"[profile {label}]   {t * 1e3:10.3f} ms {100 * t / busy:5.1f}%"
               f" {n:7d}x  {name[:100]}", flush=True)
+    if pick is not None:
+        n, t = (sum(v[i] for name, v in kernels.items() if pick in name)
+                for i in (0, 1))
+        print(f"[profile {label}] kernels named *{pick}*: {t * 1e3:.3f} ms "
+              f"({100 * t / busy:.1f}% of the kernel time), {n} launches, "
+              f"{t / steps * 1e3:.4f} ms per step", flush=True)
 
 
-def check_kernel(rolling, name, op, A_sp, k, seed):
+def describe_band(name: str, op) -> None:
+    """A rolling band's layout and occupancy counts."""
+    print(f"[kernel] {name} {tuple(op.band.shape)} {op.band.dtype} "
+          f"({op.band.nbytes / 1e9:.3f} GB) pre={op.pre} B={op.win}: occupied"
+          f" 16 x 16 sub-blocks {occupied_share(op.occupancy)}, "
+          f"{stripe_counts(op.occupancy, op.n)}", flush=True)
+
+
+def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
+                 plain_samples=(20, 5)):
     """K1 vs plain version on one operator (`A_sp`, its scipy matrix, is
-    the library yardstick's input); returns the 'high' (training-loss
-    mode) row of measurements."""
+    the library yardstick's input) in the three modes; returns the
+    `row_prec` row of measurements ('high' is the multigrid loss's mode,
+    'bf16' the direct training's). `plain_samples`: (n, reps) of the
+    plain version's timing, fewer on a large operator."""
     gen = torch.Generator("cuda").manual_seed(seed)
     U = torch.randn((op.n, k), generator=gen, device="cuda")
     RW = torch.randn((op.n, k), generator=gen, device="cuda")
@@ -329,40 +413,96 @@ def check_kernel(rolling, name, op, A_sp, k, seed):
     row = None
     for prec in ("highest", "high", "bf16"):
         A = op.with_precision(prec)
+        other = 96 - rolling.default_col_block(k, A.band.dtype)
         W, G = rolling.rolling_spmm_cuda(A, U, with_gram=True)
         Wp, Gp = rolling.rolling_spmm_gram_plain(A, U)
         torch.cuda.synchronize()
         errs = {"W": rel_err(W, Wp), "G": rel_err(G, Gp)}
-        if prec != "bf16":
-            # Gradient through the fused Gram: kernel autograd vs torch
-            # autograd through the plain version.
-            Uk = U.clone().requires_grad_(True)
-            Wk, Gk = rolling.rolling_spmm_gram(A, Uk)
-            ((Wk * RW).sum() + (Gk * RG).sum()).backward()
+        # No atomics, one summation order: without the Gram, from the
+        # other column block and from a second launch W is the same bit
+        # for bit, and G from a second launch.
+        W2, G2 = rolling.rolling_spmm_cuda(A, U, with_gram=True,
+                                           col_block=other)
+        check(torch.equal(rolling.rolling_spmm_cuda(A, U), W)
+              and torch.equal(
+                  rolling.rolling_spmm_cuda(A, U, col_block=other), W)
+              and torch.equal(W2, W), f"{name} k={k} {prec}: W differs "
+              "between launches, column blocks or with the Gram")
+        check(torch.equal(
+            rolling.rolling_spmm_cuda(A, U, with_gram=True)[1], G),
+            f"{name} k={k} {prec}: G differs between two launches")
+        errs["G_other"] = rel_err(G2, Gp)
+        del W2, G2
+        # Gradient through the fused Gram: kernel autograd vs torch
+        # autograd through the plain version; in 'bf16', where the kernel
+        # rounds the cotangent to bf16, vs dU = A^T (gW + U gG) + W gG^T
+        # from the plain version (which rounds it the same way).
+        Uk = U.clone().requires_grad_(True)
+        Wk, Gk = rolling.rolling_spmm_gram(A, Uk)
+        ((Wk * RW).sum() + (Gk * RG).sum()).backward()
+        if prec == "bf16":
+            At = A.transpose_rolling if A.transpose_rolling is not None else A
+            dU_ref = rolling.rolling_spmm_plain(At, RW + U @ RG) + Wp @ RG.T
+        else:
             Up = U.clone().requires_grad_(True)
             Wq, Gq = rolling.rolling_spmm_gram_plain(A, Up)
             ((Wq * RW).sum() + (Gq * RG).sum()).backward()
-            torch.cuda.synchronize()
-            errs["dU"] = rel_err(Uk.grad, Up.grad)
+            dU_ref = Up.grad
+            del Up, Wq, Gq
+        torch.cuda.synchronize()
+        errs["dU"] = rel_err(Uk.grad, dU_ref)
+        del Uk, Wk, Gk, dU_ref
+        torch.cuda.empty_cache()
         ms = median_ms(lambda: rolling.rolling_spmm_cuda(A, U))
-        plain_ms = median_ms(lambda: rolling.rolling_spmm_plain(A, U))
+        other_ms = median_ms(
+            lambda: rolling.rolling_spmm_cuda(A, U, col_block=other))
+        gram_ms = median_ms(
+            lambda: rolling.rolling_spmm_cuda(A, U, with_gram=True))
+        plain_ms = median_ms(lambda: rolling.rolling_spmm_plain(A, U),
+                             *plain_samples)
         print(f"[kernel] {name} {tuple(A.band.shape)} k={k} {prec}: "
               + " ".join(f"rel_err_{key}={v:.3e}" for key, v in errs.items())
-              + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+              + f" kernel_ms={ms:.4f} (col_block {96 - other}; "
+              f"{other_ms:.4f} with {other}) with_gram_ms={gram_ms:.4f} "
+              f"plain_ms={plain_ms:.4f}", flush=True)
         for key, v in errs.items():
             tol = GRAD_TOL if key == "dU" else TOL[prec]
             check(v <= tol, f"{name} {prec} {key}: rel err {v:.3e} > {tol}")
-        if prec == "high":
+        if prec == row_prec:
             csr = torch_csr(A_sp, U.device)
             library_ms = median_ms(lambda: torch.sparse.mm(csr, U))
+            gram_library_ms = median_ms(
+                lambda: U.T @ torch.sparse.mm(csr, U))
+            on_card = {
+                "device_ms": device_ms(
+                    lambda: rolling.rolling_spmm_cuda(A, U)),
+                "with_gram_device_ms": device_ms(
+                    lambda: rolling.rolling_spmm_cuda(A, U, with_gram=True)),
+                "library_device_ms": device_ms(
+                    lambda: torch.sparse.mm(csr, U))}
+            del csr
             nnz = int(torch.count_nonzero(A.band))
-            moved = least_bytes(nnz, A.band.element_size(), A.n, k)
+            vb = A.band.element_size()
+            kind = "bf16" if prec == "bf16" else "fp32"
+            b_gram = bound(least_bytes(nnz, vb, A.n, k, gram=True),
+                           {kind: 2 * nnz * k, "fp32": 2 * A.n * k * k})
             row = {"max_abs_err": float((W - Wp).abs().max()), "ms": ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
-                   **bound(moved, {"fp32": 2 * nnz * k})}
-            print(f"[kernel] {name} k={k} high: torch.sparse.mm "
-                  f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']})", flush=True)
+                   **bound(least_bytes(nnz, vb, A.n, k),
+                           {kind: 2 * nnz * k}),
+                   "with_gram_ms": gram_ms,
+                   "with_gram_library_ms": gram_library_ms,
+                   "with_gram_bound_ms": b_gram["bound_ms"], **on_card}
+            print(f"[kernel] {name} k={k} {prec}: torch.sparse.mm "
+                  f"{library_ms:.4f} ms (+ U^T W {gram_library_ms:.4f}), "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; with "
+                  f"the Gram {b_gram['bound_ms']:.4f}), nnz {nnz}; queued "
+                  f"behind a busy-wait (no host in the way): kernel "
+                  f"{on_card['device_ms']:.4f} ms, with the Gram "
+                  f"{on_card['with_gram_device_ms']:.4f}, torch.sparse.mm "
+                  f"{on_card['library_device_ms']:.4f}", flush=True)
+        del W, G, Wp, Gp
+        torch.cuda.empty_cache()
     return row
 
 
@@ -531,17 +671,124 @@ def burst_slice(bsr, K, M, X, ref_loss):
     return launches["burst"]
 
 
-def check_adversarial(bsr, banded, device, seed):
+def rolling_slice(rolling, L, m_diag, X, oracle, device):
+    """The bench's 300k training phase on the card: the RCM-ordered
+    rolling band of L, K1 against its plain version on it, train_joint
+    (K1 with the fused Gram on a bf16 copy of the band; its backward pass
+    applies the band again without the Gram; run once timed and once
+    more under the profiler), then the guarded LOBPCG polish on the fp32
+    band (K1 without the Gram). Returns K1's launches in the timed
+    training and in the polish and the k = 20 'bf16' row of
+    measurements."""
+    from eigenpinns_torch.solvers import lobpcg, train_joint
+    from eigenpinns_torch.sparse import Diagonal, RollingBanded
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    K, perm = RollingBanded.from_scipy(L, max_bandwidth=8192, device=device)
+    torch.cuda.synchronize()
+    print(f"[host] rolling band K in {time.time() - t0:.2f} s", flush=True)
+    describe_band("K_300k", K)
+    M = Diagonal(torch.as_tensor(m_diag[perm], dtype=torch.float32,
+                                 device=device))
+    Lp = L[perm][:, perm]
+    polish_k = DIRECT_K + POLISH_GUARD
+    for k in (DIRECT_K, polish_k, 3 * polish_k):   # training, K X, K S
+        r = check_kernel(rolling, "K_300k", K, Lp, k, seed=7 + k,
+                         row_prec="bf16", plain_samples=(5, 2))
+        if k == DIRECT_K:
+            row = r
+
+    def counts():
+        return {"all": rolling.rolling_kernel_launches,
+                "with_gram": rolling.rolling_gram_launches}
+
+    # Training twice: timed on its own, then under the profiler (whose
+    # cost on a slow host halves the rate); the second run must repeat
+    # the first one's loss history.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
+    t0 = time.time()
+    res = train_joint(K, M, X[perm], device=device, **DIRECT_CFG)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    train_launches = counts()
+    with traced() as prof:
+        with torch.profiler.record_function("smoke.train_rolling"):
+            again = train_joint(K, M, X[perm], device=device, **DIRECT_CFG)
+            torch.cuda.synchronize()
+    dev = float(np.abs(again.history["loss"] - res.history["loss"]).max()
+                / np.abs(res.history["loss"]).max())
+    check(dev <= 1e-6, "the profiled rolling-band training differs from "
+          f"the timed one: {dev:.3e}")
+    del again
+    rates = sorted(n / t for n, t in res.chunk_times[1:])
+    rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
+    t0 = time.time()
+    guards = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(K.n, POLISH_GUARD)).astype(np.float32), device=device)
+    X0 = torch.cat([torch.as_tensor(res.eigenvectors, device=device),
+                    guards], dim=1)
+    pol = lobpcg(K.with_precision("highest"), M, X0, max_iter=POLISH_ITERS,
+                 tol=POLISH_TOL)
+    torch.cuda.synchronize()
+    polish_s = time.time() - t0
+    polish_launches = counts()
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
+
+    vals = oracle.result()[:DIRECT_K]
+    lam_raw = np.sort(res.eigenvalues)[:DIRECT_K]
+    lam_pol = np.sort(pol.eigenvalues.cpu().numpy())[:DIRECT_K]
+    raw = np.abs(lam_raw[1:] - vals[1:]) / np.abs(vals[1:])
+    polished = np.abs(lam_pol[1:] - vals[1:]) / np.abs(vals[1:])
+    loss = res.history["loss"]
+    print(f"[rolling] train_joint on the rolling band {res.epochs_run} "
+          f"epochs: train {train_s:.3f} s, per-chunk median "
+          f"{rates[len(rates) // 2]:.2f} steps/s, chunk times "
+          f"{[round(t, 4) for _, t in res.chunk_times]}; loss {loss[0]:.6g} "
+          f"-> {loss[-1]:.6g}", flush=True)
+    print(f"[rolling] kernel launches in training {train_launches}, in the "
+          f"polish {polish_launches} ({int(pol.iterations)} iterations in "
+          f"{polish_s:.3f} s); peak device memory of training and polish "
+          f"{peak_mb:.1f} MiB", flush=True)
+    print(f"[rolling] max rel err of modes 1..19 vs eigsh: raw "
+          f"{raw.max():.3e}, polished {polished.max():.3e}", flush=True)
+    device_report("rolling", prof, "smoke.train_rolling",
+                  steps=res.epochs_run, pick="band_spmm_kernel")
+    check(train_launches["with_gram"] > 0,
+          "train_joint launched K1 with the Gram 0 times")
+    check(train_launches["all"] > train_launches["with_gram"],
+          "train_joint's backward pass launched K1 0 times")
+    check(polish_launches["all"] > 0 and polish_launches["with_gram"] == 0,
+          f"the polish's K1 launches: {polish_launches}")
+    check(bool(np.isfinite(loss).all() and np.isfinite(lam_pol).all()),
+          "non-finite rolling-band results")
+    check(polished.max() <= MAX_REL_ERR,
+          f"rolling polished max rel err {polished.max():.3e} > "
+          f"{MAX_REL_ERR}")
+    return train_launches["all"], polish_launches["all"], row
+
+
+def check_adversarial(bsr, banded, rolling, device, seed):
     """One small operator per format whose nonzeros sit where a walk over
     the occupancy bits is easiest to get wrong, against the plain version
     and the dense product: n = 1000 (the last row tile is ragged: U rows
     and W rows 1000..1023 do not exist), a single nonzero in the last
     16 x 16 sub-block of a tile (bit 63 of its word, the sign bit), an
     entry in the last row and column, and a column tile (strip-BSR) or a
-    window (band) that reaches past n."""
+    window (band, rolling band) that reaches past n; the rolling band's
+    first window also starts before row 0, and its matrix is
+    nonsymmetric, so the stored transpose is walked too."""
     import scipy.sparse as sp
 
-    from eigenpinns_torch.sparse import BandedELL, BSRTile, occupancy_mask
+    from eigenpinns_torch.sparse import (
+        BandedELL,
+        BSRTile,
+        RollingBanded,
+        occupancy_mask,
+    )
+    from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
 
     n = 1000
     gen = torch.Generator("cuda").manual_seed(seed)
@@ -624,6 +871,42 @@ def check_adversarial(bsr, banded, device, seed):
           f"K4 (both column blocks) and K5 vs plain and dense, max rel err "
           f"{worst:.3e}", flush=True)
 
+    # Rolling band (utils/fixtures.py::adversarial_rolling_matrix): pre =
+    # 256, B' = 768; tile 1 holds only the last sub-block of a piece; tile
+    # 0's window starts at U row -256, the last tile's ends at row 1280.
+    A_sp = adversarial_rolling_matrix()
+    op, _ = RollingBanded.from_scipy(A_sp, device=device, reorder=False)
+    check(sorted(op.occupancy[1].tolist()) == [-2**63] + [0] * 5
+          and op.pre == 256 and op.transpose_rolling is not None,
+          "adversarial rolling band: not the layout the check is for")
+    worst = 0.0
+    for prec in ("highest", "bf16"):
+        Ap = op.with_precision(prec)
+        for A, dense_sp in ((Ap, A_sp), (Ap.transpose_rolling, A_sp.T)):
+            dense = torch.as_tensor(dense_sp.toarray(), dtype=torch.float32,
+                                    device=device).to(A.band.dtype).float()
+            for k in (DIRECT_K, SPEC_K + 10):
+                U = torch.randn((n, k), generator=gen, device=device)
+                Ur = U.bfloat16().float() if prec == "bf16" else U
+                Wp, Gp = rolling.rolling_spmm_gram_plain(A, U)
+                Wd = dense @ Ur
+                for cb in (32, 64):
+                    W = rolling.rolling_spmm_cuda(A, U, col_block=cb)
+                    W5, G = rolling.rolling_spmm_cuda(A, U, with_gram=True,
+                                                      col_block=cb)
+                    torch.cuda.synchronize()
+                    err = max(rel_err(W, Wp), rel_err(W, Wd),
+                              rel_err(W5, Wp))
+                    err_g = max(rel_err(G, Gp), rel_err(G, U.T @ Wd))
+                    worst = max(worst, err, err_g)
+                    check(err <= BANDED_TOL["W"] and err_g <= BANDED_TOL["G"],
+                          f"adversarial rolling band {prec} k={k} col_block="
+                          f"{cb}: rel err W {err:.3e} G {err_g:.3e}")
+    print(f"[kernel] adversarial rolling band (n = {n}, band "
+          f"{tuple(op.band.shape)}, pre = {op.pre}) and its transpose: K1 "
+          f"with and without the Gram (both column blocks) vs plain and "
+          f"dense, max rel err {worst:.3e}", flush=True)
+
 
 def check_banded_kernels(banded, bsr, cores, K, seed):
     """K4 and K5 vs the plain version on the split cores at the widths
@@ -644,6 +927,8 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         gG = torch.randn((k, k), generator=gen, device="cuda")
         W = banded.banded_spmm_cuda(core, U)
         W2, G = banded.banded_spmm_cuda(core, U, with_gram=True)
+        W3, G3 = banded.banded_spmm_cuda(core, U, with_gram=True,
+                                         col_block=other)
         Wp, Gp = banded.banded_spmm_gram_plain(core, U)
         # The gradient through the fused Gram (kernel autograd, A^T = A
         # by the core's symmetry) vs dU = A^T (gW + U gG) + W gG^T from
@@ -654,7 +939,8 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         dU_ref = banded.banded_spmm_plain(core, gW + U @ gG) + Wp @ gG.T
         torch.cuda.synchronize()
         errs = {"W": max(rel_err(W, Wp), rel_err(W2, Wp)),
-                "G": rel_err(G, Gp), "dU": rel_err(Uk.grad, dU_ref)}
+                "G": max(rel_err(G, Gp), rel_err(G3, Gp)),
+                "dU": rel_err(Uk.grad, dU_ref)}
         del Uk, Wk, Gk, dU_ref
         # No atomics, one summation order: K4 again, K4 with the other
         # column block and K5 give the same W bit for bit, K5 again the
@@ -662,8 +948,10 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         check(torch.equal(banded.banded_spmm_cuda(core, U), W)
               and torch.equal(
                   banded.banded_spmm_cuda(core, U, col_block=other), W)
-              and torch.equal(W2, W), f"{name} k={k}: W differs between "
-              "launches, column blocks or K4 and K5")
+              and torch.equal(W2, W) and torch.equal(W3, W),
+              f"{name} k={k}: W differs between launches, column blocks or "
+              "K4 and K5")
+        del W3, G3
         check(torch.equal(
             banded.banded_spmm_cuda(core, U, with_gram=True)[1], G),
             f"{name} k={k}: G differs between two launches")
@@ -676,6 +964,9 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
              "spmm_library": median_ms(lambda: torch.sparse.mm(csr, U)),
              "gram": median_ms(
                  lambda: banded.banded_spmm_cuda(core, U, with_gram=True)),
+             "gram_other": median_ms(
+                 lambda: banded.banded_spmm_cuda(core, U, with_gram=True,
+                                                 col_block=other)),
              "gram_plain": median_ms(
                  lambda: banded.banded_spmm_gram_plain(core, U)),
              "gram_library": median_ms(
@@ -697,7 +988,8 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
               f"{t['spmm_plain']:.4f}, "
               f"torch.sparse.mm {t['spmm_library']:.4f}, bound "
               f"{b4['bound_ms']:.4f} {b4['bound_by']}); K5 {t['gram']:.4f}"
-              f" ms (plain {t['gram_plain']:.4f}, library "
+              f" ms ({t['gram_other']:.4f} with {other}; plain "
+              f"{t['gram_plain']:.4f}, library "
               f"{t['gram_library']:.4f}, bound {b5['bound_ms']:.4f}); nnz "
               f"{nnz}, executed FLOP "
               f"{2 * 256 * occupied_blocks(core.occupancy) * k / 1e9:.2f} G;"
@@ -941,10 +1233,9 @@ def main() -> int:
           f"device {kind} ({smi})", flush=True)
     phases = Phases()
 
-    # 1. Build the three kernel sources from the checkout, one nvcc each,
-    # in parallel.
-    sources = {"rolling_spmm": rolling, "bsr_spmm": bsr,
-               "banded_spmm": banded}
+    # 1. Build the two kernel sources from the checkout, one nvcc each,
+    # in parallel (K1 is the rolling instantiation of banded_spmm.cu).
+    sources = {"bsr_spmm": bsr, "banded_spmm": banded}
     with ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(m.build_kernel) for m in sources.values()]:
             f.result()
@@ -964,6 +1255,8 @@ def main() -> int:
                                      reorder=False)[0]
     K_fine = RollingBanded.from_scipy(h_cpu.K_scipy[-1], device=device,
                                       reorder=False)[0]
+    describe_band("K_blk", K_blk)
+    describe_band("K_finest", K_fine)
     row = check_kernel(rolling, "K_blk", K_blk, K_blk_sp, N_MODES, seed=0)
     check_kernel(rolling, "K_finest", K_fine, h_cpu.K_scipy[-1],
                  3 * (N_MODES + 3), seed=1)
@@ -1057,7 +1350,7 @@ def main() -> int:
 
         # 5. K2 and K3 vs plain at the slice's shapes.
         bsr_rows = check_bsr_kernels(bsr, K, L[perm][:, perm], seed=2)
-        check_adversarial(bsr, banded, device, seed=6)
+        check_adversarial(bsr, banded, rolling, device, seed=6)
         torch.cuda.empty_cache()
         phases.done("K2/K3 checks")
 
@@ -1106,6 +1399,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("burst slice")
 
+    # 7b. The rolling-band slice: K1 with the fused Gram at 300k.
+    k1_train, k1_polish, row_300k = rolling_slice(rolling, L, m_diag, X,
+                                                  oracle, device)
+    torch.cuda.empty_cache()
+    phases.done("rolling-band slice")
+
     # 8. The spectral-basis slice, counting K4's launches from zero.
     k4_launches = spectral_slice(banded, X, L, m_diag, oracle, device)
     phases.done("spectral-basis slice")
@@ -1124,9 +1423,12 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         {"name": "rolling_spmm", "route": "cuda",
-         "source": "eigenpinns_torch/csrc/rolling_spmm.cu",
+         "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/rolling.py:344",
-         "launches": launches, **row},
+         "launches": launches, **row,
+         "launches_300k": k1_train + k1_polish,
+         "launches_300k_training": k1_train,
+         "launches_300k_polish": k1_polish, "row_300k": row_300k},
         {"name": "bsr_spmm_grouped", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:549",

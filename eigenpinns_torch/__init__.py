@@ -5,21 +5,22 @@ mirrors its layout module for module (`sparse/rolling.py` ports
 `eigenpinns_tpu/sparse/rolling.py`, and so on) and never imports JAX.
 Three paths run end to end: multigrid training (`build_hierarchy(...,
 operator_format="auto")` then `MultigridTrainer(cfg).train(h)`, on the
-device the hierarchy was built on), direct joint training on strip-BSR
-or split operators (`BSRTile.from_scipy` or `SplitBanded.from_scipy`,
-`train_joint`, then a guarded `lobpcg` polish), and the large-cloud
+device the hierarchy was built on), direct joint training on
+rolling-band, strip-BSR or split operators (`RollingBanded.from_scipy`,
+`BSRTile.from_scipy` or `SplitBanded.from_scipy`, `train_joint`, then a
+guarded `lobpcg` polish), and the large-cloud
 spectral basis (`spectral_basis`, `spectral_basis_family`: blocked
 deflated LOBPCG). Every entry point runs on the card unless given
 `device="cpu"`.
 
 Their hand-written kernels are built with nvcc on first use:
-`csrc/rolling_spmm.cu` (the rolling-band SpMM that replaces the Pallas
-kernel `_rolling_kernel_call`), `csrc/bsr_spmm.cu` (the grouped and
-burst strip-BSR SpMMs that replace `bsr_spmm_pallas_grouped` and
-`bsr_spmm_pallas`) and `csrc/banded_spmm.cu` (the full-window band SpMM
-and its fused Gram, replacing `banded_spmm_pallas` and
-`banded_spmm_gram_pallas`). CPU tensors take each kernel's plain torch
-version instead.
+`csrc/bsr_spmm.cu` (the grouped and burst strip-BSR SpMMs that replace
+the Pallas kernels `bsr_spmm_pallas_grouped` and `bsr_spmm_pallas`) and
+`csrc/banded_spmm.cu` (the full-window band SpMM and its fused Gram,
+replacing `banded_spmm_pallas` and `banded_spmm_gram_pallas`, and the
+rolling-band SpMM with and without the Gram, replacing
+`_rolling_kernel_call`: the same kernel with implicit, wrapping window
+starts). CPU tensors take each kernel's plain torch version instead.
 
 Importing the package turns TF32 off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,

@@ -1,7 +1,8 @@
 // The inner loops shared by the strip-BSR kernels (bsr_spmm.cu) and the
-// full-window band kernels (banded_spmm.cu): one warp's 16-row stripe of
-// a 128-row tile times the U rows of the stripe's occupied 16 x 16
-// sub-blocks.
+// band kernels (banded_spmm.cu: the full-window band and the rolling
+// band): one warp's 16-row stripe of a 128-row tile times the U rows of
+// the stripe's occupied 16 x 16 sub-blocks, and the fused Gram's
+// epilogue (tile_gram, at the end).
 //
 // Both layouts are dense and mostly zero (13-22% of the 16 x 16
 // sub-blocks of a 300k-point cloud Laplacian hold a nonzero), and both
@@ -16,7 +17,8 @@
 // takes them 32 at a time, one per lane: each lane reads its piece's
 // byte and, when it is not 0, the piece's U row and data offset (the
 // caller's `piece` functor: the cid or group-table lookup, or the window
-// start). A warp scan turns the bytes into a list of (lane, sub-block)
+// start; a rolling window may start before U's row 0 or end past its
+// last row, and U rows outside [0, n_urows) read as zero). A warp scan turns the bytes into a list of (lane, sub-block)
 // entries in shared memory, in piece order, so the product is summed in
 // the same order whatever the column block, and bit for bit the same
 // from run to run. For each entry the warp reads the 16 x 16 sub-block
@@ -180,10 +182,10 @@ __device__ __forceinline__ void stripe_product(
       const int urow0 = __shfl_sync(kFull, ub, id >> 3) + j * kSub;
       const long long off_e = __shfl_sync(kFull, off, id >> 3);
       a_next.load(data + off_e + j * kSub, ld, lane);
-      const float* up = U + (size_t)urow0 * k;
+      const float* up = U + (long long)urow0 * k;
 #pragma unroll
       for (int kk = 0; kk < kSub; ++kk) {
-        const bool live = urow0 + kk < n_urows;
+        const bool live = (unsigned)(urow0 + kk) < (unsigned)n_urows;
 #pragma unroll
         for (int c = 0; c < kCols; ++c)
           u_next[kk][c] = live && ucol[c] >= 0
@@ -290,8 +292,8 @@ __device__ __forceinline__ void stripe_product(
       a_next[1] = __ldg(reinterpret_cast<const unsigned*>(ap + 8 * ld));
       a_next[2] = __ldg(reinterpret_cast<const unsigned*>(ap + 8));
       a_next[3] = __ldg(reinterpret_cast<const unsigned*>(ap + 8 * ld + 8));
-      const float* up = U + (size_t)(urow0 + 2 * t) * k;
-      const bool whole = urow0 + kSub <= n_urows;  // warp-uniform
+      const float* up = U + (long long)(urow0 + 2 * t) * k;
+      const bool whole = urow0 >= 0 && urow0 + kSub <= n_urows;  // uniform
 #pragma unroll
       for (int nb = 0; nb < kGroups; ++nb) {
         if (nb < n_live) {
@@ -299,7 +301,8 @@ __device__ __forceinline__ void stripe_product(
           for (int i = 0; i < 4; ++i) {
             const int dr = (i & 1) + 8 * (i >> 1);
             const bool live = ucol[nb] >= 0
-                              && (whole || urow0 + 2 * t + dr < n_urows);
+                              && (whole || (unsigned)(urow0 + 2 * t + dr)
+                                               < (unsigned)n_urows);
             u_next[nb][i] = live ? __ldg(up + (size_t)dr * k + ucol[nb]) : 0.f;
           }
         }
@@ -343,6 +346,88 @@ __device__ __forceinline__ void store_stripe(float* __restrict__ W, int row0,
     const int row = row0 + L::row(i, lane);
     const int col = col0 + L::col(i, lane);
     if (row < n && col < k) W[(size_t)row * k + col] = acc[i];
+  }
+}
+
+// ---- the fused Gram's epilogue ------------------------------------------
+
+constexpr int kGramPanel = 32;  // U columns (Gram rows) staged at a time
+
+// Row stride of the staged W tile: odd for 32 columns (no bank conflicts
+// whatever the accumulator layout), 64 for 64 columns (the two stages
+// then fill the 48 KB of static shared memory exactly).
+template <int kCols>
+constexpr int kGramLd = kCols == 1 ? 33 : 64;
+
+// Floats of shared memory tile_gram needs: the U panel, then the W tile.
+template <int kCols>
+constexpr int kGramFloats = kT * (kGramPanel + kGramLd<kCols>);
+
+// out[i, col0 + c] = sum over the tile's 128 rows r of U[row0 + r, i] *
+// W[row0 + r, col0 + c] for i < k: the tile's partial Gram, from the
+// block's W tile (acc, in Layout<DataT, kCols>) and the tile's own,
+// unrounded U rows. Exact fp32 FFMA, rows summed in order.
+//
+// The W tile (128 x 32 kCols) and, 32 columns at a time, the tile's U
+// rows (128 x 32) go through shared memory with coalesced loads; `smem`
+// starts at the warps' scratch, which the product no longer needs. Warp
+// w owns Gram rows 4 w .. 4 w + 3 of the panel in registers and lane c
+// columns c (and c + 32): per row of the tile one broadcast 16-byte
+// load of U and one conflict-free load of W per column feed 4 FFMA per
+// column. Shared memory per block: 32.5 KB at 32 columns, 48 KB at 64,
+// whatever k (k = 128 is four panels), so it never limits the blocks
+// per SM below the launch bounds' two or three. Must be called by the
+// whole block.
+template <typename DataT, int kCols>
+__device__ __forceinline__ void tile_gram(
+    const float (&acc)[kSub * kCols], const float* __restrict__ U, int row0,
+    int n, int k, int col0, float* __restrict__ smem,
+    float* __restrict__ out) {
+  using L = Layout<DataT, kCols>;
+  constexpr int kLd = kGramLd<kCols>;
+  float(*us)[kGramPanel] = reinterpret_cast<float(*)[kGramPanel]>(smem);
+  float(*ws)[kLd] = reinterpret_cast<float(*)[kLd]>(smem + kT * kGramPanel);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __syncthreads();  // every warp is done with the scratch
+#pragma unroll
+  for (int i = 0; i < kSub * kCols; ++i) {
+    const int row = warp * kSub + L::row(i, lane);
+    ws[row][L::col(i, lane)] = row0 + row < n ? acc[i] : 0.f;
+  }
+  for (int p0 = 0; p0 < k; p0 += kGramPanel) {
+    if (p0 > 0) __syncthreads();  // the last panel has been used
+    for (int e = tid; e < kT * kGramPanel; e += kThreads) {
+      const int r = e / kGramPanel, i = p0 + e % kGramPanel;
+      us[r][e % kGramPanel] =
+          row0 + r < n && i < k ? __ldg(U + (size_t)(row0 + r) * k + i) : 0.f;
+    }
+    __syncthreads();
+    if (p0 + 4 * warp >= k) continue;  // warp-uniform
+    float g[kCols][4];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      g[c][0] = g[c][1] = g[c][2] = g[c][3] = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < kT; ++r) {
+      const float4 u = *reinterpret_cast<const float4*>(&us[r][4 * warp]);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float w = ws[r][lane + 32 * c];
+        g[c][0] = fmaf(u.x, w, g[c][0]);
+        g[c][1] = fmaf(u.y, w, g[c][1]);
+        g[c][2] = fmaf(u.z, w, g[c][2]);
+        g[c][3] = fmaf(u.w, w, g[c][3]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = col0 + lane + 32 * c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = p0 + 4 * warp + j;
+        if (i < k && col < k) out[(size_t)i * k + col] = g[c][j];
+      }
+    }
   }
 }
 

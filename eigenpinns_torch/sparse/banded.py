@@ -15,7 +15,9 @@ the contiguous window U[starts[t] : starts[t] + B]:
 
 Two kernels in `csrc/banded_spmm.cu` compute W = A U for CUDA tensors:
 K4 (port of the Pallas kernel `banded_spmm_pallas`) and K5, which adds
-the fused Gram G = U^T A U (port of `banded_spmm_gram_pallas`). Both
+the fused Gram G = U^T A U (port of `banded_spmm_gram_pallas`); the same
+source holds the rolling band's kernel (`sparse/rolling.py`), which
+launches through `launch_band_kernel` here. Both
 walk the band's occupancy table (`occupancy`, one 64-bit word per
 128 x 128 piece of a tile's window: `sparse/occupancy.py`) and read and
 multiply only the 16 x 16 sub-blocks that hold a nonzero. CPU tensors
@@ -217,46 +219,41 @@ def build_kernel() -> ctypes.CDLL:
     lib = load_library("banded_spmm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.epk_banded_spmm.restype = i
-    lib.epk_banded_spmm.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
-                                    p]
+    lib.epk_banded_spmm.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i,
+                                    i, p]
     lib.epk_banded_error_string.restype = ctypes.c_char_p
     lib.epk_banded_error_string.argtypes = [i]
     return lib
 
 
-def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
-                     col_block: int | None = None):
-    """Launch csrc/banded_spmm.cu: W = A U (K4), and with `with_gram` also
-    G = U^T A U (K5). `col_block` (32 or 64 output columns per block of
-    K4) defaults to `default_col_block(k, band.dtype)`; K5 always takes
-    32. Raises on anything the kernels do not take."""
-    band, starts = A.band, A.starts
-    if A.occupancy is None:
-        raise ValueError("the banded kernels need the band's occupancy "
+def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
+                       pre: int, occ: torch.Tensor | None, U: torch.Tensor,
+                       n: int, with_gram: bool, col_block: int | None):
+    """One launch of csrc/banded_spmm.cu on a square n x n operator: a
+    full-window band (`starts` given) or a rolling band (`starts` None,
+    windows `pre` rows above their tile). Checks what both layouts share
+    (the band, its occupancy table, U, `col_block`), allocates the
+    outputs and raises when the launch fails. Returns (W, G); G is None
+    without `with_gram`."""
+    if occ is None:
+        raise ValueError("the band kernels need the band's occupancy "
                          "table (from_scipy makes it; "
                          "occupancy_mask(band) for a hand-made operator)")
-    if not (U.is_cuda and band.is_cuda and U.device == band.device
-            and starts.device == band.device):
-        raise ValueError("banded_spmm_cuda needs U, the band and starts on "
-                         f"one CUDA device (got {U.device}, {band.device}, "
-                         f"{starts.device})")
+    if not (U.is_cuda and band.is_cuda and U.device == band.device):
+        raise ValueError("the band kernels need U and the band on one "
+                         f"CUDA device (got {U.device}, {band.device})")
     if band.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the band must be float32 or bfloat16, got "
                          f"{band.dtype}")
-    if (U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != A.n_cols
+    if (U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != n
             or U.shape[1] == 0):
-        raise ValueError(f"U must be float32 ({A.n_cols}, k >= 1), got "
+        raise ValueError(f"U must be float32 ({n}, k >= 1), got "
                          f"{U.dtype} {tuple(U.shape)}")
     n_pad, B = band.shape
-    if A.tile != 128 or n_pad % 128 or B % 128 or A.n != A.n_cols:
-        raise ValueError("the banded kernels take a square operator with "
-                         f"128-row tiles and B a multiple of 128 (tile "
-                         f"{A.tile}, band {tuple(band.shape)}, shape "
-                         f"{A.shape})")
-    if (starts.dtype != torch.int32 or starts.shape != (n_pad // 128,)
-            or not starts.is_contiguous()):
-        raise ValueError("starts must be contiguous int32 (n_pad / 128,)")
-    occ = A.occupancy
+    if n_pad % 128 or B % 128 or not 0 < n <= n_pad:
+        raise ValueError("the band kernels take 128-row tiles and B a "
+                         f"multiple of 128 (band {tuple(band.shape)}, "
+                         f"n = {n})")
     if (occ.dtype != torch.int64 or occ.shape != (n_pad // 128, B // 128)
             or occ.device != band.device or not occ.is_contiguous()):
         raise ValueError("the occupancy table must be contiguous int64 "
@@ -266,13 +263,14 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
         raise ValueError("the band must be contiguous and 16-byte aligned, "
                          "U contiguous")
     k = U.shape[1]
-    if with_gram:
-        col_block = 32
-    elif col_block is None:
+    if col_block is None:
         col_block = default_col_block(k, band.dtype)
     if col_block not in (32, 64):
         raise ValueError(f"col_block must be 32 or 64, got {col_block}")
-    W = torch.empty((A.n, k), dtype=torch.float32, device=U.device)
+    # One block per (tile, column block), on the grid's x axis.
+    if (n_pad // 128) * -(-k // col_block) >= 2**31:
+        raise ValueError(f"{n_pad // 128} tiles x k = {k} exceed the grid")
+    W = torch.empty((n, k), dtype=torch.float32, device=U.device)
     partial = G = None
     if with_gram:
         partial = torch.empty((n_pad // 128, k, k), dtype=torch.float32,
@@ -282,13 +280,34 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
     stream = torch.cuda.current_stream(U.device).cuda_stream
     err = lib.epk_banded_spmm(
         band.data_ptr(), int(band.dtype == torch.bfloat16),
-        starts.data_ptr(), occ.data_ptr(), U.data_ptr(), W.data_ptr(),
+        None if starts is None else starts.data_ptr(), pre, occ.data_ptr(),
+        U.data_ptr(), W.data_ptr(),
         None if partial is None else partial.data_ptr(),
-        None if G is None else G.data_ptr(), A.n, n_pad, B, k, col_block,
+        None if G is None else G.data_ptr(), n, n_pad, B, k, col_block,
         stream)
     if err != 0:
         raise RuntimeError("banded_spmm kernel launch failed: "
                            + lib.epk_banded_error_string(err).decode())
+    return W, G
+
+
+def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
+                     col_block: int | None = None):
+    """Launch csrc/banded_spmm.cu: W = A U (K4), and with `with_gram` also
+    G = U^T A U (K5). `col_block` (32 or 64 output columns per block)
+    defaults to `default_col_block(k, band.dtype)`. Raises on anything
+    the kernels do not take."""
+    band, starts = A.band, A.starts
+    n_pad = band.shape[0]
+    if A.tile != 128 or A.n != A.n_cols:
+        raise ValueError("the banded kernels take a square operator with "
+                         f"128-row tiles (tile {A.tile}, shape {A.shape})")
+    if (starts.dtype != torch.int32 or starts.shape != (n_pad // 128,)
+            or starts.device != band.device or not starts.is_contiguous()):
+        raise ValueError("starts must be contiguous int32 (n_pad / 128,) "
+                         "on the band's device")
+    W, G = launch_band_kernel(band, starts, 0, A.occupancy, U, A.n,
+                              with_gram, col_block)
     banded_kernel_launches["spmm_gram" if with_gram else "spmm"] += 1
     return (W, G) if with_gram else W
 

@@ -1,19 +1,21 @@
 """Occupancy tables of the dense tile layouts: which 16 x 16 sub-blocks
 of each 128 x 128 piece hold a nonzero.
 
-The strip-BSR strips (`BSRTile.data`) and the full-window band
-(`BandedELL.band`) are dense and mostly zero: on a 300k-point cloud
-Laplacian 13-22% of their 16 x 16 sub-blocks hold anything. The CUDA
-kernels of `csrc/bsr_spmm.cu` and `csrc/banded_spmm.cu` walk this table
-and read and multiply only the occupied sub-blocks; the stored layout
-itself is unchanged.
+The strip-BSR strips (`BSRTile.data`), the full-window band
+(`BandedELL.band`) and the rolling band (`RollingBanded.band`) are dense
+and mostly zero: on a 300k-point cloud Laplacian 13-22% of the 16 x 16
+sub-blocks of the first two hold anything, 4% of the rolling band's.
+The CUDA kernels of `csrc/bsr_spmm.cu` and `csrc/banded_spmm.cu` walk
+this table and read and multiply only the occupied sub-blocks; the
+stored layout itself is unchanged.
 
 One int64 word per 128 x 128 piece: bit 8 i + j is set when the
 sub-block of rows [16 i, 16 i + 16) and columns [16 j, 16 j + 16) of the
 piece holds a nonzero, so byte i of the word (little-endian) is the
 column-group mask of row stripe i. For strip-BSR the pieces are the
-(chunk, slot) tiles, shape (S, C); for the band they are the 128-column
-pieces of each row tile's window, shape (n_pad / 128, B / 128).
+(chunk, slot) tiles, shape (S, C); for the bands they are the 128-column
+pieces of each row tile's (rotated, for the rolling band) columns, shape
+(n_pad / 128, B / 128).
 
 The table is derived from the dense tensor on its device, so it cannot
 disagree with the data. A set bit over an all-zero sub-block is harmless

@@ -7,10 +7,18 @@ top-padded by `pre` zero rows), and the band's columns are rotated once
 at build time so that row i's entry for column c sits at
 band[i, (c + pre) mod B'], B' = B + tile.
 
-The product W = A U runs on kernel `csrc/rolling_spmm.cu` for CUDA
-tensors (the port of the Pallas kernel `_rolling_kernel_call`) and on
-`rolling_spmm_plain`, a plain torch version of the same function, for
-CPU tensors. A CUDA tensor always reaches the kernel or raises.
+The product W = A U runs on the rolling instantiation of the band kernel
+in `csrc/banded_spmm.cu` for CUDA tensors (the port of the Pallas kernel
+`_rolling_kernel_call`: B', `pre` and every tile's origin are multiples
+of 128, so the rotation moves whole 128-column pieces and a rolling band
+is a full-window band whose window starts are implicit and whose pieces
+wrap) and on `rolling_spmm_plain`, a plain torch version of the same
+function, for CPU tensors. The kernel walks the band's occupancy table
+(`occupancy`, one 64-bit word per 128 x 128 piece of the rotated band:
+`sparse/occupancy.py`) and reads and multiplies only the 16 x 16
+sub-blocks that hold a nonzero: on the RCM-ordered Laplacian of a
+300k-point cloud that is 4% of a band of 1.15e9 elements. A CUDA tensor
+always reaches the kernel or raises.
 
 Autograd matches the JAX custom VJPs: the operator is a constant; the
 backward pass of A U applies A^T through the same kernel (the stored
@@ -20,19 +28,21 @@ backward pass is dU = A^T (gW + U gG) + W gG^T.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-PRECISIONS = ("highest", "high", "bf16")
-_KERNEL_ROWS = 32   # output rows per CUDA block (csrc/rolling_spmm.cu)
+from eigenpinns_torch.sparse.banded import band_occupancy, launch_band_kernel
+from eigenpinns_torch.sparse.occupancy import default_col_block
 
-# Launches of the CUDA kernel (one per wrapper call that reaches it).
+PRECISIONS = ("highest", "high", "bf16")
+
+# Launches of the CUDA kernel (one per wrapper call that reaches it), and
+# how many of them asked for the fused Gram.
 rolling_kernel_launches = 0
+rolling_gram_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -52,6 +62,11 @@ class RollingBanded:
     transpose_rolling: A^T in the same format (None = symmetric)
     mxu_precision: 'highest' | 'high' (both exact fp32 here) | 'bf16'
           (band stored bf16, U rounded to bf16, fp32 accumulation)
+    occupancy: (N_pad / 128, B' / 128) int64 — bit 8 i + j of a word is
+          set when the 16 x 16 sub-block (i, j) of that 128 x 128 piece
+          of the rotated band holds a nonzero (`occupancy_mask(band)`,
+          taken from the band as stored); the CUDA kernel needs it. None
+          for a tile other than 128, which the kernel does not take.
     """
 
     band: torch.Tensor
@@ -61,10 +76,13 @@ class RollingBanded:
     tile: int
     transpose_rolling: "RollingBanded | None" = None
     mxu_precision: str = "highest"
+    occupancy: torch.Tensor | None = None
 
     def with_precision(self, precision: str) -> "RollingBanded":
         """Same operator, another precision mode. 'bf16' stores a bf16
-        copy of the band; the other modes keep (or restore) fp32."""
+        copy of the band; the other modes keep (or restore) fp32. The
+        occupancy table is kept: rounding to bf16 can only turn a nonzero
+        into a zero, so the source's table covers the copy's nonzeros."""
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         t = (None if self.transpose_rolling is None
@@ -135,7 +153,8 @@ class RollingBanded:
                     reorder=False, max_bandwidth=max_bandwidth,
                     with_transpose=False)[0]
         precision = "bf16" if dtype == torch.bfloat16 else "highest"
-        op = cls(band, pre, B, n, tile, transpose, precision)
+        op = cls(band, pre, B, n, tile, transpose, precision,
+                 band_occupancy(band, tile))
         return op, perm
 
 
@@ -166,60 +185,29 @@ def rolling_spmm_gram_plain(A: RollingBanded, U: torch.Tensor):
 
 # ---- CUDA kernel wrapper -------------------------------------------------
 
-@functools.cache
-def build_kernel() -> ctypes.CDLL:
-    """Compile csrc/rolling_spmm.cu (once per source hash), load it and
-    declare its C interface."""
-    from eigenpinns_torch.utils.cuda_build import load_library
-
-    lib = load_library("rolling_spmm")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.epk_rolling_spmm.restype = i
-    lib.epk_rolling_spmm.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
-    lib.epk_cuda_error_string.restype = ctypes.c_char_p
-    lib.epk_cuda_error_string.argtypes = [i]
-    return lib
-
-
 def rolling_spmm_cuda(A: RollingBanded, U: torch.Tensor,
-                      with_gram: bool = False):
-    """Launch csrc/rolling_spmm.cu: W = A U, and G = U^T A U when
-    `with_gram`. Raises on anything the kernel does not take."""
-    global rolling_kernel_launches
+                      with_gram: bool = False, col_block: int | None = None):
+    """Launch the rolling band kernel of csrc/banded_spmm.cu: W = A U, and
+    G = U^T A U when `with_gram`. `col_block` (32 or 64 output columns
+    per block) defaults to `default_col_block(k, band.dtype)`. Raises on
+    anything the kernel does not take: a tile other than 128 (the walk
+    needs the rotation to move whole 128-column pieces), no occupancy
+    table, CPU tensors."""
+    global rolling_kernel_launches, rolling_gram_launches
     band = A.band
-    if not (U.is_cuda and band.is_cuda and U.device == band.device):
-        raise ValueError("rolling_spmm_cuda needs U and the band on one "
-                         f"CUDA device (got {U.device}, {band.device})")
+    if A.tile != 128 or A.pre % 128 or A.win + 128 != band.shape[1]:
+        raise ValueError("the rolling band kernel takes tile = 128, pre a "
+                         f"multiple of 128 and B' = win + 128 (tile {A.tile},"
+                         f" pre {A.pre}, win {A.win}, band "
+                         f"{tuple(band.shape)})")
     want = torch.bfloat16 if A.mxu_precision == "bf16" else torch.float32
     if band.dtype != want:
         raise ValueError(f"'{A.mxu_precision}' needs a {want} band, got "
                          f"{band.dtype}")
-    if U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != A.n:
-        raise ValueError(f"U must be float32 ({A.n}, k), got {U.dtype} "
-                         f"{tuple(U.shape)}")
-    n_pad, bp = band.shape
-    if A.tile % _KERNEL_ROWS or n_pad % A.tile or bp % _KERNEL_ROWS:
-        raise ValueError("band layout must use multiples of 32 rows/cols")
-    if not (band.is_contiguous() and U.is_contiguous()):
-        raise ValueError("band and U must be contiguous")
-    k = U.shape[1]
-    W = torch.empty((A.n, k), dtype=torch.float32, device=U.device)
-    partial = G = None
-    if with_gram:
-        partial = torch.empty((n_pad // _KERNEL_ROWS, k, k),
-                              dtype=torch.float32, device=U.device)
-        G = torch.empty((k, k), dtype=torch.float32, device=U.device)
-    lib = build_kernel()
-    stream = torch.cuda.current_stream(U.device).cuda_stream
-    err = lib.epk_rolling_spmm(
-        band.data_ptr(), int(band.dtype == torch.bfloat16), U.data_ptr(),
-        W.data_ptr(), None if partial is None else partial.data_ptr(),
-        None if G is None else G.data_ptr(), A.n, n_pad, bp, A.pre, A.tile,
-        k, stream)
-    if err != 0:
-        raise RuntimeError("rolling_spmm kernel launch failed: "
-                           + lib.epk_cuda_error_string(err).decode())
+    W, G = launch_band_kernel(band, None, A.pre, A.occupancy, U, A.n,
+                              with_gram, col_block)
     rolling_kernel_launches += 1
+    rolling_gram_launches += int(with_gram)
     return (W, G) if with_gram else W
 
 

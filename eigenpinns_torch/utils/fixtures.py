@@ -72,3 +72,24 @@ def make_cloud(n: int, seed: int = 0) -> np.ndarray:
     return (r[:, None] * np.stack(
         [np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
          np.cos(phi)], 1)).astype(np.float64)
+
+
+def adversarial_rolling_matrix():
+    """A 1000 x 1000 nonsymmetric scipy matrix whose rolling band (built
+    with `reorder=False`: pre = 256, B = 640, B' = 768) puts its nonzeros
+    where a walk over the band's occupancy bits is easiest to get wrong:
+    row tile 1 holds a single entry, in the last 16 x 16 sub-block of its
+    piece (bit 63 of the word, the sign bit); there are entries in the
+    first and last row and column; tile 0's window starts 256 rows before
+    U's row 0 and the last tile's ends 280 rows past its last row; the
+    sub-block of (999, 999) multiplies U rows 992..1007, of which only 8
+    exist; and the last row tile is ragged (rows 1000..1023 do not
+    exist). Nonsymmetric, so the operator stores its transpose."""
+    import scipy.sparse as sp
+
+    ij = np.array([[0, 0], [0, 200], [100, 17], [255, 255], [300, 0],
+                   [300, 300], [400, 390], [600, 513], [640, 999],
+                   [650, 650], [800, 790], [999, 999], [999, 700]])
+    vals = np.array([2.0, -0.5, 1.25, 1.5, 0.75, -3.0, 0.375, 2.5, 3.0,
+                     -1.0, 0.625, -2.25, 4.0])
+    return sp.csr_matrix((vals, (ij[:, 0], ij[:, 1])), shape=(1000, 1000))

@@ -28,6 +28,7 @@ from eigenpinns_torch.geometry import point_cloud_laplacian
 from eigenpinns_torch.sparse import banded as tbanded
 from eigenpinns_torch.sparse import bsr as tbsr
 from eigenpinns_torch.sparse import rolling as trolling
+from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
 
 
 def _rel(a, b):
@@ -40,11 +41,33 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
 
 
+def _check_rolling(op, U, tol):
+    """K1 on one operator: W and G vs the plain version, one launch
+    counted per call, W the same bits from both column blocks, with and
+    without the Gram and from a second launch, G from a second launch."""
+    before = trolling.rolling_kernel_launches
+    W, G = tsparse.rolling_spmm_cuda(op, U, with_gram=True)
+    torch.cuda.synchronize()
+    assert trolling.rolling_kernel_launches == before + 1
+    Wp, Gp = tsparse.rolling_spmm_gram_plain(op, U)
+    assert _rel(W.cpu(), Wp.cpu()) < tol
+    assert _rel(G.cpu(), Gp.cpu()) < tol
+    for cb in (32, 64):
+        assert torch.equal(tsparse.rolling_spmm_cuda(op, U, col_block=cb), W)
+        W2, G2 = tsparse.rolling_spmm_cuda(op, U, with_gram=True,
+                                           col_block=cb)
+        assert torch.equal(W2, W)
+        assert _rel(G2.cpu(), Gp.cpu()) < tol
+    assert torch.equal(tsparse.rolling_spmm_cuda(op, U, with_gram=True)[1], G)
+    return W, G, Wp
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["highest", "high", "bf16"])
 @pytest.mark.parametrize("k", [10, 39])
 def test_rolling_cuda_kernel_matches_plain(precision, k):
-    """K1 vs plain version on a 500-point cloud Laplacian."""
+    """K1 vs plain version on a 500-point cloud Laplacian, and the
+    gradient through the fused Gram."""
     _need_card()
     r2 = np.random.default_rng(7)
     X = r2.normal(size=(500, 3))
@@ -54,14 +77,38 @@ def test_rolling_cuda_kernel_matches_plain(precision, k):
     op = op.with_precision(precision)
     U = torch.from_numpy(np.random.default_rng(4).normal(
         size=(op.n, k)).astype(np.float32)).cuda()
-    before = trolling.rolling_kernel_launches
-    W, G = tsparse.rolling_spmm_cuda(op, U, with_gram=True)
-    torch.cuda.synchronize()
-    assert trolling.rolling_kernel_launches == before + 1
-    Wp, Gp = tsparse.rolling_spmm_gram_plain(op, U)
     tol = 2e-3 if precision == "bf16" else 1e-5
-    assert _rel(W.cpu(), Wp.cpu()) < tol
-    assert _rel(G.cpu(), Gp.cpu()) < tol
+    _, _, Wp = _check_rolling(op, U, tol)
+    gen = torch.Generator("cuda").manual_seed(k)
+    gW = torch.randn((op.n, k), generator=gen, device="cuda")
+    gG = torch.randn((k, k), generator=gen, device="cuda")
+    Uk = U.clone().requires_grad_(True)
+    Wk, Gk = tsparse.rolling_spmm_gram(op, Uk)
+    ((Wk * gW).sum() + (Gk * gG).sum()).backward()
+    ref = tsparse.rolling_spmm_plain(op, gW + U @ gG) + Wp @ gG.T
+    assert _rel(Uk.grad.cpu(), ref.cpu()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+@pytest.mark.parametrize("k", [20, 60])
+def test_rolling_cuda_kernel_adversarial(precision, k):
+    """K1 on the adversarial operator (a tile whose only nonzero sits on
+    bit 63, windows that start before row 0 and end past n, a ragged last
+    tile) and on its stored transpose, also against the dense product."""
+    _need_card()
+    A = adversarial_rolling_matrix()
+    op, _ = tsparse.RollingBanded.from_scipy(A, device="cuda", reorder=False)
+    assert sorted(op.occupancy[1].tolist()) == [-2**63] + [0] * 5
+    op = op.with_precision(precision)
+    U = torch.from_numpy(np.random.default_rng(k).normal(
+        size=(op.n, k)).astype(np.float32)).cuda()
+    Ur = U.bfloat16().float() if precision == "bf16" else U
+    tol = 2e-3 if precision == "bf16" else 1e-5
+    for o, dense in ((op, A.toarray()), (op.transpose_rolling, A.T.toarray())):
+        W, _, _ = _check_rolling(o, U, tol)
+        D = torch.as_tensor(dense, dtype=torch.float32, device="cuda")
+        assert _rel(W.cpu(), (D.to(o.band.dtype).float() @ Ur).cpu()) < 1e-5
 
 
 def _asym800():
@@ -145,6 +192,11 @@ def test_banded_cuda_kernels_match_plain(case, k, dtype):
     assert torch.equal(W, W2)
     for cb in (32, 64):
         assert torch.equal(tbanded.banded_spmm_cuda(op, U, col_block=cb), W)
+        W3, G3 = tbanded.banded_spmm_cuda(op, U, with_gram=True,
+                                          col_block=cb)
+        assert torch.equal(W3, W)
+        assert _rel(G3.cpu(), Gp.cpu()) < 2e-5
+    assert torch.equal(tbanded.banded_spmm_cuda(op, U, with_gram=True)[1], G)
     assert _rel(W.cpu(), Wp.cpu()) < 1e-5
     assert _rel(G.cpu(), Gp.cpu()) < 2e-5
     Uk = U.clone().requires_grad_(True)
