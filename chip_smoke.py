@@ -9,12 +9,23 @@ It exits non-zero, before printing any result, when no CUDA device is
 present or the package is not beside it. On the card it:
 
   1. prints the card (torch's name; nvidia-smi's name and power limit)
-     and builds the two kernel sources with nvcc, one process each, in
-     parallel: eigenpinns_torch/csrc/bsr_spmm.cu (K2 and K3, the grouped
-     and burst strip-BSR SpMMs) and banded_spmm.cu (K4 and K5, the
-     full-window band SpMM and its fused Gram, and K1, the rolling-band
-     SpMM with and without the Gram: the same kernel with implicit,
-     wrapping window starts), printing the -Xptxas -v reports;
+     and builds the three sources in parallel, each with its own
+     compiler process: eigenpinns_torch/csrc/bsr_spmm.cu (K2 and K3, the
+     grouped and burst strip-BSR SpMMs) and banded_spmm.cu (K4 and K5,
+     the full-window band SpMM and its fused Gram, and K1, the
+     rolling-band SpMM with and without the Gram: the same kernel with
+     implicit, wrapping window starts) with nvcc, printing the -Xptxas
+     -v reports, and geometry_kernels.cpp (the native host stage: kNN,
+     farthest-point sampling, local triangulations, intrinsic-Delaunay
+     flips) with the host's C++ compiler, printing each job's wall; then
+     starts the 1M host stage: `make_cloud(1_000_000)`, its native
+     point-cloud Laplacian (15 neighbors) and the 50-mode eigsh oracle
+     in a worker process on one thread (as is the 300k oracle), which
+     runs behind every 300k phase. The Laplacian runs while the card
+     waits: behind the host-bound multigrid path it would slow that
+     path, and the 1M phases would wait for the oracle instead. Every
+     point-cloud Laplacian of the script passes use_native=True, so a
+     missing native library fails the run;
   2. holds K1 against its plain torch version on the card, at the
      shapes the multigrid path gives it: the fused block-diagonal K_blk
      at k = 10 and the finest level's K at k = 39 (the LOBPCG block),
@@ -36,9 +47,11 @@ present or the package is not beside it. On the card it:
      from zero; it checks the polished eigenvalues against scipy's eigsh
      on the finest level (max rel err of modes 1+ <= 1e-3);
   4. builds the host stage of the 300k slices: the bench's 300k-point
-     cloud (`make_cloud`), its point-cloud Laplacian (15 neighbors), the
-     strip-BSR K (RCM, C = 8, G = 32) on the card and the lumped M; the
-     eigsh oracle (50 modes) runs in a worker process meanwhile;
+     cloud (`make_cloud`), its native point-cloud Laplacian (15
+     neighbors), the strip-BSR K (RCM, C = 8, G = 32) on the card and the
+     lumped M; the eigsh oracle (50 modes) runs in a worker process
+     meanwhile (host_stage_times.py times the native Laplacian against
+     the numpy triangulation's on a quiet host);
   5. holds the occupancy-driven K2 (the 300k K) and K3 (the same K
      without its group tables, sharing the strips and the occupancy
      table) against the plain version at k = 20 (training), 28 (the
@@ -108,9 +121,28 @@ present or the package is not beside it. On the card it:
      `spectral_basis_family` on them (k = 16, 4096-point coarse warm
      start), counting K3's launches from zero, and checks each member
      against its own eigsh (<= 1e-3);
- 11. prints a JSON line describing the five kernels (launches on their
+ 11. runs the 1M direct phase, `phase_xl`'s configuration at the JAX
+     package's own size, after the 300k operators are freed: the RCM
+     strip-BSR K of the 1M Laplacian (its build time, size and peak
+     device memory printed), K2 against its plain version on it at k = 20
+     and 28 in 'highest' and 'bf16' with torch.sparse.mm and the bound,
+     `train_joint` at 150 epochs in chunks of 50 and the 800-iteration
+     k + 8 guarded polish on the 'highest' K, counting K2's launches from
+     zero; the polished modes 1..19 must be within 1.71e-3 of the 1M
+     oracle (the JAX package's own result); the polish is then repeated
+     from the same start for 200 iterations under torch.profiler (idle
+     share, top kernels) and for 20 under CUDA's sync debug mode, which
+     counts the host syncs by line;
+ 12. runs the 1M spectral basis: K4 and K5 against their plain version on
+     the 1M cluster core (window 1024) at k = 20 and 60, then
+     `spectral_basis` with step 8's configuration on the same cloud and
+     L, counting K4's launches from zero; modes 1..49 within 1e-3 of the
+     oracle (the JAX package's 1M figure, 3.1e-4, is printed beside),
+     the basis M-orthonormal to 1e-3;
+ 13. prints a JSON line describing the five kernels (launches on their
      path, max abs err, kernel, plain and library times; K1 with its
-     300k row beside the multigrid one; and the bound:
+     300k row beside the multigrid one, K2 and K4 with their 1M rows and
+     launches; and the bound:
      the larger of the bytes the product must move -- each nonzero's
      value and column index, the row pointers, U and W, the Gram for K5
      -- over 3.35 TB/s and its operations, 2 nnz k (+ 2 n k^2 for the
@@ -118,7 +150,9 @@ present or the package is not beside it. On the card it:
      power limit, then, as the last line, {"ok": true, "device": {...}}.
      Each phase prints its wall time.
 
-Steps 8 and 9 and the rolling-band training run under torch.profiler
+Every LOBPCG polish prints its iterations and the max and median of its
+scaled residual norms. Steps 8 and 9 and the rolling-band training run
+under torch.profiler
 (CPU and CUDA activities) and print, over the spectral solve (the
 `spectral_basis.solve` span) and over each training, the card's kernel
 time, its copy time and its idle share, and the kernels with the most
@@ -131,10 +165,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from multiprocessing import get_context
 
 import numpy as np
@@ -156,8 +192,22 @@ DIRECT_CFG = dict(n_modes=DIRECT_K, hidden=(256, 256, 256), mode="penalty",
                   mlp_compute_dtype="bfloat16")
 POLISH_GUARD, POLISH_ITERS, POLISH_TOL = 8, 800, 1e-6
 
-# The spectral-basis slice: scripts/run_1m_50modes_split.py's settings on
-# the 300k cloud (the one cut: 1M -> 300k points).
+# The 1M phases, the JAX package's own full width: `phase_xl`
+# (bench.py:528-645: the direct configuration at 150 epochs, the
+# 800-iteration polish, bar 1.71e-3 from
+# docs/captures/r5/xl_training_accuracy.json) and the 1M x 50 spectral
+# basis (bar 3.1e-4, eigenpinns_tpu/solvers/spectral_basis.py:3-20).
+XL_N = 1_000_000
+XL_CFG = dict(DIRECT_CFG, epochs=150)
+XL_BAR = 1.71e-3
+SPEC_XL_BAR = 3.1e-4
+# Iterations of the 1M polish's profiled repeat (the per-iteration
+# picture; the whole 800 under the profiler costs minutes to parse), and
+# of its run under CUDA's sync debug mode.
+PROFILE_POLISH_ITERS, SYNC_POLISH_ITERS = 200, 20
+
+# The spectral-basis slice: scripts/run_1m_50modes_split.py's settings,
+# on the 300k cloud and on the 1M one.
 SPEC_K = 50
 SPEC_CFG = dict(k=SPEC_K, n_neighbors=15, coarse_n=65536,
                 prolongation_neighbors=8, window=1024, block=16, guard=4,
@@ -180,6 +230,50 @@ def eigsh_values(L, M, k: int) -> np.ndarray:
     from eigenpinns_torch.solvers import eigsh_smallest
 
     return eigsh_smallest(L, M, k)[0]
+
+
+# The oracle workers' environment: one BLAS and OpenMP thread each, so
+# that a worker holds one of the host's cores and the host-bound paths it
+# runs behind keep the others.
+ONE_THREAD = dict.fromkeys(
+    ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"), "1")
+
+
+class HostOracle:
+    """eigsh of (L, M) in a spawn worker process on one thread, started
+    at once so that it runs behind the card's work; prints when it ends,
+    and `result()` prints how long its caller waited for it. `close()`
+    stops the worker."""
+
+    def __init__(self, label: str, L, M, k: int):
+        self.label, self.vals = label, None
+        saved = {name: os.environ.get(name) for name in ONE_THREAD}
+        os.environ.update(ONE_THREAD)
+        try:
+            self.pool = get_context("spawn").Pool(1)
+        finally:
+            for name, value in saved.items():
+                if value is None:
+                    del os.environ[name]
+                else:
+                    os.environ[name] = value
+        t0 = time.time()
+        self.job = self.pool.apply_async(
+            eigsh_values, (L, M, k), callback=lambda _: print(
+                f"[host] {label} eigsh oracle ({k} modes) in "
+                f"{time.time() - t0:.2f} s", flush=True))
+
+    def result(self) -> np.ndarray:
+        if self.vals is None:
+            t0 = time.time()
+            self.vals = self.job.get()
+            print(f"[host] waited {time.time() - t0:.2f} s for the "
+                  f"{self.label} oracle", flush=True)
+        return self.vals
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
 
 
 class SmokeFailure(RuntimeError):
@@ -290,6 +384,16 @@ def band_csr(core) -> torch.Tensor:
     coo = torch.sparse_coo_tensor(torch.stack([r, c]), band[r, j],
                                   (core.n, core.n_cols))
     return coo.coalesce().to_sparse_csr()
+
+
+def polish_stats(pol, k: int) -> str:
+    """A LOBPCG result's iterations and scaled residual norms (of the k
+    reported modes, and the most over the guard columns as well)."""
+    res = pol.residual_norms.double().cpu().numpy()
+    return (f"{int(pol.iterations)} iterations, residual norms of modes "
+            f"0..{k - 1}: max {res[:k].max():.3e} median "
+            f"{np.median(res[:k]):.3e} (with the guard columns: max "
+            f"{res.max():.3e})")
 
 
 def occupied_share(table: torch.Tensor, n_words: int | None = None) -> str:
@@ -592,9 +696,56 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
     return rows
 
 
-def direct_slice(bsr, K, M, X, oracle):
-    """train_joint on the strip-BSR K, then the guarded LOBPCG polish;
-    returns (K2 launches, the loss history)."""
+def check_k2_1m(bsr, K, K_sp, seed):
+    """K2 vs the plain version on the 1M strip-BSR K at the direct
+    training's widths (k = 20; 28, the polish block) in 'highest' and
+    'bf16' (W to BSR_TOL, and the same bits from a second launch), with
+    torch.sparse.mm of the same matrix (`K_sp`, in K's order) and the
+    bound; returns the k = 20 'bf16' row (the training loss's)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    row = None
+    for k in (DIRECT_K, DIRECT_K + POLISH_GUARD):
+        U = torch.randn((K.n, k), generator=gen, device="cuda")
+        for prec in ("highest", "bf16"):
+            A = K.with_precision(prec)
+            W = bsr.bsr_spmm_grouped_cuda(A, U)
+            Wp = bsr.bsr_spmm_plain(A, U)
+            torch.cuda.synchronize()
+            err = rel_err(W, Wp)
+            check(torch.equal(bsr.bsr_spmm_grouped_cuda(A, U), W),
+                  f"1M K2 k={k} {prec}: two launches differ")
+            ms = median_ms(lambda: bsr.bsr_spmm_grouped_cuda(A, U))
+            plain_ms = median_ms(lambda: bsr.bsr_spmm_plain(A, U), 5, 2)
+            print(f"[kernel] bsr_spmm_grouped 1M {tuple(A.data.shape)} k={k}"
+                  f" {prec}: rel_err_W={err:.3e} kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f}", flush=True)
+            check(err <= BSR_TOL[prec],
+                  f"1M K2 k={k} {prec} W: rel err {err:.3e}")
+            if k == DIRECT_K and prec == "bf16":
+                row = {"max_abs_err": float((W - Wp).abs().max()), "ms": ms,
+                       "plain_ms": plain_ms,
+                       **bound(least_bytes(K_sp.nnz, 2, K.n, k),
+                               {"bf16": 2 * K_sp.nnz * k})}
+            del A, W, Wp
+            torch.cuda.empty_cache()
+    csr = torch_csr(K_sp, K.data.device)
+    U = torch.randn((K.n, DIRECT_K), generator=gen, device="cuda")
+    row["library_ms"] = median_ms(lambda: torch.sparse.mm(csr, U))
+    del csr
+    print(f"[kernel] 1M strip-BSR K k={DIRECT_K}: torch.sparse.mm "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), nnz {K_sp.nnz}", flush=True)
+    return row
+
+
+def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
+                 bar=MAX_REL_ERR, profile_iters=0):
+    """train_joint on the strip-BSR K (`cfg`), then the guarded LOBPCG
+    polish; returns (K2 launches, the loss history). The polished modes
+    1..19 must be within `bar` of the oracle. With `profile_iters`, the
+    polish is run again from the same start for that many iterations
+    under the profiler, and for SYNC_POLISH_ITERS under CUDA's sync debug
+    mode, which names every line that makes the host wait for the card."""
     from eigenpinns_torch.solvers import lobpcg, train_joint
 
     device = K.data.device
@@ -603,7 +754,7 @@ def direct_slice(bsr, K, M, X, oracle):
     for key in bsr.bsr_kernel_launches:
         bsr.bsr_kernel_launches[key] = 0
     t0 = time.time()
-    res = train_joint(K, M, X, device=device, **DIRECT_CFG)
+    res = train_joint(K, M, X, device=device, **cfg)
     torch.cuda.synchronize()
     train_s = time.time() - t0
     train_launches = dict(bsr.bsr_kernel_launches)
@@ -619,32 +770,71 @@ def direct_slice(bsr, K, M, X, oracle):
     launches = dict(bsr.bsr_kernel_launches)
     peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
 
-    vals = oracle.result()[:DIRECT_K]
-    lam_raw = np.sort(res.eigenvalues)[:DIRECT_K]
-    lam_pol = np.sort(pol.eigenvalues.cpu().numpy())[:DIRECT_K]
+    k = cfg["n_modes"]
+    vals = oracle.result()[:k]
+    lam_raw = np.sort(res.eigenvalues)[:k]
+    lam_pol = np.sort(pol.eigenvalues.cpu().numpy())[:k]
     raw = np.abs(lam_raw[1:] - vals[1:]) / np.abs(vals[1:])
     polished = np.abs(lam_pol[1:] - vals[1:]) / np.abs(vals[1:])
     loss = res.history["loss"]
-    print(f"[direct] train_joint {res.epochs_run} epochs: train "
+    print(f"[{label}] train_joint {res.epochs_run} epochs: train "
           f"{train_s:.3f} s, per-chunk median {rates[len(rates) // 2]:.2f} "
           f"steps/s, chunk times "
           f"{[round(t, 4) for _, t in res.chunk_times]}", flush=True)
-    print(f"[direct] loss {loss[0]:.6g} -> {loss[-1]:.6g}; polish "
-          f"{int(pol.iterations)} iterations in {polish_s:.3f} s; peak "
-          f"device memory {peak_mb:.1f} MiB; kernel launches {launches} "
-          f"(training {train_launches})", flush=True)
-    print(f"[direct] polished {np.array2string(lam_pol, precision=6)}\n"
-          f"[direct] eigsh    {np.array2string(vals, precision=6)}\n"
-          f"[direct] max rel err of modes 1..19 vs eigsh: raw "
+    print(f"[{label}] loss {loss[0]:.6g} -> {loss[-1]:.6g}; polish "
+          f"{polish_stats(pol, k)} in {polish_s:.3f} s; peak device memory "
+          f"of training and polish {peak_mb:.1f} MiB; kernel launches "
+          f"{launches} (training {train_launches})", flush=True)
+    print(f"[{label}] polished {np.array2string(lam_pol, precision=6)}\n"
+          f"[{label}] eigsh    {np.array2string(vals, precision=6)}\n"
+          f"[{label}] max rel err of modes 1..{k - 1} vs eigsh: raw "
           f"{raw.max():.3e}, polished {polished.max():.3e} (bars the port "
           f"inherits: 8.0e-5 at 300k, 1.71e-3 at 1M)", flush=True)
-    check(launches["grouped"] > 0, "train_joint launched K2 0 times")
+    if profile_iters:
+        profile_polish(label, K, M, X0, profile_iters)
+    check(launches["grouped"] > 0, f"{label}: train_joint launched K2 0 "
+          "times")
     check(bool(np.isfinite(loss).all() and np.isfinite(res.eigenvectors).all()
-               and np.isfinite(lam_pol).all()), "non-finite direct results")
-    check(polished.max() <= MAX_REL_ERR,
-          f"direct polished max rel err {polished.max():.3e} > "
-          f"{MAX_REL_ERR}")
+               and np.isfinite(lam_pol).all()), f"non-finite {label} results")
+    check(polished.max() <= bar,
+          f"{label} polished max rel err {polished.max():.3e} > {bar}")
     return launches["grouped"], loss
+
+
+def profile_polish(label, K, M, X0, iters):
+    """The guarded polish from X0 once more, `iters` iterations under the
+    profiler (idle share and top kernels of its span), then
+    SYNC_POLISH_ITERS under CUDA's sync debug mode: each operation that
+    makes the host wait for the card warns, and the warnings are counted
+    by the line of the port that raised them."""
+    from eigenpinns_torch.solvers import lobpcg
+
+    torch.cuda.synchronize()
+    with traced() as prof:
+        with torch.profiler.record_function("smoke.polish"):
+            t0 = time.time()
+            pol = lobpcg(K, M, X0, max_iter=iters, tol=0.0)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    print(f"[{label}] profiled polish: {int(pol.iterations)} iterations in "
+          f"{wall:.3f} s ({wall / iters * 1e3:.3f} ms an iteration with the "
+          f"profiler on)", flush=True)
+    device_report(f"{label} polish", prof, "smoke.polish", steps=iters)
+    del prof, pol
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            lobpcg(K, M, X0, max_iter=SYNC_POLISH_ITERS, tol=0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{w.filename.split('eigenpinns_torch/')[-1]}:{w.lineno}"
+        for w in seen if "synchroniz" in str(w.message))
+    print(f"[{label}] host syncs in {SYNC_POLISH_ITERS} polish iterations "
+          f"(CUDA sync debug mode): {sum(where.values())}, by line "
+          f"{dict(where.most_common())}", flush=True)
 
 
 def burst_slice(bsr, K, M, X, ref_loss):
@@ -749,7 +939,7 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
           f"{[round(t, 4) for _, t in res.chunk_times]}; loss {loss[0]:.6g} "
           f"-> {loss[-1]:.6g}", flush=True)
     print(f"[rolling] kernel launches in training {train_launches}, in the "
-          f"polish {polish_launches} ({int(pol.iterations)} iterations in "
+          f"polish {polish_launches} ({polish_stats(pol, DIRECT_K)}, in "
           f"{polish_s:.3f} s); peak device memory of training and polish "
           f"{peak_mb:.1f} MiB", flush=True)
     print(f"[rolling] max rel err of modes 1..19 vs eigsh: raw "
@@ -915,7 +1105,8 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
     them; returns the rows of K4 (cluster core, k = 60: the Rayleigh-Ritz
     basis of the spectral solve) and K5 (Hilbert bf16 core, k = 20: the
     training loss). The bound counts the core's nonzeros (`least_bytes`);
-    the kernels read the band's occupied 16 x 16 sub-blocks."""
+    the kernels read the band's occupied 16 x 16 sub-blocks. `K` may be
+    None (no K2 beside them)."""
     from eigenpinns_torch.sparse import occupied_blocks
 
     gen = torch.Generator("cuda").manual_seed(seed)
@@ -999,7 +1190,7 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         for key, v in errs.items():
             check(v <= BANDED_TOL[key],
                   f"{name} k={k} {kind} {key}: rel err {v:.3e}")
-        if name == "cluster" and k == SPEC_K + 10:
+        if name.startswith("cluster") and k == SPEC_K + 10:
             rows["banded_spmm"] = {
                 "max_abs_err": float((W - Wp).abs().max()), "ms": t["spmm"],
                 "plain_ms": t["spmm_plain"],
@@ -1013,7 +1204,7 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         del U, gW, W, W2, G, Wp, Gp
         torch.cuda.empty_cache()
     # K2 on the strip-BSR K beside K4 at the same k, fp32.
-    for k in (DIRECT_K, SPEC_K + 10):
+    for k in (DIRECT_K, SPEC_K + 10) if K is not None else ():
         U = torch.randn((K.n, k), generator=gen, device="cuda")
         ms = median_ms(lambda: bsr.bsr_spmm_grouped_cuda(K, U))
         print(f"[kernel] bsr_spmm_grouped on the strip-BSR K, fp32, k={k}: "
@@ -1021,16 +1212,20 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
     return rows
 
 
-def spectral_slice(banded, X, L, m_diag, oracle, device):
+def spectral_slice(banded, X, L, m_diag, oracle, device, label="spectral",
+                   profile=True):
     """`spectral_basis` on the cluster SplitBanded at the configuration's
-    full width; returns K4's launches."""
+    full width (under the profiler with `profile`); returns K4's
+    launches."""
+    import contextlib
+
     from eigenpinns_torch.solvers import spectral_basis
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     for key in banded.banded_kernel_launches:
         banded.banded_kernel_launches[key] = 0
-    with traced() as prof:
+    with traced() if profile else contextlib.nullcontext() as prof:
         t0 = time.time()
         res = spectral_basis(X, operators=(L, m_diag), device=device,
                              **SPEC_CFG)
@@ -1047,28 +1242,34 @@ def spectral_slice(banded, X, L, m_diag, oracle, device):
     orth = float(np.abs(V.T @ MV - np.eye(SPEC_K)).max())
     rq = np.sum(V * (L @ V), axis=0) / np.sum(V * MV, axis=0)
     rq_dev = float(np.abs(rq - lam).max())
-    print(f"[spectral] spectral_basis k={SPEC_K} in {wall:.3f} s, timings "
+    print(f"[{label}] spectral_basis k={SPEC_K} on {X.shape[0]} points in "
+          f"{wall:.3f} s, timings "
           f"{ {key: round(v, 3) for key, v in res.timings.items()} }; peak "
           f"device memory {peak_mb:.1f} MiB; kernel launches {launches}",
           flush=True)
-    print(f"[spectral] eigenvalues {np.array2string(lam, precision=6)}\n"
-          f"[spectral] eigsh       {np.array2string(vals, precision=6)}\n"
-          f"[spectral] max rel err of modes 1..{SPEC_K - 1} vs eigsh "
+    print(f"[{label}] eigenvalues {np.array2string(lam, precision=6)}\n"
+          f"[{label}] eigsh       {np.array2string(vals, precision=6)}\n"
+          f"[{label}] max rel err of modes 1..{SPEC_K - 1} vs eigsh "
           f"{rel.max():.3e} (mean {rel.mean():.3e}; the JAX package's 1M "
-          f"figure: 3.1e-4), max scaled residual "
+          f"figure: {SPEC_XL_BAR:.1e}), max scaled residual "
           f"{float(res.residual_norms.max()):.3e}, |V^T M V - I| {orth:.3e},"
           f" max |rayleigh quotient - eigenvalue| {rq_dev:.3e}", flush=True)
-    device_report("spectral", prof, "spectral_basis.solve")
-    check(launches["spmm"] > 0, "spectral_basis launched K4 0 times")
+    if profile:
+        device_report(label, prof, "spectral_basis.solve")
+    check(launches["spmm"] > 0, f"{label}: spectral_basis launched K4 0 "
+          "times")
     check(lam.shape == (SPEC_K,) and V.shape == (X.shape[0], SPEC_K),
-          "unexpected spectral_basis result shapes")
+          f"unexpected {label} spectral_basis result shapes")
     check(bool(np.isfinite(lam).all() and np.isfinite(V).all()),
-          "non-finite spectral_basis results")
+          f"non-finite {label} spectral_basis results")
     check(rel.max() <= MAX_REL_ERR,
-          f"spectral_basis max rel err {rel.max():.3e} > {MAX_REL_ERR}")
-    check(orth <= 1e-3, f"spectral_basis basis not M-orthonormal: {orth:.3e}")
+          f"{label} spectral_basis max rel err {rel.max():.3e} > "
+          f"{MAX_REL_ERR}")
+    check(orth <= 1e-3, f"{label} spectral_basis basis not M-orthonormal: "
+          f"{orth:.3e}")
     check(bool(np.allclose(rq, lam, rtol=1e-3, atol=1e-4)),
-          "spectral_basis eigenvectors are not in the original point order")
+          f"{label} spectral_basis eigenvectors are not in the original "
+          "point order")
     return launches["spmm"]
 
 
@@ -1111,8 +1312,8 @@ def gram_slice(banded, K_h, K_f, M, X, oracle):
           f"epochs: train {train_s:.3f} s, per-chunk median "
           f"{rates[len(rates) // 2]:.2f} steps/s; loss {loss[0]:.6g} -> "
           f"{loss[-1]:.6g}; kernel launches in training {train_launches}, "
-          f"in the polish {polish_launches} ({int(pol.iterations)} "
-          f"iterations in {polish_s:.3f} s)", flush=True)
+          f"in the polish {polish_launches} ({polish_stats(pol, DIRECT_K)},"
+          f" in {polish_s:.3f} s)", flush=True)
     print(f"[gram] max rel err of modes 1..19 vs eigsh: raw {raw.max():.3e},"
           f" polished {polished.max():.3e}", flush=True)
     device_report("gram", prof, "smoke.train_joint", steps=res.epochs_run)
@@ -1171,7 +1372,11 @@ def family_slice(bsr, device):
     from eigenpinns_torch.utils.fixtures import make_cloud
 
     X_list = [make_cloud(FAMILY_N, seed=s) for s in (1, 2, 3)]
-    problems = [point_cloud_laplacian(X, n_neighbors=15) for X in X_list]
+    t0 = time.time()
+    problems = [point_cloud_laplacian(X, n_neighbors=15, use_native=True)
+                for X in X_list]
+    print(f"[host] the family's 3 native Laplacians ({FAMILY_N} points "
+          f"each) in {time.time() - t0:.2f} s", flush=True)
     ops = family_operators([L for L, _ in problems], device=device)
     check_family_kernel(bsr, ops, seed=5)
     del ops
@@ -1202,15 +1407,83 @@ def family_slice(bsr, device):
     return launches["burst"]
 
 
+def xl_phases(bsr, banded, X, L, m_diag, oracle, device, phases):
+    """The 1M phases; returns K2's launches and 1M row, K4's launches and
+    1M row."""
+    from eigenpinns_torch.sparse import BSRTile, Diagonal, SplitBanded
+
+    # 11. The 1M direct phase (phase_xl's configuration at its own size),
+    # after every 300k phase, whose operators are freed by now: the
+    # strip-BSR K, K2 vs plain on it, train_joint and the polish.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    K, perm = BSRTile.from_scipy(L, device=device)
+    M = Diagonal(torch.as_tensor(m_diag[perm], dtype=torch.float32,
+                                 device=device))
+    torch.cuda.synchronize()
+    print(f"[xl] strip-BSR K in {time.time() - t0:.2f} s: "
+          f"{tuple(K.data.shape)} ({K.data.numel()} elements, "
+          f"{K.data.nbytes / 1e9:.2f} GB), {K.n_chunks} chunks, {K.n_slots} "
+          f"real tiles, groups {tuple(K.gcid.shape)}; peak device memory "
+          f"of the build {torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
+          f" GiB", flush=True)
+    row_1m = check_k2_1m(bsr, K, L[perm][:, perm], seed=8)
+    k2_xl, _ = direct_slice(bsr, K, M, X[perm], oracle, label="xl",
+                            cfg=XL_CFG, bar=XL_BAR,
+                            profile_iters=PROFILE_POLISH_ITERS)
+    del K, M
+    torch.cuda.empty_cache()
+    phases.done("1M direct phase")
+
+    # 12. The 1M spectral basis: K4 (and K5) vs plain on the 1M cluster
+    # core, then spectral_basis on the same cloud and L, counting K4's
+    # launches from zero.
+    t0 = time.time()
+    K_c, _ = SplitBanded.from_scipy(L, X=X, window=SPEC_CFG["window"],
+                                    device=device)
+    torch.cuda.synchronize()
+    print(f"[xl] cluster SplitBanded (window {SPEC_CFG['window']}, fp32) in "
+          f"{time.time() - t0:.2f} s: core {tuple(K_c.core.band.shape)} "
+          f"({K_c.core.band.nbytes / 1e9:.3f} GB), remainder nnz fraction "
+          f"{K_c.remainder_nnz_fraction:.4f}", flush=True)
+    band_rows_1m = check_banded_kernels(
+        banded, bsr, [("cluster 1M", K_c.core, DIRECT_K),
+                      ("cluster 1M", K_c.core, SPEC_K + 10)], None, seed=9)
+    del K_c
+    torch.cuda.empty_cache()
+    k4_xl = spectral_slice(banded, X, L, m_diag, oracle, device,
+                           label="xl spectral", profile=False)
+    phases.done("1M spectral-basis phase")
+    return k2_xl, row_1m, k4_xl, band_rows_1m
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
+    oracles = []
+    try:
+        return smoke(oracles)
+    finally:
+        for oracle in oracles:
+            oracle.close()
+
+
+def timed(fn) -> float:
+    t0 = time.time()
+    fn()
+    return time.time() - t0
+
+
+def smoke(oracles: list) -> int:
+    """The phases of the module docstring; appends each HostOracle it
+    starts to `oracles`."""
     import scipy.sparse as sp
 
     from eigenpinns_torch.configs import Config
-    from eigenpinns_torch.geometry import point_cloud_laplacian
+    from eigenpinns_torch.geometry import native, point_cloud_laplacian
     from eigenpinns_torch.sampling import build_hierarchy
     from eigenpinns_torch.solvers import MultigridTrainer, eigsh_smallest
     from eigenpinns_torch.sparse import (
@@ -1233,15 +1506,38 @@ def main() -> int:
           f"device {kind} ({smi})", flush=True)
     phases = Phases()
 
-    # 1. Build the two kernel sources from the checkout, one nvcc each,
-    # in parallel (K1 is the rolling instantiation of banded_spmm.cu).
-    sources = {"bsr_spmm": bsr, "banded_spmm": banded}
-    with ThreadPoolExecutor(len(sources)) as pool:
-        for f in [pool.submit(m.build_kernel) for m in sources.values()]:
-            f.result()
-    for name in sources:
+    # 1. Build the three sources of the checkout in parallel: the two
+    # CUDA sources, one nvcc each (K1 is the rolling instantiation of
+    # banded_spmm.cu), and the host geometry kernels with the C++
+    # compiler (`native.require` raises with the compiler's stderr).
+    jobs = {"bsr_spmm": bsr.build_kernel, "banded_spmm": banded.build_kernel,
+            "geometry_kernels": native.require}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
+        build_s = {name: f.result() for name, f in futures.items()}
+    for name in ("bsr_spmm", "banded_spmm"):
         print(build_logs.get(name, "").strip(), flush=True)
-    phases.done("build of " + ", ".join(f"{n}.cu" for n in sources))
+    print("[build] wall of each job: " + ", ".join(
+        f"{name} {t:.2f} s" + ("" if name in build_logs else " (built before)")
+        for name, t in build_s.items()), flush=True)
+    phases.done("build of bsr_spmm.cu, banded_spmm.cu, geometry_kernels.cpp")
+
+    # 1b. The 1M host stage, first: the cloud, its native Laplacian and
+    # the 50-mode eigsh oracle, in a worker process that runs behind
+    # every 300k phase (the 1M phases come last).
+    t0 = time.time()
+    X_xl = make_cloud(XL_N)
+    t_cloud = time.time() - t0
+    t0 = time.time()
+    L_xl, M_xl = point_cloud_laplacian(X_xl, n_neighbors=15, use_native=True)
+    m_xl = np.asarray(M_xl.diagonal())
+    print(f"[host] {XL_N} points: cloud in {t_cloud:.2f} s, native "
+          f"Laplacian (15 neighbors) in {time.time() - t0:.2f} s, nnz "
+          f"{L_xl.nnz}", flush=True)
+    oracle_xl = HostOracle("1M", L_xl, M_xl, SPEC_K)
+    oracles.append(oracle_xl)
+    del M_xl
+    phases.done("1M host stage")
 
     # 2. K1 vs plain at the multigrid path's shapes. The operators
     # come from a host-side (CPU) build of the same hierarchy, which
@@ -1290,6 +1586,12 @@ def main() -> int:
     vals, _ = eigsh_smallest(h.K_scipy[-1], h.M_scipy[-1], N_MODES)
     rel = np.abs(result.eigenvalues[1:] - vals[1:]) / np.abs(vals[1:])
     u_dev = max(rel_err(a.cpu(), b) for a, b in zip(h.U_list, h_cpu.U_list))
+    # The polish's scaled residual norms |K u - lam M u| / max(1, |lam|)
+    # of the returned modes, on the host.
+    V = result.eigenvectors.astype(np.float64)
+    R = h.K_scipy[-1] @ V - (h.M_scipy[-1] @ V) * result.eigenvalues
+    mg_res = (np.linalg.norm(R, axis=0)
+              / np.maximum(np.abs(result.eigenvalues), 1.0))
     print(f"[slice] hierarchy {h.actual_hierarchy}, K ops "
           f"{[type(o).__name__ for o in h.K_ops]}, build {build_s:.3f} s, "
           f"U_init vs CPU build rel err {u_dev:.3e}", flush=True)
@@ -1297,8 +1599,9 @@ def main() -> int:
           f" s, per-chunk median {steps_per_s:.2f} steps/s, chunk times "
           f"{[round(t, 4) for _, t in result.chunk_times]}, polish "
           f"{result.polish_iterations} iterations + extraction "
-          f"{result.polish_time:.3f} s, train() total {total_s:.3f} s",
-          flush=True)
+          f"{result.polish_time:.3f} s (residual norms of modes 0..{N_MODES - 1}"
+          f": max {mg_res.max():.3e} median {np.median(mg_res):.3e}), "
+          f"train() total {total_s:.3f} s", flush=True)
     print(f"[slice] loss {loss[0]:.6g} -> {loss[-1]:.6g}; kernel launches "
           f"{launches}; peak device memory {peak_mb:.1f} MiB", flush=True)
     print(f"[slice] finest-level Rayleigh-Ritz before the polish "
@@ -1326,74 +1629,70 @@ def main() -> int:
     # while the card works.
     t0 = time.time()
     X = make_cloud(DIRECT_N)
-    L, M_sp = point_cloud_laplacian(X, n_neighbors=15)
+    L, M_sp = point_cloud_laplacian(X, n_neighbors=15, use_native=True)
     m_diag = np.asarray(M_sp.diagonal())
-    print(f"[host] {DIRECT_N} points: Laplacian in {time.time() - t0:.2f} s,"
-          f" nnz {L.nnz}", flush=True)
-    with ProcessPoolExecutor(1, mp_context=get_context("spawn")) as pool:
-        t_oracle = time.time()
-        oracle = pool.submit(eigsh_values, L, M_sp, SPEC_K)
-        oracle.add_done_callback(lambda f: print(
-            f"[host] eigsh oracle ({SPEC_K} modes) in "
-            f"{time.time() - t_oracle:.2f} s", flush=True))
-        t0 = time.time()
-        K, perm = BSRTile.from_scipy(L, device=device)
-        M = Diagonal(torch.as_tensor(m_diag[perm], dtype=torch.float32,
-                                     device=device))
-        torch.cuda.synchronize()
-        print(f"[host] strip-BSR K in {time.time() - t0:.2f} s: "
-              f"{tuple(K.data.shape)} ({K.data.nbytes / 1e9:.2f} GB), "
-              f"{K.n_chunks} chunks, {K.n_slots} real tiles, max "
-              f"{K.strip_w} per row tile, groups {tuple(K.gcid.shape)}",
-              flush=True)
-        phases.done("300k host stage")
+    print(f"[host] {DIRECT_N} points: native Laplacian in "
+          f"{time.time() - t0:.2f} s, nnz {L.nnz}", flush=True)
+    oracle = HostOracle("300k", L, M_sp, SPEC_K)
+    oracles.append(oracle)
+    t0 = time.time()
+    K, perm = BSRTile.from_scipy(L, device=device)
+    M = Diagonal(torch.as_tensor(m_diag[perm], dtype=torch.float32,
+                                 device=device))
+    torch.cuda.synchronize()
+    print(f"[host] strip-BSR K in {time.time() - t0:.2f} s: "
+          f"{tuple(K.data.shape)} ({K.data.nbytes / 1e9:.2f} GB), "
+          f"{K.n_chunks} chunks, {K.n_slots} real tiles, max "
+          f"{K.strip_w} per row tile, groups {tuple(K.gcid.shape)}",
+          flush=True)
+    phases.done("300k host stage")
 
-        # 5. K2 and K3 vs plain at the slice's shapes.
-        bsr_rows = check_bsr_kernels(bsr, K, L[perm][:, perm], seed=2)
-        check_adversarial(bsr, banded, rolling, device, seed=6)
-        torch.cuda.empty_cache()
-        phases.done("K2/K3 checks")
+    # 5. K2 and K3 vs plain at the slice's shapes.
+    bsr_rows = check_bsr_kernels(bsr, K, L[perm][:, perm], seed=2)
+    check_adversarial(bsr, banded, rolling, device, seed=6)
+    torch.cuda.empty_cache()
+    phases.done("K2/K3 checks")
 
-        # 6. The split operators, and K4/K5 vs plain on their cores.
-        t0 = time.time()
-        K_c, _ = SplitBanded.from_scipy(L, X=X, window=SPEC_CFG["window"],
-                                        device=device)
-        torch.cuda.synchronize()
-        print(f"[host] cluster SplitBanded (window {SPEC_CFG['window']}, "
-              f"fp32) in {time.time() - t0:.2f} s: core "
-              f"{tuple(K_c.core.band.shape)} "
-              f"({K_c.core.band.nbytes / 1e9:.3f} GB), remainder nnz "
-              f"fraction {K_c.remainder_nnz_fraction:.4f}", flush=True)
-        t0 = time.time()
-        K_h, perm_h = SplitBanded.from_scipy(
-            L, X=X, window=HILBERT_WINDOW, order="hilbert",
-            dtype=torch.bfloat16, device=device)
-        torch.cuda.synchronize()
-        t_h = time.time() - t0
-        t0 = time.time()
-        K_hf, _ = SplitBanded.from_scipy(L, window=HILBERT_WINDOW,
-                                         order=perm_h, device=device)
-        torch.cuda.synchronize()
-        print(f"[host] Hilbert SplitBanded (window {HILBERT_WINDOW}): bf16 "
-              f"in {t_h:.2f} s, its fp32 twin from the same perm in "
-              f"{time.time() - t0:.2f} s: core {tuple(K_h.core.band.shape)},"
-              f" remainder nnz fraction {K_h.remainder_nnz_fraction:.4f}",
-              flush=True)
-        banded_rows = check_banded_kernels(
-            banded, bsr,
-            [("cluster", K_c.core, DIRECT_K), ("cluster", K_c.core, SPEC_K + 10),
-             ("hilbert", K_hf.core, DIRECT_K),
-             ("hilbert", K_hf.core, DIRECT_K + POLISH_GUARD),
-             ("hilbert", K_h.core, DIRECT_K)],
-            K, seed=4)
-        del K_c
-        torch.cuda.empty_cache()
-        phases.done("split builds and K4/K5 checks")
+    # 6. The split operators, and K4/K5 vs plain on their cores.
+    t0 = time.time()
+    K_c, _ = SplitBanded.from_scipy(L, X=X, window=SPEC_CFG["window"],
+                                    device=device)
+    torch.cuda.synchronize()
+    print(f"[host] cluster SplitBanded (window {SPEC_CFG['window']}, "
+          f"fp32) in {time.time() - t0:.2f} s: core "
+          f"{tuple(K_c.core.band.shape)} "
+          f"({K_c.core.band.nbytes / 1e9:.3f} GB), remainder nnz "
+          f"fraction {K_c.remainder_nnz_fraction:.4f}", flush=True)
+    t0 = time.time()
+    K_h, perm_h = SplitBanded.from_scipy(
+        L, X=X, window=HILBERT_WINDOW, order="hilbert",
+        dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    t_h = time.time() - t0
+    t0 = time.time()
+    K_hf, _ = SplitBanded.from_scipy(L, window=HILBERT_WINDOW,
+                                     order=perm_h, device=device)
+    torch.cuda.synchronize()
+    print(f"[host] Hilbert SplitBanded (window {HILBERT_WINDOW}): bf16 "
+          f"in {t_h:.2f} s, its fp32 twin from the same perm in "
+          f"{time.time() - t0:.2f} s: core {tuple(K_h.core.band.shape)},"
+          f" remainder nnz fraction {K_h.remainder_nnz_fraction:.4f}",
+          flush=True)
+    banded_rows = check_banded_kernels(
+        banded, bsr,
+        [("cluster", K_c.core, DIRECT_K), ("cluster", K_c.core, SPEC_K + 10),
+         ("hilbert", K_hf.core, DIRECT_K),
+         ("hilbert", K_hf.core, DIRECT_K + POLISH_GUARD),
+         ("hilbert", K_h.core, DIRECT_K)],
+        K, seed=4)
+    del K_c
+    torch.cuda.empty_cache()
+    phases.done("split builds and K4/K5 checks")
 
-        # 7. The direct slice, counting launches from zero.
-        Xp = X[perm]
-        k2_launches, ref_loss = direct_slice(bsr, K, M, Xp, oracle)
-        phases.done("direct slice")
+    # 7. The direct slice, counting launches from zero.
+    Xp = X[perm]
+    k2_launches, ref_loss = direct_slice(bsr, K, M, Xp, oracle)
+    phases.done("direct slice")
     k3_launches = burst_slice(bsr, K, M, Xp, ref_loss)
     del K, M
     torch.cuda.empty_cache()
@@ -1421,6 +1720,10 @@ def main() -> int:
     k3_family = family_slice(bsr, device)
     phases.done("family slice")
 
+    # 11-12. The 1M phases, after every 300k phase.
+    k2_xl, row_1m, k4_xl, band_rows_1m = xl_phases(
+        bsr, banded, X_xl, L_xl, m_xl, oracle_xl, device, phases)
+
     print(json.dumps({"kernels": [
         {"name": "rolling_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
@@ -1432,7 +1735,8 @@ def main() -> int:
         {"name": "bsr_spmm_grouped", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
-         "launches": k2_launches, **bsr_rows["bsr_spmm_grouped"]},
+         "launches": k2_launches, **bsr_rows["bsr_spmm_grouped"],
+         "launches_1m": k2_xl, "row_1m": row_1m},
         {"name": "bsr_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:672",
@@ -1441,7 +1745,8 @@ def main() -> int:
         {"name": "banded_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/banded.py:455",
-         "launches": k4_launches, **banded_rows["banded_spmm"]},
+         "launches": k4_launches, **banded_rows["banded_spmm"],
+         "launches_1m": k4_xl, "row_1m": band_rows_1m["banded_spmm"]},
         {"name": "banded_spmm_gram", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/banded.py:382",

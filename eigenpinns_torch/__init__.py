@@ -21,6 +21,10 @@ replacing `banded_spmm_pallas` and `banded_spmm_gram_pallas`, and the
 rolling-band SpMM with and without the Gram, replacing
 `_rolling_kernel_call`: the same kernel with implicit, wrapping window
 starts). CPU tensors take each kernel's plain torch version instead.
+The host stage's C++ kernels (`csrc/geometry_kernels.cpp`: kNN,
+farthest-point sampling, local triangulations, intrinsic-Delaunay flips)
+are built on first use with the host's C++ compiler
+(`geometry/native.py`).
 
 Importing the package turns TF32 off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,

@@ -15,16 +15,17 @@ point-cloud variant:
   5. intrinsic mollification of edge lengths (relative factor 1e-5);
   6. intrinsic cotan stiffness + barycentric lumped mass from the soup.
 
-Host-side numpy/scipy by design: operator assembly is offline
-preprocessing (it runs once per hierarchy level); the assembled sparse
-operators are then converted to device formats by
-`eigenpinns_torch.sparse`. Step 6 is vectorized over all triangles.
+Host-side by design: operator assembly is offline preprocessing (it runs
+once per hierarchy level); the assembled sparse operators are then
+converted to device formats by `eigenpinns_torch.sparse`. Step 6 is
+vectorized over all triangles.
 
-A copy of `eigenpinns_tpu/geometry/point_cloud.py` restricted to its
-pure numpy path (no compiled `csrc/` kernels), so that the port never
-imports the JAX package. At bunny scale (~2.5k points) the numpy path
-takes well under a second per level and agrees with the native one to
-round-off.
+A copy of `eigenpinns_tpu/geometry/point_cloud.py` (the literal tufted
+double cover left out), so that the port never imports the JAX package.
+Steps 1-4 and the intrinsic-Delaunay flips run in the compiled kernels of
+`geometry/native.py` when that library loads (the C++ triangulation and
+flips of the JAX package's own source), else in numpy/scipy; either
+way the result equals the JAX package's on the same path to round-off.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 from scipy.spatial import Delaunay, cKDTree
+
+from eigenpinns_torch.geometry import native as _native
 
 
 def _tangent_frames(points: np.ndarray, neigh: np.ndarray):
@@ -94,14 +97,19 @@ def local_triangulations(points: np.ndarray, n_neighbors: int,
             tris.append(idx[ring])
     if not tris:
         raise ValueError("no valid local triangulations; degenerate cloud?")
-    soup = np.concatenate(tris, axis=0)
+    return dedup_soup(np.concatenate(tris, axis=0))
+
+
+def dedup_soup(soup: np.ndarray):
+    """(tris, weights) of a raw one-ring soup: each triangle once, in the
+    order of its first appearance, weighted min(count / 3, 1) by the
+    number of one-rings that produced it."""
     key = np.sort(soup, axis=1)
     _, uniq, counts = np.unique(key, axis=0, return_index=True,
                                 return_counts=True)
     order = np.argsort(uniq)
-    soup = soup[uniq[order]]
     weights = np.minimum(counts[order].astype(np.float64) / 3.0, 1.0)
-    return soup, weights
+    return soup[uniq[order]], weights
 
 
 def _intrinsic_mollify(l: np.ndarray, rel_factor: float = 1e-5) -> np.ndarray:
@@ -197,9 +205,21 @@ def intrinsic_delaunay_flips(tris: np.ndarray, lengths: np.ndarray,
     ledger); this cheaper single-copy pairing is its default and the
     only one ported.
 
-    Mutates and returns (tris, lengths, weights).
+    Mutates and returns (tris, lengths, weights). Runs the C++ kernel
+    (`native.delaunay_flips_native`, an exact port including the pairing
+    order) when the native library loads; the Python loop below is the
+    reference path.
     """
     T = tris.shape[0]
+    if _native.available():
+        tris64 = np.ascontiguousarray(tris, dtype=np.int64)
+        l64 = np.ascontiguousarray(lengths, dtype=np.float64)
+        w64 = np.ascontiguousarray(weights, dtype=np.float64)
+        _native.delaunay_flips_native(points, tris64, l64, w64, 30 * T)
+        tris[:] = tris64
+        lengths[:] = l64
+        weights[:] = w64
+        return tris, lengths, weights
 
     # ---- initial gluing: radial pairing per vertex-pair edge ----------
     sides: dict = {}          # eid -> [(t, corner), (t, corner)]
@@ -320,11 +340,14 @@ def cotan_laplacian_from_soup(points: np.ndarray, tris: np.ndarray,
     scales each triangle's stiffness and mass contributions (multiplicity
     weighting of overlapping soups).
 
-    Below 100k triangles, where the Python loop (~1.2 ms per 1k
-    triangles) stays cheap, the intrinsic-Delaunay flip pass runs first
-    (Sharp-Crane sec 3.4; measurably softens the spectrum toward the
-    C++ robust_laplacian output).
+    The intrinsic-Delaunay flip pass runs first (Sharp-Crane sec 3.4;
+    measurably softens the spectrum toward the C++ robust_laplacian
+    output) whenever the native library loads (seconds at millions of
+    triangles), and otherwise only below 100k triangles, where the Python
+    loop (~1.2 ms per 1k triangles) stays cheap: the JAX package's
+    `delaunay_flips="auto"`.
     """
+    delaunay_flips = _native.available() or tris.shape[0] < 100_000
     n = points.shape[0]
     p = points[tris]  # (T, 3, 3)
     # Edge lengths opposite each corner: l[:, c] = |edge opposite corner c|
@@ -335,7 +358,7 @@ def cotan_laplacian_from_soup(points: np.ndarray, tris: np.ndarray,
         axis=1,
     )
     l = _intrinsic_mollify(l, mollify_factor)
-    if tris.shape[0] < 100_000:
+    if delaunay_flips:
         tris, l, tri_weights = intrinsic_delaunay_flips(
             np.array(tris, dtype=np.int64, copy=True), l,
             np.array(tri_weights, dtype=np.float64, copy=True), points)
@@ -378,11 +401,16 @@ def cotan_laplacian_from_soup(points: np.ndarray, tris: np.ndarray,
     return L, M
 
 
-def point_cloud_laplacian(points: np.ndarray, n_neighbors: int = 38):
+def point_cloud_laplacian(points: np.ndarray, n_neighbors: int = 38,
+                          use_native: bool | None = None):
     """(L, M) for a raw point cloud — drop-in for
     `robust_laplacian.point_cloud_laplacian` (src/utils.py:174).
 
     L is symmetric PSD (weak cotan Laplacian), M diagonal lumped mass.
+    `use_native`: the C++ triangulation (`geometry/native.py`); None
+    takes it when the library loads, True raises when it cannot be built
+    or loaded, False takes the numpy/scipy triangulation. The flips take
+    the C++ kernel whenever the library loads (`cotan_laplacian_from_soup`).
 
     Defaults (n_neighbors=38, PCA frame over min(n_neighbors, 34); the
     C++ library's own single knob defaults to 30): tuned against the
@@ -395,8 +423,15 @@ def point_cloud_laplacian(points: np.ndarray, n_neighbors: int = 38):
     ablation, 2-D kn scan, PCA-centering variants).
     """
     points = np.asarray(points, dtype=np.float64)
-    tris, weights = local_triangulations(
-        points, n_neighbors=n_neighbors,
-        frame_neighbors=min(n_neighbors, 34))
+    frame_neighbors = min(n_neighbors, 34)
+    if use_native is None:
+        use_native = _native.available()
+    if use_native:
+        tris, weights = dedup_soup(_native.local_triangulations_native(
+            points, n_neighbors=n_neighbors,
+            frame_neighbors=frame_neighbors))
+    else:
+        tris, weights = local_triangulations(
+            points, n_neighbors=n_neighbors, frame_neighbors=frame_neighbors)
     return cotan_laplacian_from_soup(points, tris, weights,
                                      mollify_factor=1e-5)

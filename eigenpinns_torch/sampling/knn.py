@@ -1,9 +1,10 @@
-"""kNN graphs and prolongation operators (host-side, scipy cKDTree).
+"""kNN graphs and prolongation operators (host-side).
 
 Replaces the reference's sklearn NearestNeighbors paths
 (`utils.build_knn_graph` src/utils.py:63-75 and `utils.build_prolongation`
-src/utils.py:39-60). A copy of the cKDTree path of
-`eigenpinns_tpu/sampling/knn.py`.
+src/utils.py:39-60). A copy of the host paths of
+`eigenpinns_tpu/sampling/knn.py`: the kNN graph takes the compiled kernel
+of `geometry/native.py` when its library loads, else scipy's cKDTree.
 """
 
 from __future__ import annotations
@@ -12,15 +13,19 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.spatial import cKDTree
 
+from eigenpinns_torch.geometry import native as _native
+
 
 def knn_graph(X: np.ndarray, k: int) -> np.ndarray:
     """(2, N*k) directed edge index: row i -> each of its k nearest
     neighbors (self excluded) — semantics of src/utils.py:63-75."""
     n = X.shape[0]
     k = min(k, n - 1)
-    tree = cKDTree(X)
-    _, idx = tree.query(X, k=k + 1)
-    cols = idx[:, 1:].reshape(-1)
+    if _native.available():
+        cols = _native.knn_native(np.asarray(X, np.float64), k).reshape(-1)
+    else:
+        _, idx = cKDTree(X).query(X, k=k + 1)
+        cols = idx[:, 1:].reshape(-1)
     rows = np.repeat(np.arange(n), k)
     return np.stack([rows, cols]).astype(np.int64)
 

@@ -2,13 +2,17 @@
 
 Capability parity with `src/samplers.py:9-143`: nested index sets per
 hierarchy level, each sorted, with the full cloud appended as the finest
-level. Host-side numpy, run once per mesh in preprocessing. A copy of the
-numpy path of `eigenpinns_tpu/sampling/samplers.py`.
+level. Host-side, run once per mesh in preprocessing. A copy of the host
+paths of `eigenpinns_tpu/sampling/samplers.py`: farthest-point sampling
+takes the compiled kernel of `geometry/native.py` when its library loads,
+else the numpy loop.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from eigenpinns_torch.geometry import native as _native
 
 
 def farthest_point_indices(points: np.ndarray, n_samples: int,
@@ -25,6 +29,8 @@ def farthest_point_indices(points: np.ndarray, n_samples: int,
         return np.arange(n)
     rng = np.random.default_rng(seed)
     start = int(rng.integers(0, n))
+    if _native.available():
+        return _native.fps_native(points, n_samples, start=start)
     selected = np.empty(n_samples, dtype=np.int64)
     selected[0] = start
     dist = np.full(n, np.inf)

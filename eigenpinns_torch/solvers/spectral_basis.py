@@ -2,7 +2,8 @@
 
 Port of `eigenpinns_tpu/solvers/spectral_basis.py` (single device):
 
-  1. the point-cloud Laplacian (the port's numpy host path),
+  1. the point-cloud Laplacian (the port's host stage: its C++ kernels
+     when their library loads, else numpy),
   2. a coarse voxel subset -> host eigsh warm start -> kNN prolongation,
   3. a tiled device operator: strip-BSR (`sparse/bsr.py`, kernel K2) or
      the cluster-ordered SplitBanded (`sparse/split.py`, kernel K4),

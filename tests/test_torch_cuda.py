@@ -156,6 +156,59 @@ def test_bsr_cuda_kernels_match_plain(precision, k):
     assert _rel(Ut.grad.cpu(), ref.cpu()) < tol
 
 
+def _wide_strip_matrix(n_rt=2100, per_row=64):
+    """A nonsymmetric matrix of n_rt row tiles, each with `per_row`
+    nonempty 128 x 128 tiles (column tiles r + 33 j mod n_rt, distinct):
+    8 chunks of 8 tiles a row tile, so the strips hold n_rt * 8 chunks of
+    128 x 1024 values, 2.2e9 at 2100 row tiles: past 2^31 elements (8.8
+    GB in fp32, 4.4 GB in bf16), as a 1M-point cloud's K nearly is. One
+    random entry per tile, plus the diagonal."""
+    n = 128 * n_rt
+    r = np.random.default_rng(11)
+    rt = np.repeat(np.arange(n_rt), per_row)
+    ct = (rt + 33 * np.tile(np.arange(per_row), n_rt)) % n_rt
+    rows = np.concatenate([rt * 128 + r.integers(0, 128, rt.size),
+                           np.arange(n)])
+    cols = np.concatenate([ct * 128 + r.integers(0, 128, rt.size),
+                           np.arange(n)])
+    return sp.coo_matrix((r.normal(size=rows.size), (rows, cols)),
+                         shape=(n, n)).tocsr()
+
+
+@pytest.fixture(scope="module")
+def wide_bsr():
+    _need_card()
+    A = _wide_strip_matrix()
+    op, _ = tbsr.BSRTile.from_scipy(A, device="cuda", reorder=False,
+                                    with_transpose=False)
+    return A, op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+def test_bsr_cuda_kernels_past_2_31_elements(wide_bsr, precision):
+    """K2 and K3 on strips of more than 2^31 elements (and bytes): the
+    data offsets are 64-bit. W vs the plain version (rel 1e-5; 1e-4 in
+    'bf16') and, in fp32, vs scipy's product in float64 (rel 1e-5); the
+    same bits from both kernels."""
+    A, op = wide_bsr
+    assert op.data.numel() > 2**31 and op.n_chunks == 8 * op.n_row_tiles
+    op = op.with_precision(precision)
+    assert op.data.nbytes > 2**31
+    burst = dataclasses.replace(op, gcid=None, lcid=None, gid=None)
+    U_np = np.random.default_rng(5).normal(size=(op.n, 20))
+    U = torch.from_numpy(U_np.astype(np.float32)).cuda()
+    tol = 1e-4 if precision == "bf16" else 1e-5
+    Wg = tbsr.bsr_spmm_grouped_cuda(op, U)
+    Wb = tbsr.bsr_spmm_burst_cuda(burst, U)
+    Wp = tbsr.bsr_spmm_plain(op, U)
+    torch.cuda.synchronize()
+    assert torch.equal(Wg, Wb)
+    assert _rel(Wg.cpu(), Wp.cpu()) < tol
+    if precision == "highest":
+        assert _rel(Wg.cpu(), A @ U_np.astype(np.float32)) < tol
+
+
 def _banded_op(case, dtype):
     if case == "cloud":
         X = np.random.default_rng(7).normal(size=(700, 3))

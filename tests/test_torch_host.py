@@ -2,10 +2,11 @@
 
 The port copies (rather than imports) the numpy/scipy host stage, since
 every `eigenpinns_tpu` subpackage imports JAX. These tests hold each
-copy to the original on the same points: the point-cloud Laplacian to
-1e-12 (the JAX side may run its compiled flip kernel, which is an exact
-port of the Python loop), identical FPS levels and kNN edges,
-prolongation weights and eigsh eigenvalues to 1e-10.
+copy to the original on the same points: the point-cloud Laplacian of
+the numpy triangulation to 1e-12 (both sides flip in their compiled
+kernel when it is built, an exact port of the Python loop; the native
+triangulation is held in test_torch_native.py), identical FPS levels and
+kNN edges, prolongation weights and eigsh eigenvalues to 1e-10.
 """
 
 import dataclasses
@@ -58,7 +59,8 @@ def test_perturbed_icosphere_sizes_and_shape():
 
 @pytest.mark.parametrize("n_neighbors", [15, 30])
 def test_point_cloud_laplacian_matches_jax_numpy_path(cloud, n_neighbors):
-    L, M = point_cloud_laplacian(cloud, n_neighbors=n_neighbors)
+    L, M = point_cloud_laplacian(cloud, n_neighbors=n_neighbors,
+                                 use_native=False)
     Lj, Mj = j_pcl(cloud, n_neighbors=n_neighbors, use_native=False)
     assert L.nnz == Lj.nnz
     assert abs(L - Lj).max() <= 1e-12 * abs(Lj).max()
@@ -125,3 +127,14 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_native_source_is_the_jax_packages_source():
+    """The port compiles its own copy of the C++ geometry kernels; it is
+    the root csrc/ source byte for byte, so both packages build the same
+    kNN, FPS, triangulations and flips."""
+    with open(os.path.join(ROOT, "csrc", "geometry_kernels.cpp"), "rb") as f:
+        jax_source = f.read()
+    with open(os.path.join(ROOT, "eigenpinns_torch", "csrc",
+                           "geometry_kernels.cpp"), "rb") as f:
+        assert f.read() == jax_source

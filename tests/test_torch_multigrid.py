@@ -16,7 +16,10 @@ carried over (`from_flax_params`) and the same polish guard vectors:
     and with eigsh to rel 1e-2 (test_multigrid_lobpcg_polish's bar).
 
 The port's own `build_hierarchy` is held to the JAX build on the same
-mesh, and `Hierarchy.save` to the JAX on-disk layout.
+mesh, both on the numpy host path and both on the native one (the
+icosphere's exact kNN distance ties are listed in another order by the
+compiled kNN, so the two paths give different hierarchies), and
+`Hierarchy.save` to the JAX on-disk layout.
 """
 
 import os
@@ -38,6 +41,7 @@ from eigenpinns_tpu.solvers.multigrid import MultigridTrainer as JTrainer
 from eigenpinns_tpu.sparse import neighbor_mean_operator as j_nm_op
 from eigenpinns_tpu.train.loop import run_scan_loop as j_run_scan_loop
 from eigenpinns_torch.configs import Config
+from eigenpinns_torch.geometry import native as t_native
 from eigenpinns_torch.models import from_flax_params, make_corrector
 from eigenpinns_torch.sampling import Hierarchy, build_hierarchy
 from eigenpinns_torch.solvers import MultigridTrainer, eigsh_smallest
@@ -62,9 +66,10 @@ def mesh():
 
 @pytest.fixture(scope="module")
 def jax_hierarchy(mesh, tmp_path_factory):
-    """Built on the JAX package's numpy host path, as the port's is: the
-    icosphere has exact kNN distance ties that its compiled kNN lists
-    in another order, which changes the local triangulations."""
+    """Built on the JAX package's numpy host path (the port's build that
+    is held to it takes its numpy path too): the icosphere has exact kNN
+    distance ties that the compiled kNN lists in another order, which
+    changes the local triangulations."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_native, "available", lambda: False)
         h = j_build(JTriMesh(mesh.verts, mesh.faces), LEVELS,
@@ -174,10 +179,30 @@ def test_training_and_polish_match_jax(jax_hierarchy, jax_run, monkeypatch):
     assert res.eigenvectors.shape == (h.actual_hierarchy[-1], K_MODES)
 
 
-def test_build_hierarchy_matches_jax_build(mesh, jax_hierarchy):
+def test_build_hierarchy_matches_jax_build(mesh, jax_hierarchy,
+                                           monkeypatch):
     jh, _ = jax_hierarchy
+    monkeypatch.setattr(t_native, "available", lambda: False)
     h = build_hierarchy(mesh, LEVELS, n_modes=K_MODES, pc_neighbors=15,
                         operator_format="auto", device="cpu")
+    _assert_hierarchies_equal(h, jh)
+
+
+def test_build_hierarchy_matches_jax_native_build(mesh):
+    """Both packages on their compiled kNN, FPS, triangulation and flips
+    (the same C++ source)."""
+    if not (j_native.available() and t_native.available()):
+        pytest.skip("a native geometry library did not build")
+    jh = j_build(JTriMesh(mesh.verts, mesh.faces), LEVELS, n_modes=K_MODES,
+                 pc_neighbors=15, operator_format="auto")
+    h = build_hierarchy(mesh, LEVELS, n_modes=K_MODES, pc_neighbors=15,
+                        operator_format="auto", device="cpu")
+    _assert_hierarchies_equal(h, jh)
+    for e, je in zip(h.edge_index_list, jh.edge_index_list):
+        np.testing.assert_array_equal(e, np.asarray(je))
+
+
+def _assert_hierarchies_equal(h, jh):
     assert h.actual_hierarchy == jh.actual_hierarchy
     for i in range(h.n_levels):
         np.testing.assert_array_equal(h.perms[i], jh.perms[i])
@@ -255,11 +280,24 @@ def _assert_bsr_equal(top, jop):
 def test_wide_k_raises_for_unported_bsr(mesh):
     """k > 32 (the name dates from when this raised): every level's K,
     and the fused K_blk, is a strip-BSR operator whose layout equals the
-    JAX build's, and the Jacobi-smoothed guesses agree to rel 1e-5."""
+    JAX build's, and the Jacobi-smoothed guesses agree to rel 1e-5. Both
+    packages on the numpy host path."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_native, "available", lambda: False)
-        jh = j_build(JTriMesh(mesh.verts, mesh.faces), [64], n_modes=40,
-                     pc_neighbors=15, operator_format="auto")
+        mp.setattr(t_native, "available", lambda: False)
+        _assert_wide_k_builds_equal(mesh)
+
+
+def test_wide_k_bsr_levels_match_jax_native_build(mesh):
+    """The same on both packages' native host path."""
+    if not (j_native.available() and t_native.available()):
+        pytest.skip("a native geometry library did not build")
+    _assert_wide_k_builds_equal(mesh)
+
+
+def _assert_wide_k_builds_equal(mesh):
+    jh = j_build(JTriMesh(mesh.verts, mesh.faces), [64], n_modes=40,
+                 pc_neighbors=15, operator_format="auto")
     h = build_hierarchy(mesh, [64], n_modes=40, pc_neighbors=15,
                         operator_format="auto", device="cpu")
     assert h.actual_hierarchy == jh.actual_hierarchy

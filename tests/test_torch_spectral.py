@@ -2,8 +2,9 @@
 
 `lobpcg_blocked`, `spectral_basis` (both operator formats),
 `spectral_basis_family` and `train_joint` on a SplitBanded K go through
-both packages on the same numpy inputs; the JAX side takes its numpy host
-path (no compiled kNN / FPS / triangulation). The guard columns of each
+both packages on the same numpy inputs; both take their numpy host path
+(no compiled kNN / FPS / triangulation), and in the `native` cases both
+take their compiled one (the same C++ source). The guard columns of each
 blocked sweep are random (`jax.random` there, a `torch.Generator` here),
 so the solvers are compared after convergence. Tolerances:
 
@@ -42,6 +43,7 @@ from eigenpinns_tpu.sparse import Diagonal as JDiagonal
 from eigenpinns_tpu.sparse import SplitBanded as JSplitBanded
 from eigenpinns_tpu.sparse import as_operator as j_as_operator
 from eigenpinns_torch import sparse as tsparse
+from eigenpinns_torch.geometry import native as t_native
 from eigenpinns_torch.geometry import point_cloud_laplacian
 from eigenpinns_torch.models import JointEigenNet, from_flax_params
 from eigenpinns_torch.solvers import (
@@ -70,9 +72,22 @@ def _rel_modes(vals, ref):
     return float((np.abs(vals[1:] - ref[1:]) / np.abs(ref[1:])).max())
 
 
+_NATIVE = {j_native: j_native.available, t_native: t_native.available}
+
+
+def _native_host_path(monkeypatch):
+    """Both packages on their compiled host kernels (skips when one of
+    the libraries did not build)."""
+    for module, available in _NATIVE.items():
+        monkeypatch.setattr(module, "available", available)
+        if not available():
+            pytest.skip("a native geometry library did not build")
+
+
 @pytest.fixture(autouse=True)
 def _jax_numpy_host_path(monkeypatch):
-    monkeypatch.setattr(j_native, "available", lambda: False)
+    for module in _NATIVE:
+        monkeypatch.setattr(module, "available", lambda: False)
     monkeypatch.setenv("EIGENPINNS_NO_WARMUP", "1")
     monkeypatch.setenv("EIGENPINNS_NO_COMPILE_CACHE", "1")
 
@@ -83,7 +98,9 @@ def cloud1500():
     r2 = np.random.default_rng(7)
     X = r2.normal(size=(1500, 3))
     X /= np.linalg.norm(X, axis=1, keepdims=True)
-    L, M = point_cloud_laplacian(X, n_neighbors=14)
+    # The numpy triangulation, which `spectral_basis` builds from X under
+    # the autouse numpy host path.
+    L, M = point_cloud_laplacian(X, n_neighbors=14, use_native=False)
     vals, _ = eigsh_smallest(L, M, 10)
     return X, L.tocsr(), M.tocsr(), vals
 
@@ -182,6 +199,12 @@ def test_spectral_basis_matches_jax_and_eigsh(cloud1500, fmt):
     assert np.abs(U.T @ (M @ U) - np.eye(8)).max() < 1e-3
 
 
+def test_spectral_basis_matches_jax_native(cloud1500, monkeypatch):
+    """The same with both warm starts on the compiled host kernels."""
+    _native_host_path(monkeypatch)
+    test_spectral_basis_matches_jax_and_eigsh(cloud1500, "split")
+
+
 def test_spectral_basis_builds_its_laplacian_and_guards_options(cloud1500):
     X, _, _, vals_ref = cloud1500
     res = spectral_basis(X, operator_format="bsr",
@@ -230,6 +253,13 @@ def test_spectral_basis_family_matches_eigsh(monkeypatch):
         num = np.sum(U * (L @ U), axis=0)
         den = np.sum(U * (M @ U), axis=0)
         assert np.allclose(num / den, res.eigenvalues, rtol=1e-3, atol=1e-4)
+
+
+def test_spectral_basis_family_matches_eigsh_native(monkeypatch):
+    """The same with both packages' Laplacians and warm starts on the
+    compiled host kernels."""
+    _native_host_path(monkeypatch)
+    test_spectral_basis_family_matches_eigsh(monkeypatch)
 
 
 def test_family_operators_pad_to_one_shape():

@@ -1,9 +1,10 @@
 """Parity of the port's split operator and orderings with the JAX package.
 
 The same numpy clouds and scipy Laplacians go through
-`eigenpinns_tpu.sparse.split` and `eigenpinns_torch.sparse.split`. The
-JAX side's farthest-point sampling is held to its numpy path (the port's
-copy; the compiled one picks its start differently). Tolerances:
+`eigenpinns_tpu.sparse.split` and `eigenpinns_torch.sparse.split`. Both
+packages take their numpy host path (farthest-point sampling by the
+numpy loop), and in the `native` cases both take their compiled one.
+Tolerances:
 
   * `hilbert_order`, `spatial_cluster_order`, `voxel_levels` and the
     SplitBanded layout (perm, starts, core band byte for byte, remainder,
@@ -25,6 +26,7 @@ from eigenpinns_tpu.geometry import native as j_native
 from eigenpinns_tpu.sampling.samplers import voxel_levels as j_voxel_levels
 from eigenpinns_tpu.sparse import split as jsplit
 from eigenpinns_torch import sparse as tsparse
+from eigenpinns_torch.geometry import native as t_native
 from eigenpinns_torch.geometry import point_cloud_laplacian
 from eigenpinns_torch.sampling import voxel_levels
 from eigenpinns_torch.sparse import split as tsplit
@@ -39,9 +41,22 @@ def _rel(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
 
+_NATIVE = {j_native: j_native.available, t_native: t_native.available}
+
+
 @pytest.fixture(autouse=True)
 def _jax_numpy_host_path(monkeypatch):
-    monkeypatch.setattr(j_native, "available", lambda: False)
+    for module in _NATIVE:
+        monkeypatch.setattr(module, "available", lambda: False)
+
+
+def _native_host_path(monkeypatch):
+    """Both packages on their compiled host kernels (skips when one of
+    the libraries did not build)."""
+    for module, available in _NATIVE.items():
+        monkeypatch.setattr(module, "available", available)
+        if not available():
+            pytest.skip("a native geometry library did not build")
 
 
 @pytest.fixture(scope="module")
@@ -71,6 +86,20 @@ def test_spatial_cluster_order_matches_jax(cloud, with_adjacency):
     np.testing.assert_array_equal(
         perm, jsplit.spatial_cluster_order(X, 6, adjacency=adj))
     assert sorted(perm.tolist()) == list(range(X.shape[0]))
+
+
+@pytest.mark.parametrize("with_adjacency", [False, True])
+def test_spatial_cluster_order_matches_jax_native(cloud, with_adjacency,
+                                                  monkeypatch):
+    _native_host_path(monkeypatch)
+    test_spatial_cluster_order_matches_jax(cloud, with_adjacency)
+
+
+def test_split_layout_matches_jax_native(cloud, monkeypatch):
+    """The cluster-ordered layout with both packages' compiled FPS."""
+    _native_host_path(monkeypatch)
+    test_split_layout_matches_jax({"cluster": _build(cloud, "cluster")},
+                                  "cluster")
 
 
 # case -> from_scipy keyword arguments (besides X)
@@ -103,7 +132,8 @@ def _build(cloud, case):
 @pytest.fixture(scope="module")
 def ops(cloud):
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(j_native, "available", lambda: False)
+        for module in _NATIVE:
+            mp.setattr(module, "available", lambda: False)
         return {case: _build(cloud, case) for case in CASES}
 
 
