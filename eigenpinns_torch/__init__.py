@@ -10,8 +10,11 @@ rolling-band, strip-BSR or split operators (`RollingBanded.from_scipy`,
 `BSRTile.from_scipy` or `SplitBanded.from_scipy`, `train_joint`, then a
 guarded `lobpcg` polish), and the large-cloud
 spectral basis (`spectral_basis`, `spectral_basis_family`: blocked
-deflated LOBPCG). Every entry point runs on the card unless given
-`device="cpu"`.
+deflated LOBPCG). The solver family (`solvers/{deflation,batched,
+upscale,transfer,poisson}.py`: sequential and adaptive deflation, joint
+training over a mesh family, the matrix-only neural upscaler, per-level
+transfer learning, Dirichlet solves) runs on the same operators. Every
+entry point runs on the card unless given `device="cpu"`.
 
 Their hand-written kernels are built with nvcc on first use:
 `csrc/bsr_spmm.cu` (the grouped and burst strip-BSR SpMMs that replace

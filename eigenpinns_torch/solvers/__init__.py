@@ -1,3 +1,12 @@
+from eigenpinns_torch.solvers.batched import (
+    BatchedResult,
+    train_joint_family,
+)
+from eigenpinns_torch.solvers.deflation import (
+    DeflationResult,
+    solve_deflation,
+    solve_deflation_adaptive,
+)
 from eigenpinns_torch.solvers.direct import DirectResult, train_joint
 from eigenpinns_torch.solvers.lobpcg import (
     lobpcg,
@@ -9,6 +18,10 @@ from eigenpinns_torch.solvers.multigrid import (
     MultigridTrainer,
 )
 from eigenpinns_torch.solvers.oracle import eigsh_smallest
+from eigenpinns_torch.solvers.poisson import (
+    solve_laplace_dirichlet,
+    solve_laplace_dirichlet_device,
+)
 from eigenpinns_torch.solvers.rayleigh_ritz import (
     eigh_generalized,
     filtered_whiten,
@@ -26,6 +39,11 @@ from eigenpinns_torch.solvers.spectral_basis import (
     spectral_basis,
     spectral_basis_family,
 )
+from eigenpinns_torch.solvers.transfer import TransferResult, train_per_level
+from eigenpinns_torch.solvers.upscale import (
+    UpscaleResult,
+    hierarchical_eigensolve,
+)
 
 __all__ = [
     "DirectResult", "train_joint", "lobpcg", "lobpcg_blocked",
@@ -35,4 +53,8 @@ __all__ = [
     "eigsh_smallest", "eigh_generalized", "filtered_whiten",
     "rayleigh_ritz", "rayleigh_ritz_robust", "cg_solve",
     "coarse_grid_correction", "jacobi_smooth",
+    "DeflationResult", "solve_deflation", "solve_deflation_adaptive",
+    "BatchedResult", "train_joint_family", "UpscaleResult",
+    "hierarchical_eigensolve", "TransferResult", "train_per_level",
+    "solve_laplace_dirichlet", "solve_laplace_dirichlet_device",
 ]

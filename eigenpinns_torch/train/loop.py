@@ -30,6 +30,9 @@ def run_chunked_loop(
     n_epochs: int,
     chunk: int = 100,
     early_stop_patience: int | None = None,
+    early_stop_metric: str = "loss",
+    early_stop_mode: str = "improve",
+    early_stop_tol: float = 0.0,
     log_every: int = 0,
     log_fn: Callable | None = None,
     track_params: list | None = None,
@@ -38,12 +41,19 @@ def run_chunked_loop(
     """Run `step_fn` for up to n_epochs, syncing once per chunk.
 
     Early stopping follows the reference (src/multigrid_model.py:262-272):
-    a counter increments whenever the loss fails to improve on its best,
-    resets when it does, and the loop stops after the chunk in which the
-    counter exceeds the patience. `track_params` (tensors updated in
-    place by `step_fn`) are snapshotted after every step whose loss was
-    the best so far, as the JAX loop's `best_state`.
+    a counter increments whenever `early_stop_metric` fails to improve on
+    its best, resets when it does, and the loop stops after the chunk in
+    which the counter exceeds the patience. `early_stop_mode="below_tol"`
+    is the notebook's EMA-slope monitor (iterative_eigenvalues cell
+    1:233-237): the counter increments while |metric| < early_stop_tol
+    and resets otherwise, and the best (for `track_params`) follows the
+    loss. `track_params` (tensors updated in place by `step_fn`) are
+    snapshotted after every step whose loss was the best so far, as the
+    JAX loop's `best_state`.
     """
+    if early_stop_mode not in ("improve", "below_tol"):
+        raise ValueError(f"early_stop_mode must be 'improve' or "
+                         f"'below_tol', got '{early_stop_mode}'")
     best = torch.full((), float("inf"), device=device)
     patience = torch.zeros((), dtype=torch.int64, device=device)
     best_params = (None if track_params is None
@@ -59,11 +69,19 @@ def run_chunked_loop(
         rows = []
         for i in range(length):
             metrics = step_fn(epochs_run + i)
-            val = metrics["loss"].detach()
-            improved = val < best
-            best = torch.where(improved, val, best)
-            patience = torch.where(improved, torch.zeros_like(patience),
-                                   patience + 1)
+            val = metrics[early_stop_metric].detach()
+            if early_stop_mode == "below_tol":
+                loss_val = metrics.get("loss", val).detach()
+                improved = loss_val < best
+                best = torch.where(improved, loss_val, best)
+                flat = val.abs() < early_stop_tol
+                patience = torch.where(flat, patience + 1,
+                                       torch.zeros_like(patience))
+            else:
+                improved = val < best
+                best = torch.where(improved, val, best)
+                patience = torch.where(improved, torch.zeros_like(patience),
+                                       patience + 1)
             if best_params is not None:
                 with torch.no_grad():
                     for b, p in zip(best_params, track_params):

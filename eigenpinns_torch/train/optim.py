@@ -25,6 +25,12 @@ arithmetic step for step:
 
 All state stays on the parameters' device; `step` never reads a value
 back to the host. (`adamw_cosine_restarts` is not ported.)
+
+Layer freezing (`freeze_mask`, `adam_frozen`) is the port of
+`optax.multi_transform({"train": optax.adam(lr), "frozen":
+optax.set_to_zero()}, _freeze_mask(params, n))` of
+`eigenpinns_tpu/solvers/transfer.py`: the Adam core over the trained
+parameters only, so a frozen one gets no update and keeps no moments.
 """
 
 from __future__ import annotations
@@ -95,6 +101,38 @@ def exponential_decay(init_value: float, transition_steps: int,
                      * np.power(np.float32(decay_rate), p))
 
     return schedule
+
+
+def freeze_mask(named_params, n_frozen: int) -> dict[str, str]:
+    """'frozen' or 'train' for each (name, parameter): 'frozen' for the
+    first `n_frozen` hidden layers, whose names hold `hidden_<i>` (flax
+    and `LambdaEigenNet`) or `hidden.<i>` (the torch `MLP`) with
+    i < n_frozen, as the JAX package's `_freeze_mask` labels them."""
+    labels = {}
+    for name, _ in named_params:
+        parts = name.split(".")
+        label = "train"
+        for j, part in enumerate(parts):
+            if part.startswith("hidden_"):
+                idx = int(part.split("_")[1])
+            elif part == "hidden" and j + 1 < len(parts):
+                idx = int(parts[j + 1])
+            else:
+                continue
+            label = "frozen" if idx < n_frozen else "train"
+            break
+        labels[name] = label
+    return labels
+
+
+def adam_frozen(named_params, learning_rate: float,
+                n_frozen: int = 0) -> "Adam":
+    """`optax.adam(learning_rate)` on the parameters that `freeze_mask`
+    labels 'train'; the frozen ones are left out of the optimizer."""
+    named_params = list(named_params)
+    labels = freeze_mask(named_params, n_frozen)
+    return Adam([p for name, p in named_params if labels[name] == "train"],
+                lambda t: learning_rate)
 
 
 def adam_exp_decay(params, lr_start: float = 1e-2, lr_end: float = 1e-4,

@@ -1,3 +1,17 @@
-from eigenpinns_torch.utils.fixtures import icosphere, perturbed_icosphere
+from eigenpinns_torch.utils.fixtures import (
+    align_ritz_vectors,
+    generate_test_matrices,
+    icosphere,
+    laplacian_1d,
+    laplacian_1d_eigenvalues,
+    perturbed_icosphere,
+    random_spd,
+    subsample_hierarchy,
+    tridiagonal,
+    verify_eigenpairs,
+)
 
-__all__ = ["icosphere", "perturbed_icosphere"]
+__all__ = ["align_ritz_vectors", "icosphere", "perturbed_icosphere", "laplacian_1d",
+           "laplacian_1d_eigenvalues", "tridiagonal", "random_spd",
+           "generate_test_matrices", "verify_eigenpairs",
+           "subsample_hierarchy"]

@@ -123,10 +123,11 @@ def _asym800():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["highest", "high", "bf16"])
-@pytest.mark.parametrize("k", [5, 40])
+@pytest.mark.parametrize("k", [1, 5, 40])
 def test_bsr_cuda_kernels_match_plain(precision, k):
     """K2 and K3 vs the plain version (rel 1e-5; 1e-4 in 'bf16'), and the
-    gradient through the dispatcher (A^T from the stored transpose)."""
+    gradient through the dispatcher (A^T from the stored transpose); k = 1
+    is the width of the Dirichlet CG's products."""
     _need_card()
     op, _ = tbsr.BSRTile.from_scipy(_asym800(), device="cuda")
     op = op.with_precision(precision)
