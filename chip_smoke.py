@@ -177,14 +177,40 @@ present or the package is not beside it. On the card it:
  13. prints a JSON line describing the five kernels (launches on their
      path, max abs err, kernel, plain and library times; K1 with its
      300k row beside the multigrid one and its launches on the transfer
-     path, K2 and K4 with their 1M rows and launches, K2 with its k = 1
-     row and launches on the Dirichlet path; and the bound:
+     path and in CLI run A with its FEM K_blk and M_blk rows, K2 and K4
+     with their 1M rows and launches, K2 with its k = 1 row and launches
+     on the Dirichlet path and its launches and k = 64 row in CLI run B,
+     K3 with its launches in run B (0); and the bound:
      the larger of the bytes the product must move -- each nonzero's
      value and column index, the row pointers, U and W, the Gram for K5
      -- over 3.35 TB/s and its operations, 2 nnz k (+ 2 n k^2 for the
      Gram), over the peak rate for their type), the card's name and
      power limit, then, as the last line, {"ok": true, "device": {...}}.
      Each phase prints its wall time.
+ 14. (before the JSON line of step 13) runs the pipeline's CLI,
+     `eigenpinns_torch.main.cli`, twice on the bunny stand-in written as
+     an .obj in a temporary directory, after every host stage and
+     oracle: run A, the multigrid phase's bench widths on the mesh path
+     (graph_coarsening: decimated levels with FEM K and consistent M in
+     the rolling band, mesh-connectivity edges, the LOBPCG coarse
+     solve); run B, the reference's defaults (Config() written as a
+     sectioned YAML and read by the port's reader: FPS, kNN edges, eigsh
+     coarse solve, k = 64 on strip-BSR) with operator_format 'auto', a
+     200-iteration polish and 2000 of its 10000 epochs. It first builds
+     run A's hierarchy on the host with `build_hierarchy` (timed; mostly
+     `decimation_levels`), checks that every level's K and M is a
+     RollingBanded, and holds K1 against its plain version on that
+     build's fused FEM K_blk and M_blk at k = 10 (as step 2),
+     and K2 on run B's fused K_blk at k = 64 and 67 in the three modes
+     (W rel 1e-5, 1e-4 in 'bf16', the same bits from a second launch);
+     counts every kernel's launches from zero over each run (run A must
+     launch K1, run B K2 and never K3); and checks each exported VTU
+     (2562 points, fields v0..v{k-1}, in the input mesh's order: the
+     Rayleigh quotients of its vectors on the host operators of the
+     normalized mesh within 1e-3 of eigsh for modes 1+, run B within
+     max(1e-3, 1.5 x the JAX package's figure, cli_jax_reference.py)).
+     Each run prints its build, train and polish wall, steps/s, peak
+     device memory and the diagnostics summary.
 
 Every LOBPCG polish prints its iterations and the max and median of its
 scaled residual norms. Steps 8 and 9 and the rolling-band training run
@@ -311,6 +337,46 @@ DIRICHLET_BAR = 1e-3
 DIRICHLET_ITERS, DIRICHLET_LADDER = 6000, (1500, 3000, 4500)
 DIRICHLET_SMALL_ITERS = 1000
 
+# The CLI phase: `eigenpinns_torch.main.cli`, the pipeline a user runs
+# (mesh -> hierarchy -> multigrid training -> VTU -> diagnostics), on the
+# bunny stand-in written as an .obj (bunny.obj is not in the repository).
+# Run A: the multigrid phase's bench widths on the mesh path (decimated
+# levels, FEM K and consistent M in the rolling band: K1; mesh edges;
+# the LOBPCG coarse solve). Run B: the reference's own defaults, Config()
+# written as a sectioned YAML (FPS, kNN edges, eigsh coarse solve,
+# k = 64: strip-BSR, K2), cut from 10000 to 2000 epochs.
+CLI_MESH_SUB = 4
+CLI_A = ["n_modes=10", "hierarchy=[128, 512, 1024]",
+         "hidden_layers=[256, 256, 256, 256, 256, 256]", "epochs=2000",
+         "scan_chunk=500", "corrector_scale=10.0", "weight_residual=1000.0",
+         "weight_orthogonal=10.0", "log_every=0",
+         "early_stop_patience=1000000000", "plateau_patience=2000",
+         "polish_iters=100", "sampler_type=graph_coarsening",
+         "edge_computation_type=connectivity_based", "coarse_solver=lobpcg",
+         "operator_format=auto", "diagnostics_viz="]
+CLI_B = ["operator_format=auto", "polish_iters=200", "diagnostics_viz=",
+         "epochs=2000"]
+CLI_RUNS_K = {"A": 10, "B": 64}   # n_modes of each run
+# The JAX package's max rel err of modes 1+ at each run's settings on the
+# CPU (cli_jax_reference.py); run B is held to max(1e-3, 1.5 x its own).
+CLI_JAX_ERR = {"A": 0.00018373105779286256, "B": 3.84231347553965e-06}
+# The reference's sections of parameters.yml; Config's other fields go
+# into one more section.
+YAML_SECTIONS = {
+    "config": ("mesh_file", "coarse_mesh_files", "diagnostics_viz",
+               "vtu_file", "verbose", "do_extensive_visuals"),
+    "sampler": ("sampler_type", "edge_computation_type"),
+    "utils": ("normalization_eps", "prolongation_neighbors",
+              "knn_graph_neighbors"),
+    "correctorGNN": ("model_type", "hidden_layers", "dropout"),
+    "multigridGNN": ("epochs", "learning_rate", "corrector_scale",
+                     "weight_residual", "weight_orthogonal",
+                     "weight_projection", "weight_trace", "w_order",
+                     "w_eigen", "gradient_clipping", "weight_decay",
+                     "log_every"),
+    "runner": ("n_modes", "hierarchy", "k_neighbors"),
+}
+
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and
 # FLOP/s of fp32 FFMA and of bf16 tensor-core products.
 HBM_BYTES_PER_S = 3.35e12
@@ -323,6 +389,88 @@ def eigsh_values(L, M, k: int) -> np.ndarray:
 
     return eigsh_smallest(L, M, k)[0]
 
+
+
+def yaml_value(v) -> str:
+    """One config value as YAML that reads back as the same value: a
+    float always with a dot (YAML 1.1 reads '1e-05' as a string)."""
+    if isinstance(v, str):
+        return json.dumps(v)
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if v is None:
+        return "null"
+    if isinstance(v, float):
+        mantissa, e, exponent = repr(v).partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + e + exponent
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(yaml_value(x) for x in v) + "]"
+    return str(v)
+
+
+def write_sectioned_yaml(path: str, cfg) -> None:
+    """`cfg` as a sectioned YAML file in the reference's layout."""
+    values = dataclasses.asdict(cfg)
+    rest = [k for k in values
+            if not any(k in keys for keys in YAML_SECTIONS.values())]
+    lines = []
+    for section, keys in (*YAML_SECTIONS.items(), ("framework", rest)):
+        lines.append(f"{section}:")
+        lines += [f"  {k}: {yaml_value(values[k])}" for k in keys]
+        lines.append("")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def cli_inputs(workdir: str) -> dict:
+    """Writes the stand-in mesh and run B's YAML into `workdir`; returns
+    {run: (argv without --platform, vtu path, n_modes)}."""
+    from eigenpinns_torch.configs import Config
+    from eigenpinns_torch.geometry import save_obj
+    from eigenpinns_torch.utils.fixtures import perturbed_icosphere
+
+    obj = os.path.join(workdir, "bunny_standin.obj")
+    save_obj(obj, perturbed_icosphere(CLI_MESH_SUB))
+    vtu = {run: os.path.join(workdir, f"run_{run}.vtu") for run in "AB"}
+    cfg_b = dataclasses.replace(Config(), mesh_file=obj, vtu_file=vtu["B"])
+    yml = os.path.join(workdir, "parameters.yml")
+    write_sectioned_yaml(yml, cfg_b)
+    check(Config.from_yaml(yml) == cfg_b,
+          "the sectioned YAML does not read back as Config()")
+    check(cfg_b.n_modes == CLI_RUNS_K["B"], "Config().n_modes moved")
+    return {"A": (["--override", f"mesh_file={obj}", f"vtu_file={vtu['A']}",
+                   *CLI_A], vtu["A"], CLI_RUNS_K["A"]),
+            "B": (["--config", yml, "--override", *CLI_B], vtu["B"],
+                  cfg_b.n_modes),
+            "obj": obj}
+
+
+def cli_error(run: str, vtu: str, obj: str, k: int):
+    """The exported vectors' Rayleigh quotients on the host operators of
+    the normalized mesh (run A: FEM K and consistent M; run B: the native
+    30-neighbor point-cloud Laplacian), against eigsh: (max rel err of
+    modes 1+, the VTU's point count, its field names)."""
+    from eigenpinns_torch.geometry import (
+        assemble_stiffness_mass,
+        load_mesh,
+        point_cloud_laplacian,
+    )
+    from eigenpinns_torch.io import read_vtu
+
+    mesh = load_mesh(obj, normalize=True)
+    if run == "A":
+        K, M = assemble_stiffness_mass(mesh)
+    else:
+        K, M = point_cloud_laplacian(mesh.verts, n_neighbors=30,
+                                     use_native=True)
+    pts, _, fields = read_vtu(vtu)
+    U = np.stack([fields[f"v{i}"] for i in range(k)], axis=1)
+    lam = np.sum(U * (K @ U), axis=0) / np.sum(U * (M @ U), axis=0)
+    vals = eigsh_values(K, M, k)
+    rel = np.abs(lam[1:] - vals[1:]) / np.abs(vals[1:])
+    return float(rel.max()), pts.shape[0], list(fields)
 
 # The oracle workers' environment: one BLAS and OpenMP thread each, so
 # that a worker holds one of the host's cores and the host-bound paths it
@@ -2057,6 +2205,176 @@ def dirichlet_phase(bsr, K, K_sp, perm, X, reference, mesh, device):
     return launches, row
 
 
+# ---- the CLI (step 14) ---------------------------------------------------
+
+def check_k2_cli(bsr, K, K_sp, seed):
+    """K2 vs the plain version on run B's fused K_blk (strip-BSR of the
+    four point-cloud levels) at k = 64 (the loss) and 67 (the polish
+    block) in the three modes: W to BSR_TOL, the same bits from a second
+    launch; with torch.sparse.mm and the bound; returns the k = 64 'high'
+    row (the loss's mode)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    k_loss = CLI_RUNS_K["B"]
+    row = None
+    for k in (k_loss, k_loss + 3):
+        U = torch.randn((K.n, k), generator=gen, device="cuda")
+        for prec in ("highest", "high", "bf16"):
+            A = K.with_precision(prec)
+            W = bsr.bsr_spmm_grouped_cuda(A, U)
+            Wp = bsr.bsr_spmm_plain(A, U)
+            torch.cuda.synchronize()
+            err = rel_err(W, Wp)
+            check(torch.equal(bsr.bsr_spmm_grouped_cuda(A, U), W),
+                  f"CLI K_blk K2 k={k} {prec}: two launches differ")
+            ms = median_ms(lambda: bsr.bsr_spmm_grouped_cuda(A, U))
+            plain_ms = median_ms(lambda: bsr.bsr_spmm_plain(A, U))
+            print(f"[kernel] bsr_spmm_grouped CLI K_blk "
+                  f"{tuple(A.data.shape)} k={k} {prec}: rel_err_W={err:.3e}"
+                  f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+            check(err <= BSR_TOL[prec],
+                  f"CLI K_blk K2 k={k} {prec} W: rel err {err:.3e}")
+            if k == k_loss and prec == "high":
+                row = {"max_abs_err": float((W - Wp).abs().max()), "ms": ms,
+                       "plain_ms": plain_ms,
+                       **bound(least_bytes(K_sp.nnz, 4, K.n, k),
+                               {"fp32": 2 * K_sp.nnz * k})}
+    csr = torch_csr(K_sp, K.data.device)
+    U = torch.randn((K.n, k_loss), generator=gen, device="cuda")
+    row["library_ms"] = median_ms(lambda: torch.sparse.mm(csr, U))
+    print(f"[kernel] CLI K_blk k={k_loss}: torch.sparse.mm "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}), nnz {K_sp.nnz}", flush=True)
+    return row
+
+
+def run_cli(rolling, bsr, banded, label, argv, device):
+    """`cli(argv + --platform cuda)` with every kernel count set to 0
+    just before; returns (wall s, the counts, peak device MiB)."""
+    from eigenpinns_torch.main import cli
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    rolling.rolling_kernel_launches = 0
+    for key in bsr.bsr_kernel_launches:
+        bsr.bsr_kernel_launches[key] = 0
+    for key in banded.banded_kernel_launches:
+        banded.banded_kernel_launches[key] = 0
+    print(f"[cli {label}] eigenpinns_torch.main.cli {argv + ['--platform', 'cuda']}",
+          flush=True)
+    t0 = time.time()
+    cli([*argv, "--platform", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {"K1": rolling.rolling_kernel_launches,
+              "K2": bsr.bsr_kernel_launches["grouped"],
+              "K3": bsr.bsr_kernel_launches["burst"],
+              "K4": banded.banded_kernel_launches["spmm"],
+              "K5": banded.banded_kernel_launches["spmm_gram"]}
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    print(f"[cli {label}] cli() wall {wall:.3f} s (mesh load, hierarchy "
+          f"build, training, polish, VTU export, diagnostics), kernel "
+          f"launches {counts}, peak device memory {peak:.1f} MiB",
+          flush=True)
+    return wall, counts, peak
+
+
+def cli_phase(rolling, bsr, banded, device, phases):
+    """Step 14, the two CLI runs of the module docstring; returns
+    (K1's launches in run A, K1's FEM K_blk and M_blk rows, K2's and K3's
+    launches in run B, K2's k = 64 row)."""
+    import tempfile
+
+    import scipy.sparse as sp
+
+    from eigenpinns_torch.geometry import load_mesh
+    from eigenpinns_torch.sampling import build_hierarchy
+    from eigenpinns_torch.sparse import BSRTile, RollingBanded
+
+    bar_b = max(MAX_REL_ERR, 1.5 * CLI_JAX_ERR["B"])
+    with tempfile.TemporaryDirectory() as work:
+        runs = cli_inputs(work)
+        mesh = load_mesh(runs["obj"], normalize=True)
+        # Run A's operators for the K1 checks: the CPU build of the same
+        # hierarchy (decimated levels, FEM K and consistent M, RCM), fused
+        # into block-diagonal K_blk and M_blk. Its wall is mostly the
+        # `decimation_levels` heap loop.
+        t0 = time.time()
+        h_a = build_hierarchy(mesh, LEVELS, n_modes=CLI_RUNS_K["A"],
+                              sampler_type="graph_coarsening",
+                              edge_computation_type="connectivity_based",
+                              operator_format="auto", device="cpu")
+        print(f"[cli A] build_hierarchy on the host (decimation_levels to "
+              f"{[m.n_verts for m in h_a.meshes]} vertices, FEM assembly, "
+              f"RCM, eigsh coarse): {time.time() - t0:.2f} s", flush=True)
+        check(all(isinstance(op, RollingBanded)
+                  for op in h_a.K_ops + h_a.M_ops),
+              "run A's levels are not all RollingBanded K and M: "
+              f"{[type(op).__name__ for op in h_a.K_ops + h_a.M_ops]}")
+        rows_a = {}
+        for seed, (name, mats) in enumerate(
+                (("K", h_a.K_scipy), ("M", h_a.M_scipy)), start=11):
+            A_sp = sp.block_diag([A.tocsr() for A in mats], format="csr")
+            op = RollingBanded.from_scipy(A_sp, device=device,
+                                          reorder=False)[0]
+            describe_band(f"FEM {name}_blk", op)
+            rows_a[name] = check_kernel(rolling, f"FEM {name}_blk", op,
+                                        A_sp, CLI_RUNS_K["A"], seed=seed)
+            del op
+        del h_a
+        phases.done("CLI: run A's host build and K1 checks on the FEM K_blk, "
+                    "M_blk")
+
+        argv, vtu, k = runs["A"]
+        wall_a, counts_a, _ = run_cli(rolling, bsr, banded, "A", argv,
+                                      device)
+        err_a, n_pts, fields = cli_error("A", vtu, runs["obj"], k)
+        print(f"[cli A] VTU {n_pts} points, fields {fields[0]}..{fields[-1]};"
+              f" max rel err (modes 1+) of the exported vectors "
+              f"{err_a:.3e} (JAX package on the CPU {CLI_JAX_ERR['A']:.3e},"
+              f" bar {MAX_REL_ERR})", flush=True)
+        check(counts_a["K1"] > 0, "CLI run A launched K1 0 times")
+        check(n_pts == mesh.n_verts
+              and fields == [f"v{i}" for i in range(k)],
+              f"CLI run A: VTU of {n_pts} points with fields {fields}")
+        check(err_a <= MAX_REL_ERR,
+              f"CLI run A: max rel err {err_a:.3e} > {MAX_REL_ERR}")
+        phases.done("CLI run A")
+
+        # Run B's fused K_blk for the K2 checks: the CPU build of the same
+        # hierarchy (FPS, native point-cloud Laplacians, RCM).
+        h_b = build_hierarchy(mesh, [256, 512, 1024], n_modes=CLI_RUNS_K["B"],
+                              operator_format="auto", device="cpu")
+        K_sp = sp.block_diag([K.tocsr() for K in h_b.K_scipy], format="csr")
+        K_blk = BSRTile.from_scipy(K_sp, device=device, reorder=False)[0]
+        check(K_blk.gcid is not None, "run B's K_blk has no group tables")
+        print(f"[kernel] CLI run B K_blk: strip-BSR {tuple(K_blk.data.shape)},"
+              f" occupied 16 x 16 sub-blocks of the real tiles "
+              f"{occupied_share(K_blk.occupancy, K_blk.n_slots)}", flush=True)
+        row_b = check_k2_cli(bsr, K_blk, K_sp, seed=13)
+        del K_blk, h_b
+        phases.done("CLI: K2 checks on run B's K_blk")
+
+        argv, vtu, k = runs["B"]
+        wall_b, counts_b, _ = run_cli(rolling, bsr, banded, "B", argv,
+                                      device)
+        err_b, n_pts, fields = cli_error("B", vtu, runs["obj"], k)
+        print(f"[cli B] VTU {n_pts} points, fields {fields[0]}..{fields[-1]};"
+              f" max rel err (modes 1..{k - 1}) of the exported vectors "
+              f"{err_b:.3e} (JAX package on the CPU {CLI_JAX_ERR['B']:.3e},"
+              f" bar max(1e-3, 1.5 x that) = {bar_b:.3e}); epochs cut "
+              f"10000 -> 2000", flush=True)
+        check(counts_b["K2"] > 0, "CLI run B launched K2 0 times")
+        check(counts_b["K3"] == 0, "CLI run B launched K3")
+        check(n_pts == mesh.n_verts
+              and fields == [f"v{i}" for i in range(k)],
+              f"CLI run B: VTU of {n_pts} points with fields {fields}")
+        check(err_b <= bar_b, f"CLI run B: max rel err {err_b:.3e} > "
+              f"{bar_b:.3e}")
+        phases.done("CLI run B")
+    return counts_a["K1"], rows_a, counts_b["K2"], counts_b["K3"], row_b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2342,6 +2660,10 @@ def smoke(oracles: list) -> int:
     k2_xl, row_1m, k4_xl, band_rows_1m = xl_phases(
         bsr, banded, X_xl, L_xl, m_xl, oracle_xl, device, phases)
 
+    # 14. The CLI's two runs, after every host stage and oracle.
+    k1_cli, rows_fem, k2_cli, k3_cli, row_cli = cli_phase(
+        rolling, bsr, banded, device, phases)
+
     print(json.dumps({"kernels": [
         {"name": "rolling_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
@@ -2350,17 +2672,21 @@ def smoke(oracles: list) -> int:
          "launches_300k": k1_train + k1_polish,
          "launches_300k_training": k1_train,
          "launches_300k_polish": k1_polish, "row_300k": row_300k,
-         "launches_transfer": k1_transfer},
+         "launches_transfer": k1_transfer, "launches_cli_a": k1_cli,
+         "row_cli_fem_K_blk": rows_fem["K"],
+         "row_cli_fem_M_blk": rows_fem["M"]},
         {"name": "bsr_spmm_grouped", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
          "launches": k2_launches, **bsr_rows["bsr_spmm_grouped"],
          "launches_1m": k2_xl, "row_1m": row_1m,
-         "launches_dirichlet": k2_dirichlet, "row_k1": row_k1},
+         "launches_dirichlet": k2_dirichlet, "row_k1": row_k1,
+         "launches_cli_b": k2_cli, "row_cli_k64": row_cli},
         {"name": "bsr_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:672",
          "launches": k3_launches, "launches_family": k3_family,
+         "launches_cli_b": k3_cli,
          **bsr_rows["bsr_spmm"]},
         {"name": "banded_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",

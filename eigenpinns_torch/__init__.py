@@ -13,8 +13,12 @@ spectral basis (`spectral_basis`, `spectral_basis_family`: blocked
 deflated LOBPCG). The solver family (`solvers/{deflation,batched,
 upscale,transfer,poisson}.py`: sequential and adaptive deflation, joint
 training over a mesh family, the matrix-only neural upscaler, per-level
-transfer learning, Dirichlet solves) runs on the same operators. Every
-entry point runs on the card unless given `device="cpu"`.
+transfer learning, Dirichlet solves) runs on the same operators. The
+pipeline's CLI (`python -m eigenpinns_torch.main --config
+parameters.yml`, `main.py`) chains the mesh, `build_hierarchy` with any
+sampler (decimated FEM levels included), `MultigridTrainer`, the VTU
+export and the diagnostics. Every entry point runs on the card unless
+given `device="cpu"` (the CLI: `--platform cpu`).
 
 Their hand-written kernels are built with nvcc on first use:
 `csrc/bsr_spmm.cu` (the grouped and burst strip-BSR SpMMs that replace

@@ -8,16 +8,20 @@ device mesh shape, coarse solver choice) — all defaulted so reference
 YAML files load unchanged.
 
 Field-for-field copy of `eigenpinns_tpu/configs/config.py`, so one YAML
-drives both packages. `yaml` is imported only inside `from_yaml`. The
-TPU-only knobs (`timing_chunks`, `checkpoint_dir`, `mesh_shape`,
-`profile_dir`) are kept for compatibility; the port's trainer rejects
-the ones it does not implement yet.
+drives both packages. `from_yaml` reads the file with the package's own
+reader of the sectioned subset (`configs/yaml_reader.py`), which returns
+what `yaml.safe_load` returns on such a file and raises on anything
+else; PyYAML is never imported. The TPU-only knobs (`timing_chunks`,
+`mesh_shape`) are kept for compatibility; the port's trainer rejects
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+from eigenpinns_torch.configs.yaml_reader import load_file
 
 
 @dataclasses.dataclass
@@ -117,10 +121,7 @@ class Config:
     def from_yaml(cls, path: str) -> "Config":
         """Load a sectioned YAML, merging every section flat
         (src/config.py:41-50)."""
-        import yaml
-
-        with open(path, "r") as fh:
-            raw = yaml.safe_load(fh) or {}
+        raw = load_file(path) or {}
         merged: dict[str, Any] = {}
         for section in raw.values():
             if isinstance(section, dict):
@@ -130,3 +131,6 @@ class Config:
         if unknown:
             raise ValueError(f"unknown config keys: {sorted(unknown)}")
         return cls(**merged)
+
+    def override(self, **kwargs) -> "Config":
+        return dataclasses.replace(self, **kwargs)

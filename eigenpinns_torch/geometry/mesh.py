@@ -2,8 +2,8 @@
 
 Capability parity with the reference loader/normalizer
 (`src/Mesh.py:29-79`, `src/mesh_helpers.py:9-20`): Wavefront OBJ parsing
-(``v``/``f`` records, 1-based indices, polygon fan-triangulation) and
-centroid/max-axis-std normalization.
+(``v``/``f`` records, 1-based indices, polygon fan-triangulation),
+centroid/max-axis-std normalization, per-face normals and areas.
 
 Host-side numpy by design: mesh IO is offline preprocessing; everything
 downstream receives plain arrays that are moved to the device once. A
@@ -40,6 +40,44 @@ class TriMesh:
     def n_faces(self) -> int:
         return self.faces.shape[0]
 
+    def face_corners(self) -> np.ndarray:
+        """(F, 3, 3) coordinates of each face's three corners."""
+        return self.verts[self.faces]
+
+    def face_normals(self, normalized: bool = True) -> np.ndarray:
+        """Per-face normals; `normalized=False` returns area-weighted normals."""
+        c = self.face_corners()
+        n = np.cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0])
+        if normalized:
+            n = n / (np.linalg.norm(n, axis=1, keepdims=True) + 1e-300)
+        return n
+
+    def face_areas(self) -> np.ndarray:
+        c = self.face_corners()
+        return 0.5 * np.linalg.norm(
+            np.cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0]), axis=1
+        )
+
+    def face_centroids(self) -> np.ndarray:
+        return self.face_corners().mean(axis=1)
+
+    def edges(self, directed: bool = True) -> np.ndarray:
+        """Unique mesh edges as (2, E) int array.
+
+        With ``directed=True`` both (i, j) and (j, i) are emitted — the
+        edge_index convention of the reference (`src/mesh_helpers.py:66-90`).
+        """
+        f = self.faces
+        e = np.concatenate(
+            [f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]],
+             f[:, [1, 0]], f[:, [2, 1]], f[:, [0, 2]]],
+            axis=0,
+        )
+        e = np.unique(e, axis=0)
+        if not directed:
+            e = np.unique(np.sort(e, axis=1), axis=0)
+        return e.T.astype(np.int64)
+
 
 def load_obj(path: str) -> TriMesh:
     """Parse a Wavefront OBJ file into a TriMesh.
@@ -47,7 +85,7 @@ def load_obj(path: str) -> TriMesh:
     Handles ``v x y z`` and ``f a b c [d ...]`` records (with optional
     ``a/t/n`` attribute syntax); polygons are fan-triangulated. Matches the
     reference loader's behavior (`src/Mesh.py:47-79`) without its Python
-    per-line bookkeeping of normals.
+    per-line bookkeeping of normals (recomputed on demand here).
     """
     verts: list[list[float]] = []
     faces: list[list[int]] = []
@@ -62,6 +100,14 @@ def load_obj(path: str) -> TriMesh:
                     faces.append([idx[0], idx[k], idx[k + 1]])
     return TriMesh(np.asarray(verts, dtype=np.float64),
                    np.asarray(faces, dtype=np.int32))
+
+
+def save_obj(path: str, mesh: TriMesh) -> None:
+    with open(path, "w") as fh:
+        for v in mesh.verts:
+            fh.write(f"v {v[0]:.17g} {v[1]:.17g} {v[2]:.17g}\n")
+        for f in mesh.faces:
+            fh.write(f"f {f[0] + 1} {f[1] + 1} {f[2] + 1}\n")
 
 
 def normalize_mesh(mesh: TriMesh, eps: float = 1e-12) -> TriMesh:

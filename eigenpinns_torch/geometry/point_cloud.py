@@ -331,8 +331,9 @@ def _flip_core(tris, lengths, weights, sides, tri_eid, max_flips):
 
 
 def cotan_laplacian_from_soup(points: np.ndarray, tris: np.ndarray,
-                              tri_weights: np.ndarray,
-                              mollify_factor: float):
+                              tri_weights: np.ndarray | None,
+                              mollify_factor: float,
+                              delaunay_flips: bool | None = None):
     """Intrinsic cotan stiffness + barycentric lumped mass of a triangle soup.
 
     Operates purely on (mollified) edge lengths so it is robust to skinny or
@@ -345,9 +346,13 @@ def cotan_laplacian_from_soup(points: np.ndarray, tris: np.ndarray,
     output) whenever the native library loads (seconds at millions of
     triangles), and otherwise only below 100k triangles, where the Python
     loop (~1.2 ms per 1k triangles) stays cheap: the JAX package's
-    `delaunay_flips="auto"`.
+    `delaunay_flips="auto"`, taken when `delaunay_flips` is None.
+    `tri_weights=None` weighs every triangle 1.
     """
-    delaunay_flips = _native.available() or tris.shape[0] < 100_000
+    if delaunay_flips is None:
+        delaunay_flips = _native.available() or tris.shape[0] < 100_000
+    if tri_weights is None:
+        tri_weights = np.ones(len(tris))
     n = points.shape[0]
     p = points[tris]  # (T, 3, 3)
     # Edge lengths opposite each corner: l[:, c] = |edge opposite corner c|
@@ -435,3 +440,20 @@ def point_cloud_laplacian(points: np.ndarray, n_neighbors: int = 38,
             points, n_neighbors=n_neighbors, frame_neighbors=frame_neighbors)
     return cotan_laplacian_from_soup(points, tris, weights,
                                      mollify_factor=1e-5)
+
+
+def mesh_laplacian(verts: np.ndarray, faces: np.ndarray,
+                   mollify_factor: float = 1e-5,
+                   delaunay_flips: bool = False):
+    """(L, M) intrinsic cotan Laplacian of an (indexed) triangle mesh —
+    the mesh-path analog of `robust_laplacian.mesh_laplacian`.
+
+    `delaunay_flips=False` by default: the given connectivity is kept so
+    the classical FEM == cotan identity holds; pass True for the flipped
+    (intrinsic-Delaunay) operator."""
+    return cotan_laplacian_from_soup(
+        np.asarray(verts, dtype=np.float64),
+        np.asarray(faces, dtype=np.int64),
+        None, mollify_factor,
+        delaunay_flips=delaunay_flips,
+    )

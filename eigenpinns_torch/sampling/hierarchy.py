@@ -1,17 +1,23 @@
 """Multiresolution hierarchy builder (port of
 `eigenpinns_tpu/sampling/hierarchy.py`).
 
-Given a mesh and target level sizes, build per-level point sets X, the
-point-cloud operators (K, M), kNN edge lists, prolongations P and
-Jacobi-smoothed initial eigenvector guesses U. The host stage (FPS, the
-point-cloud Laplacian, kNN, RCM, eigsh) is numpy/scipy; the device tail
-(operator layouts, Jacobi smoothing) runs on `device`.
+Given a mesh and target level sizes, build per-level point sets X,
+operators (K, M), kNN or mesh-connectivity edge lists, prolongations P
+and Jacobi-smoothed initial eigenvector guesses U (capability parity
+with `src/samplers.py:188-286`). The samplers: `farthest_point`,
+`voxel_downsampling` and `random` levels of the cloud with the
+point-cloud Laplacian per level, or `graph_coarsening`: quadric
+decimation of the mesh with the FEM stiffness and consistent mass per
+decimated level. The host stage (sampling, decimation, the Laplacians
+and FEM assembly, kNN, RCM, eigsh) is numpy/scipy; the device tail
+(operator layouts, the optional LOBPCG coarse solve, Jacobi smoothing)
+runs on `device`.
 
-Ported: the `farthest_point` sampler with kNN edges, the host eigsh
-coarse solve, and operator formats 'ell' and 'auto'/'banded' with the
-JAX package's format choice: the rolling band at k <= 32, strip-BSR at
-k > 32 or where the RCM band is wider than `max_bandwidth` (with the
-same warnings).
+Operator formats 'ell' and 'auto'/'banded' follow the JAX package's
+format choice: the rolling band at k <= 32, strip-BSR at k > 32 or where
+the RCM band is wider than `max_bandwidth` (with the same warnings). A
+consistent (non-diagonal) mass takes its level's K format and
+permutation.
 
 `Hierarchy.save` writes the JAX package's on-disk layout byte for byte
 (scipy CSR per sparse operator plus one dense npz), and `Hierarchy.load`
@@ -29,16 +35,27 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from eigenpinns_torch.geometry.fem import assemble_stiffness_mass
 from eigenpinns_torch.geometry.mesh import TriMesh
 from eigenpinns_torch.geometry.point_cloud import point_cloud_laplacian
+from eigenpinns_torch.sampling.decimation import decimation_levels
 from eigenpinns_torch.sampling.knn import knn_graph, prolongation_matrix
-from eigenpinns_torch.sampling.samplers import farthest_point_levels
+from eigenpinns_torch.sampling.samplers import (
+    farthest_point_levels,
+    random_levels,
+    voxel_levels,
+)
+from eigenpinns_torch.solvers.lobpcg import lobpcg_from_random
 from eigenpinns_torch.solvers.oracle import eigsh_smallest
 from eigenpinns_torch.solvers.smoothers import jacobi_smooth
 from eigenpinns_torch.sparse.bsr import BSRTile
 from eigenpinns_torch.sparse.formats import Diagonal, as_operator
 from eigenpinns_torch.sparse.rolling import RollingBanded
 
+SAMPLER_TYPES = ("farthest_point", "voxel_downsampling", "graph_coarsening",
+                 "random")
+EDGE_TYPES = ("knn_based", "connectivity_based")
+COARSE_SOLVERS = ("eigsh", "lobpcg")
 OPERATOR_FORMATS = ("ell", "banded", "auto")
 
 
@@ -114,6 +131,17 @@ class Hierarchy:
                                      format="csr"))
         cache[key] = (K_op, M_op)
         return cache[key]
+
+    def to_original_order(self, U_finest: np.ndarray) -> np.ndarray:
+        """Map finest-level rows back to the input mesh's vertex order
+        (needed after banded-format training, whose levels are
+        RCM-permuted)."""
+        if self.perms is None:
+            return U_finest
+        perm = self.perms[-1]
+        out = np.empty_like(U_finest)
+        out[perm] = U_finest
+        return out
 
     @property
     def n_levels(self) -> int:
@@ -219,9 +247,11 @@ def build_hierarchy(
     hierarchy: list[int],
     n_modes: int,
     sampler_type: str = "farthest_point",
+    edge_computation_type: str = "knn_based",
     k_neighbors: int = 21,
     prolongation_neighbors: int = 21,
     pc_neighbors: int = 30,
+    coarse_solver: str = "eigsh",
     jacobi_alpha: float = 0.1,
     jacobi_iters: int = 10,
     seed: int = 0,
@@ -232,23 +262,42 @@ def build_hierarchy(
 ) -> Hierarchy:
     """Build the full multiresolution problem on `device`
     (Sampler.preprocess_mesh parity, src/samplers.py:283-286)."""
-    if sampler_type != "farthest_point":
-        raise NotImplementedError(
-            f"sampler_type '{sampler_type}': only 'farthest_point' is "
-            "ported")
+    if sampler_type not in SAMPLER_TYPES:
+        raise ValueError(
+            f"sampler_type must be one of {SAMPLER_TYPES}, got "
+            f"'{sampler_type}'")
+    if edge_computation_type not in EDGE_TYPES:
+        edge_computation_type = "knn_based"  # reference fallback behavior
+    if coarse_solver not in COARSE_SOLVERS:
+        raise ValueError(f"coarse_solver must be one of {COARSE_SOLVERS}")
     if operator_format not in OPERATOR_FORMATS:
         raise ValueError(f"operator_format must be one of "
                          f"{OPERATOR_FORMATS}")
     device = torch.device(device)
 
-    indices = farthest_point_levels(mesh.verts, hierarchy, seed=seed)
-    X_list, K_sp, M_sp = [], [], []
-    for idx in indices:
-        X = mesh.verts[idx]
-        L, M = point_cloud_laplacian(X, n_neighbors=pc_neighbors)
-        X_list.append(X)
-        K_sp.append(L)
-        M_sp.append(M)
+    X_list, K_sp, M_sp, meshes, indices = [], [], [], [], []
+    if sampler_type == "graph_coarsening":
+        # Decimated meshes with the FEM stiffness and consistent mass.
+        meshes = decimation_levels(mesh, hierarchy)
+        for m in meshes:
+            K, M = assemble_stiffness_mass(m)
+            X_list.append(m.verts)
+            K_sp.append(K)
+            M_sp.append(M)
+    else:
+        if sampler_type == "farthest_point":
+            indices = farthest_point_levels(mesh.verts, hierarchy, seed=seed)
+        elif sampler_type == "voxel_downsampling":
+            indices = voxel_levels(mesh.verts, hierarchy)
+        else:
+            indices = random_levels(mesh.verts, hierarchy, seed=seed)
+        meshes = [mesh]
+        for idx in indices:
+            X = mesh.verts[idx]
+            L, M = point_cloud_laplacian(X, n_neighbors=pc_neighbors)
+            X_list.append(X)
+            K_sp.append(L)
+            M_sp.append(M)
     actual = [x.shape[0] for x in X_list]
 
     # Per-level RCM order and the JAX package's format choice: the
@@ -274,7 +323,8 @@ def build_hierarchy(
             K_sp[i] = K_sp[i].tocsr()[perm][:, perm].tocsr()
             M_sp[i] = M_sp[i].tocsr()[perm][:, perm].tocsr()
             X_list[i] = X_list[i][perm]
-            indices[i] = np.asarray(indices[i])[perm]
+            if indices:
+                indices[i] = np.asarray(indices[i])[perm]
             K_ops.append(_banded_op(
                 K_sp[i], dtype, device, max_bandwidth, prefer_rolling,
                 f"level {i}: RCM bandwidth exceeds max_bandwidth="
@@ -282,7 +332,19 @@ def build_hierarchy(
                 "the rolling band"))
             perms.append(perm)
 
-    edge_index_list = [knn_graph(X, k=k_neighbors) for X in X_list]
+    if (sampler_type == "graph_coarsening"
+            and edge_computation_type == "connectivity_based"):
+        edge_index_list = [m.edges(directed=True) for m in meshes]
+        if perms is not None:
+            # The meshes keep their vertex order but X/K/M were RCM
+            # permuted: renumber the edges so that the GNN aggregates
+            # the right neighbours.
+            for i, perm in enumerate(perms):
+                inv = np.empty(len(perm), dtype=np.int64)
+                inv[perm] = np.arange(len(perm))
+                edge_index_list[i] = inv[edge_index_list[i]]
+    else:
+        edge_index_list = [knn_graph(X, k=k_neighbors) for X in X_list]
 
     if K_ops:
         M_ops = []
@@ -291,14 +353,28 @@ def build_hierarchy(
             if not isinstance(op, Diagonal):
                 # Consistent (non-lumped) mass: same format and the same
                 # (already applied) permutation as that level's K.
-                op = _banded_op(M.tocsr(), dtype, device, max_bandwidth,
-                                isinstance(K_ops[i], RollingBanded), None)
+                op = _banded_op(
+                    M.tocsr(), dtype, device, max_bandwidth,
+                    isinstance(K_ops[i], RollingBanded),
+                    f"level {i}: the mass's RCM bandwidth exceeds "
+                    f"max_bandwidth={max_bandwidth}; using the strip-BSR "
+                    "format instead of the rolling band")
             M_ops.append(op)
     else:
         K_ops = [as_operator(K, dtype=dtype, device=device) for K in K_sp]
         M_ops = [as_operator(M, dtype=dtype, device=device) for M in M_sp]
 
-    vals0, U0 = eigsh_smallest(K_sp[0], M_sp[0], n_modes)  # coarsest level
+    # Coarsest-level exact solve: ARPACK on the host, or LOBPCG on the
+    # device from a seeded random start.
+    if coarse_solver == "eigsh":
+        vals0, U0 = eigsh_smallest(K_sp[0], M_sp[0], n_modes)
+    else:
+        res = lobpcg_from_random(
+            K_ops[0], M_ops[0], n_modes,
+            generator=torch.Generator(device).manual_seed(seed),
+            max_iter=400, tol=1e-6, dtype=dtype)
+        vals0 = res.eigenvalues.double().cpu().numpy()
+        U0 = res.eigenvectors.double().cpu().numpy()
 
     # Prolongations + smoothed initial guesses (src/samplers.py:264-281).
     P_ops, Pt_ops = [], []
@@ -319,7 +395,7 @@ def build_hierarchy(
         X_list=X_list, K_ops=K_ops, M_ops=M_ops, K_scipy=K_sp, M_scipy=M_sp,
         P_ops=P_ops, Pt_ops=Pt_ops, U_list=U_list,
         edge_index_list=edge_index_list, actual_hierarchy=actual,
-        meshes=[mesh], indices_per_level=list(indices),
+        meshes=meshes, indices_per_level=list(indices),
         coarse_eigenvalues=np.asarray(vals0), perms=perms,
         build_max_bandwidth=max_bandwidth, device=device,
     )

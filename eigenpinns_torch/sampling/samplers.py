@@ -1,4 +1,5 @@
-"""Farthest-point and voxel samplers for nested hierarchies.
+"""Farthest-point, voxel, random and leverage-score samplers for nested
+hierarchies.
 
 Capability parity with `src/samplers.py:9-143`: nested index sets per
 hierarchy level, each sorted, with the full cloud appended as the finest
@@ -90,5 +91,35 @@ def voxel_levels(points: np.ndarray, hierarchy: list[int]) -> list[np.ndarray]:
             if sel.size >= target * 0.95:
                 break
         levels.append(np.sort(best[:target] if best.size > target else best))
+    levels.append(np.arange(n))
+    return levels
+
+
+def random_levels(points: np.ndarray, hierarchy: list[int],
+                  seed: int = 0) -> list[np.ndarray]:
+    """Nested uniform-random levels (the notebook hierarchy-builder's
+    'random' mode, downsampling_toy_example.ipynb cell 0:20-57)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(points.shape[0])
+    levels = [np.sort(perm[:n].copy()) for n in hierarchy]
+    levels.append(np.arange(points.shape[0]))
+    return levels
+
+
+def leverage_score_levels(K, hierarchy: list[int],
+                          seed: int = 0) -> list[np.ndarray]:
+    """Diagonal-magnitude ('leverage score') sampling of an operator —
+    parity with `leverage_score_sampling`
+    (downsampling_toy_example.ipynb cell 0:60-71): probability proportional
+    to row norms of K."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    scores = np.asarray(abs(K).sum(axis=1)).ravel() if sp.issparse(K) \
+        else np.abs(K).sum(axis=1)
+    p = scores / scores.sum()
+    n = K.shape[0]
+    order = rng.choice(n, size=min(hierarchy[-1], n), replace=False, p=p)
+    levels = [np.sort(order[:m].copy()) for m in hierarchy]
     levels.append(np.arange(n))
     return levels

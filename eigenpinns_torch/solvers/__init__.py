@@ -17,7 +17,12 @@ from eigenpinns_torch.solvers.multigrid import (
     MultigridResult,
     MultigridTrainer,
 )
-from eigenpinns_torch.solvers.oracle import eigsh_smallest
+from eigenpinns_torch.solvers.oracle import (
+    eigsh_smallest,
+    orthonormalize_gs,
+    solve_eigenvalue_mesh,
+    solve_eigenvalue_point_cloud,
+)
 from eigenpinns_torch.solvers.poisson import (
     solve_laplace_dirichlet,
     solve_laplace_dirichlet_device,
@@ -50,7 +55,8 @@ __all__ = [
     "lobpcg_from_random", "SpectralBasisResult", "spectral_basis",
     "spectral_basis_family", "family_operators",
     "MultigridResult", "MultigridTrainer",
-    "eigsh_smallest", "eigh_generalized", "filtered_whiten",
+    "eigsh_smallest", "orthonormalize_gs", "solve_eigenvalue_mesh",
+    "solve_eigenvalue_point_cloud", "eigh_generalized", "filtered_whiten",
     "rayleigh_ritz", "rayleigh_ritz_robust", "cg_solve",
     "coarse_grid_correction", "jacobi_smooth",
     "DeflationResult", "solve_deflation", "solve_deflation_adaptive",

@@ -9,14 +9,20 @@ CGC init -> M-normalize -> physics features -> corrector training
 into one block-diagonal rolling-band SpMM) -> per-level normalization
 -> finest-level robust Rayleigh-Ritz -> optional guarded LOBPCG polish.
 
-Everything runs on the hierarchy's device. Not ported yet: the sharded
-trainer (`mesh`, `n_devices`, `cfg.mesh_shape`), checkpointing, the
-profiler hook, `eval_callback` and the `timing_chunks` probe; asking for
-any of them raises NotImplementedError.
+Everything runs on the hierarchy's device. The hooks of the JAX
+trainer: `cfg.checkpoint_dir` resumes from the newest checkpoint there
+(parameters, Adam and plateau state; the epoch counter continues, so the
+corrector-scale ramp does not replay) and saves one after the run;
+`cfg.profile_dir` writes a torch.profiler trace of the training loop;
+`eval_callback(epochs_run, U_finest)` sees the M-normalized finest-level
+prediction after every chunk. Not ported yet: the sharded trainer
+(`mesh`, `n_devices`, `cfg.mesh_shape`) and the `timing_chunks` probe;
+asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -44,8 +50,10 @@ from eigenpinns_torch.sparse.ops import (
     neighbor_mean_operator,
     spmm,
 )
+from eigenpinns_torch.train.checkpoint import TrainCheckpointer
 from eigenpinns_torch.train.loop import run_chunked_loop
 from eigenpinns_torch.train.optim import AdamPlateau
+from eigenpinns_torch.utils.profiling import trace
 
 
 @dataclasses.dataclass
@@ -121,13 +129,10 @@ class MultigridTrainer:
                             i, h.n_levels)
             for i in range(h.n_levels)], dim=0)
 
-    def _check_supported(self, eval_callback, mesh, n_devices):
+    def _check_supported(self, mesh, n_devices):
         cfg = self.cfg
-        asked = {"eval_callback": eval_callback is not None,
-                 "mesh": mesh is not None, "n_devices": n_devices is not None,
+        asked = {"mesh": mesh is not None, "n_devices": n_devices is not None,
                  "cfg.mesh_shape": bool(cfg.mesh_shape),
-                 "cfg.checkpoint_dir": bool(cfg.checkpoint_dir),
-                 "cfg.profile_dir": bool(cfg.profile_dir),
                  "cfg.timing_chunks": cfg.timing_chunks > 0}
         missing = [name for name, on in asked.items() if on]
         if missing:
@@ -144,7 +149,7 @@ class MultigridTrainer:
         array) the seeded polish guard vectors — the hooks that let a
         test feed both packages the same values.
         """
-        self._check_supported(eval_callback, mesh, n_devices)
+        self._check_supported(mesh, n_devices)
         cfg = self.cfg
         k = cfg.n_modes
         device = h.device
@@ -267,13 +272,46 @@ class MultigridTrainer:
             opt.step(total)
             return metrics
 
-        result = run_chunked_loop(
-            step, n_epochs=cfg.epochs, chunk=cfg.scan_chunk,
-            early_stop_patience=cfg.early_stop_patience,
-            log_every=cfg.log_every,
-            log_fn=log_fn or (self._default_log if cfg.verbose else None),
-            track_params=params if cfg.track_best else None,
-            device=device)
+        # Resume from the newest checkpoint when a checkpoint_dir is set;
+        # the epoch counter continues so that the corrector-scale ramp
+        # does not replay.
+        ckptr, epoch0 = None, 0
+        if cfg.checkpoint_dir:
+            ckptr = TrainCheckpointer(cfg.checkpoint_dir)
+            prev_step, prev = ckptr.restore_latest(
+                target=self._train_state(model, opt))
+            if prev is not None:
+                with torch.no_grad():
+                    for p, v in zip(params, prev["params"]):
+                        p.copy_(v)
+                opt.load_state_dict(prev["opt"])
+                epoch0 = int(prev_step)
+
+        chunk_cb = None
+        if eval_callback is not None:
+            off_f, n_f = offsets[-1], sizes[-1]
+
+            def chunk_cb(epochs_run):
+                with torch.no_grad():
+                    U_f = (U_base + cfg.corrector_scale
+                           * model(feats, graph))[off_f:off_f + n_f]
+                    eval_callback(epochs_run,
+                                  m_normalize_columns(U_f, h.M_ops[-1]))
+
+        with (trace(cfg.profile_dir) if cfg.profile_dir
+              else contextlib.nullcontext()):
+            result = run_chunked_loop(
+                step, n_epochs=cfg.epochs, chunk=cfg.scan_chunk,
+                early_stop_patience=cfg.early_stop_patience,
+                log_every=cfg.log_every,
+                log_fn=log_fn or (self._default_log if cfg.verbose
+                                  else None),
+                track_params=params if cfg.track_best else None,
+                device=device, start_epoch=epoch0,
+                chunk_callback=chunk_cb)
+        if ckptr is not None:
+            ckptr.save(epoch0 + result.epochs_run,
+                       self._train_state(model, opt))
         t_polish = time.time()
         with torch.no_grad():
             if cfg.track_best:
@@ -324,6 +362,13 @@ class MultigridTrainer:
             wall_time=result.wall_time, level_eigenvalues=lam_levels,
             chunk_times=result.chunk_times,
             polish_time=time.time() - t_polish, polish_iterations=iters)
+
+    @staticmethod
+    def _train_state(model, opt) -> dict:
+        """The checkpointed training state: the corrector's parameters
+        (in `model.parameters()` order) and the optimizer's state."""
+        return {"params": [p.detach() for p in model.parameters()],
+                "opt": opt.state_dict()}
 
     @staticmethod
     def _default_log(epoch, metrics):

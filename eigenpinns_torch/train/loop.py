@@ -37,6 +37,8 @@ def run_chunked_loop(
     log_fn: Callable | None = None,
     track_params: list | None = None,
     device=None,
+    start_epoch: int = 0,
+    chunk_callback: Callable | None = None,
 ) -> LoopResult:
     """Run `step_fn` for up to n_epochs, syncing once per chunk.
 
@@ -50,6 +52,11 @@ def run_chunked_loop(
     loss. `track_params` (tensors updated in place by `step_fn`) are
     snapshotted after every step whose loss was the best so far, as the
     JAX loop's `best_state`.
+
+    `start_epoch` offsets the epoch `step_fn` sees (a resumed run's
+    ramps and schedules continue rather than replay); `epochs_run` and
+    the history count this call's epochs. `chunk_callback(epochs_run)`
+    (optional) runs on the host after every chunk, after its sync.
     """
     if early_stop_mode not in ("improve", "below_tol"):
         raise ValueError(f"early_stop_mode must be 'improve' or "
@@ -68,7 +75,7 @@ def run_chunked_loop(
         length = min(chunk, n_epochs - epochs_run)
         rows = []
         for i in range(length):
-            metrics = step_fn(epochs_run + i)
+            metrics = step_fn(start_epoch + epochs_run + i)
             val = metrics[early_stop_metric].detach()
             if early_stop_mode == "below_tol":
                 loss_val = metrics.get("loss", val).detach()
@@ -94,6 +101,8 @@ def run_chunked_loop(
         for j, name in enumerate(names):
             history.setdefault(name, []).append(block[:, j])
         epochs_run += length
+        if chunk_callback is not None:
+            chunk_callback(epochs_run)
         if log_every and log_fn is not None:
             for e in range(epochs_run - length, epochs_run):
                 if e % log_every == 0 or e == n_epochs - 1:

@@ -77,6 +77,18 @@ class Adam:
         torch._foreach_mul_(upd, -lr)
         return upd
 
+    def state_dict(self) -> dict:
+        """The moments and the update count (a checkpoint's tree)."""
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        with torch.no_grad():
+            for dst, src in zip(self.mu + self.nu,
+                                list(state["mu"]) + list(state["nu"])):
+                dst.copy_(src)
+        self.count = int(state["count"])
+
     def _bias_correction(self, decay: float) -> float:
         """1 - decay**count as optax computes it, in fp32: at small
         counts the subtraction cancels, and a float64 value differs from
@@ -171,6 +183,20 @@ class AdamPlateau(Adam):
         upd = self._adam_update(g)
         torch._foreach_mul_(upd, self._plateau_scale(value))
         torch._foreach_add_(self.params, upd)
+
+    def state_dict(self) -> dict:
+        """Adam's state and the reduce-on-plateau scale, best loss and
+        count."""
+        return {**super().state_dict(), "scale": self.scale,
+                "best": self.best, "plateau_count": self.plateau_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        super().load_state_dict(state)
+        dev = self.params[0].device
+        self.scale = state["scale"].to(dev, torch.float32).reshape(())
+        self.best = state["best"].to(dev, torch.float32).reshape(())
+        self.plateau_count = state["plateau_count"].to(
+            dev, torch.int32).reshape(())
 
     def _plateau_scale(self, value: torch.Tensor) -> torch.Tensor:
         value = value.detach().to(self.best.dtype)

@@ -10,8 +10,9 @@ from eigenpinns_torch.utils.fixtures import (
     tridiagonal,
     verify_eigenpairs,
 )
+from eigenpinns_torch.utils.profiling import PhaseTimer, annotate, trace
 
 __all__ = ["align_ritz_vectors", "icosphere", "perturbed_icosphere", "laplacian_1d",
            "laplacian_1d_eigenvalues", "tridiagonal", "random_spd",
            "generate_test_matrices", "verify_eigenpairs",
-           "subsample_hierarchy"]
+           "subsample_hierarchy", "PhaseTimer", "annotate", "trace"]

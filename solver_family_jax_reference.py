@@ -24,8 +24,8 @@ Prints, one line each:
     both packages' anchoring Ritz vectors fixed by `align_ritz_vectors`
     (ROADMAP F18).
 
-This is the only root script that runs the JAX package; the port and
-`chip_smoke.py` never import it.
+With `cli_jax_reference.py`, one of the two root scripts that run the
+JAX package; the port and `chip_smoke.py` never import it.
 """
 
 import tempfile

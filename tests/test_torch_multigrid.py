@@ -250,20 +250,13 @@ def test_fused_loss_equals_per_level_loss(jax_hierarchy, options):
         assert fused.history["proj"][0] > 0
 
 
-@pytest.mark.parametrize("option", ["mesh_shape", "checkpoint_dir",
-                                    "profile_dir", "timing_chunks",
-                                    "eval_callback"])
+@pytest.mark.parametrize("option", ["mesh_shape", "timing_chunks"])
 def test_unported_options_raise(jax_hierarchy, option):
     h = Hierarchy.load(jax_hierarchy[1], operator_format="auto",
                        device="cpu")
-    kw, train_kw = {}, {}
-    if option == "eval_callback":
-        train_kw["eval_callback"] = print
-    else:
-        kw[option] = {"mesh_shape": [2], "checkpoint_dir": "ckpt",
-                      "profile_dir": "prof", "timing_chunks": 2}[option]
+    kw = {option: {"mesh_shape": [2], "timing_chunks": 2}[option]}
     with pytest.raises(NotImplementedError, match=option):
-        MultigridTrainer(Config(**CFG, **kw)).train(h, **train_kw)
+        MultigridTrainer(Config(**CFG, **kw)).train(h)
 
 
 _BSR_FIELDS = ("data", "cid", "rowid", "nw", "diag", "gcid", "lcid", "gid")
