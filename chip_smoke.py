@@ -88,7 +88,7 @@ present or the package is not beside it. On the card it:
      stand-in (perturbed_icosphere(4), 30-neighbor native Laplacian,
      k = 5, examples/deflation_bunny.py's configuration with its
      100-iteration polish; sequential modes 1..4 within 1e-2 of eigsh and
-     M-orthogonal to 0.05; the adaptive driver must store 3 modes within
+     M-orthogonal to 0.05; the adaptive driver must store 4 modes within
      its cut, M-orthogonal to 0.05, and each polished mode whose cluster
      it stored whole within 1e-2); `train_joint_family` at
      examples/mesh_family.py's widths on clouds of the face family's
@@ -211,6 +211,51 @@ present or the package is not beside it. On the card it:
      max(1e-3, 1.5 x the JAX package's figure, cli_jax_reference.py)).
      Each run prints its build, train and polish wall, steps/s, peak
      device memory and the diagnostics summary.
+ 15. runs the PDE apps and the device geometry, which launch none of
+     K1-K5 (an MLP, gathers and einsums; the counts of every process,
+     each 0, are printed and checked). Its six trainings start with step
+     6b, each in a one-thread worker process of its own on the card,
+     all at once (they are launch-bound, as are the solver family's
+     phases), and the Dirichlet phase, which times K2, waits for them:
+     E1, the coil example's widths on the stand-in (20 exact FEM
+     encodings and 20 learned by the whitened `train_joint`, 20000
+     epochs; eikonal (100,), 8000 epochs, element batch 512; exact corr
+     > 0.98, learned corr > 0.85, the learned eigenvalues 1..3 within
+     rel 0.1, and at 1..4 the whitened span's collapse past mode 3 as
+     the JAX package's, within 5%), E2, the learned-encodings test on
+     icosphere(3) (penalty `train_joint` 6000 epochs, eikonal 4000;
+     corr > 0.995 both, learned rms < 0.15 and < exact rms + 0.06), E3,
+     the NTK-weighting test (weights finite, sum-normalized, constant
+     between updates and changed at 400, corr > 0.98), S1, the well and
+     the oscillator at examples/schrodinger_well.py's settings (well
+     rel errs < 0.01 and < 0.05, |u(0)|, |u(1)| <= 1e-6, |E0 - 0.5|
+     < 0.02) and S2, the 2D well (rel err < 0.01); a Schrodinger bar
+     the JAX package itself misses at these settings
+     (pde_jax_reference.py, `PDE_JAX`) becomes 1.5 x its figure. The
+     rates these runs print are read on a card shared with step 6b and
+     with each other. After step 14 this process
+     checks heat geodesics on icosphere(3) against arccos (median rel
+     err < 0.1, d[src] < 0.05, corr > 0.99) and on the stand-in from
+     vertex 0, and holds `knn_graph_device` (60k points, k = 30, the
+     peak device memory printed) against the host's float64 kNN: equal
+     neighbors on every row whose k-th and (k+1)-th squared distances
+     are further apart than the fp32 formula's rounding bound, no
+     neighbor past the host's k-th + that bound), `fps_device` on the 1M cloud
+     (1024 samples) against the native FPS (equal, or parted only at a
+     near-tie within 1e-6) and `project_points_device` (4096 noisy
+     queries around the stand-in, all 5120 faces) against the host's
+     `project_points` (never farther by more than 1e-6). Last, 100
+     epochs of `solve_eikonal` (NTK every 25) and of `solve_schrodinger`
+     on the card and on the CPU from the same parameters and draws, every
+     history key within 1e-4, the card's runs under torch.profiler
+     (kernel time, launches a step, idle share). Each run prints its
+     wall, per-chunk median steps/s and peak device memory beside the
+     JAX package's figure.
+
+Every depth cut of a path is printed: the sequential deflation's 1000
+of 6000 epochs a mode, the adaptive deflation's 11500 of 25000 epochs,
+the n = 4096 upscaler's 300 of 1500 epochs a level, the CLI run B's 2000
+of 10000.
 
 Every LOBPCG polish prints its iterations and the max and median of its
 scaled residual norms. Steps 8 and 9 and the rolling-band training run
@@ -285,19 +330,26 @@ FAMILY_WIDTHS = (FAMILY_K + 4, 3 * (FAMILY_K + 4))
 # notebooks on the stand-ins (the bunny: perturbed_icosphere(4); the face
 # family: clouds of its vertex counts). Epoch cuts are printed.
 DEFL_K, DEFL_NEIGHBORS = 5, 30
-DEFL_SEQ = dict(hidden=(64, 64, 64), epochs_per_mode=2000, scan_chunk=100,
+DEFL_SEQ = dict(hidden=(64, 64, 64), epochs_per_mode=1000, scan_chunk=100,
                 lambda_delta=0.15, early_stop_patience=1500,
                 polish_iters=100, seed=0)
 DEFL_ADAPTIVE = dict(hidden=(64, 64, 64), epochs=11500, scan_chunk=100,
                      minibatch=1024, perturb_factor=0.002, polish_iters=100,
                      seed=0)
 DEFL_BAR, DEFL_ORTH = 1e-2, 0.05
-# The adaptive driver's cut (11500 of the example's 25000 epochs) lets it
-# store past its first mode, so that the store-and-reinit and the
-# deflation against stored modes run: on an H100 it stores at epochs
-# 2000, 5009, 8026 and 11084, the l = 1 triplet whole. It must store 3.
-DEFL_ADAPTIVE_STORES = 3
+# The adaptive driver's cut (11500 of the example's 25000 epochs, for the
+# script's time limit) lets it store past its first mode, so that the
+# store-and-reinit and the deflation against stored modes run: on an H100
+# it stores at epochs 2000, 5009, 8026 and 11084. It must store 4, so
+# that the l = 1 triplet (modes 1-3) is stored whole and `settled_modes`
+# holds modes 0-3 to the bar. The sequential driver runs 1000 of the
+# example's 6000 epochs a mode, each mode then polished.
+DEFL_ADAPTIVE_STORES = 4
 SETTLE_GAP = 0.1
+# Step 6b's phases and step 15's trainings run on the card at once, so
+# the rates they print are contended and do not compare with a rate read
+# alone (step 15's profiled card-vs-CPU runs, or PRs 6-8's step 6b).
+SHARED_CARD = " (card shared by step 6b and step 15's workers)"
 FAMILY_SIZES = ((25905, 0), (16000, 1), (10000, 2))
 FAMILY_JOINT = dict(n_modes=20, hidden=(256, 256, 256, 256), epochs=4000,
                     w_res=1.0, w_orth=10.0, w_trace=0.5, polish_iters=400,
@@ -306,6 +358,9 @@ FAMILY_BAR = 1e-2
 UPSCALE_N = 4096
 UPSCALE_CFG = dict(n_pairs=4, levels=[512, 2048], hidden=(64, 64),
                    epochs_per_level=1500, lr=3e-3, seed=0)
+# The smoke's run of it is cut to this many epochs a level, for the
+# script's time limit (its figure is printed, not held).
+UPSCALE_EPOCHS_CUT = 300
 # The JAX package's max rel err at UPSCALE_CFG, seed 0 (its
 # hierarchical_eigensolve on the CPU, solver_family_jax_reference.py).
 # The eigenvalues are 5.9e-7..9.4e-6 and neither package's upscalers
@@ -1795,7 +1850,8 @@ def deflation_phase(mesh, device):
         unit, epochs = (("epochs", "store epochs") if name == "adaptive"
                         else ("steps", "per mode"))
         print(f"[deflation] {name}: {wall:.3f} s, per-chunk median "
-              f"{chunk_rate(res.chunk_times):.2f} {unit}/s, epochs "
+              f"{chunk_rate(res.chunk_times):.2f} {unit}/s{SHARED_CARD}, "
+              f"epochs "
               f"{res.epochs_per_mode} ({epochs}), {n} modes stored; polished "
               f"{np.array2string(res.eigenvalues, precision=6)}, max rel "
               f"err of modes 1..{n - 1} {err:.3e}, max |u_i^T M u_j| "
@@ -1870,8 +1926,8 @@ def joint_family_phase(device, oracles: list):
         errs.append(float(rel.max()))
         worst.append(f"mode {j}: {np.sort(lam)[j]:.6g} vs {vals[j]:.6g}")
     print(f"[joint family] {len(loss)} epochs + polish in {wall:.3f} s, "
-          f"per-chunk median {chunk_rate([res.chunk_times]):.2f} steps/s, "
-          f"peak device memory "
+          f"per-chunk median {chunk_rate([res.chunk_times]):.2f} steps/s"
+          f"{SHARED_CARD}, peak device memory "
           f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB; loss "
           f"{loss[0]:.6g} -> {loss[-1]:.6g}; polished max rel err of modes "
           f"1..{FAMILY_JOINT['n_modes'] - 1} per member "
@@ -1913,7 +1969,9 @@ def upscaler_phase(device):
     n, k = UPSCALE_N, UPSCALE_CFG["n_pairs"]
     K, M = generate_test_matrices(n, "laplacian")
     t0 = time.time()
-    res = hierarchical_eigensolve(K, M, device=device, **UPSCALE_CFG)
+    res = hierarchical_eigensolve(
+        K, M, device=device,
+        **dict(UPSCALE_CFG, epochs_per_level=UPSCALE_EPOCHS_CUT))
     torch.cuda.synchronize()
     wall = time.time() - t0
     exact = laplacian_1d_eigenvalues(n, k)
@@ -1922,12 +1980,15 @@ def upscaler_phase(device):
     check(bool(np.isfinite(lam).all() and np.isfinite(res.eigenvectors).all()),
           "non-finite upscaler results")
     print(f"[upscaler] levels {res.level_sizes}, {k} pairs x "
-          f"{UPSCALE_CFG['epochs_per_level']} epochs a level in {wall:.3f} "
-          f"s, per-chunk median {chunk_rate(res.chunk_times):.2f} steps/s; "
-          f"eigenvalues {np.array2string(lam, precision=6)}, exact "
+          f"{UPSCALE_EPOCHS_CUT} epochs a level (cut from "
+          f"{UPSCALE_CFG['epochs_per_level']}) in {wall:.3f} "
+          f"s, per-chunk median {chunk_rate(res.chunk_times):.2f} steps/s"
+          f"{SHARED_CARD}; eigenvalues {np.array2string(lam, precision=6)},"
+          f" exact "
           f"{np.array2string(exact, precision=6)}: max abs err "
           f"{np.abs(lam - exact).max():.3e}, max rel err {rel:.6g} (the JAX "
-          f"package {UPSCALE_JAX_ERR:.6g}; 1.5 x that, "
+          f"package at {UPSCALE_CFG['epochs_per_level']} epochs a level "
+          f"{UPSCALE_JAX_ERR:.6g}; 1.5 x that, "
           f"{1.5 * UPSCALE_JAX_ERR:.6g}, "
           f"{'met' if rel <= 1.5 * UPSCALE_JAX_ERR else 'missed'}; neither "
           f"package resolves this spectrum, so no check reads it)",
@@ -2003,8 +2064,8 @@ def transfer_phase(rolling, mesh, h_cpu, device):
     lasts = [float(hist["loss"][-1]) for hist in res.histories]
     print(f"[transfer] levels {h.actual_hierarchy}, "
           f"{TRANSFER_CFG['epochs_per_level']} epochs a level in {wall:.3f} "
-          f"s, per-chunk median {chunk_rate(res.chunk_times):.2f} steps/s; "
-          f"loss first/last per level "
+          f"s, per-chunk median {chunk_rate(res.chunk_times):.2f} steps/s"
+          f"{SHARED_CARD}; loss first/last per level "
           f"{[(round(a, 6), round(b, 6)) for a, b in zip(firsts, lasts)]}; "
           f"K1 launches {launches}; finest level max rel err of modes "
           f"1..{N_MODES - 1} vs eigsh {err:.3e} (the JAX package "
@@ -2255,22 +2316,14 @@ def run_cli(rolling, bsr, banded, label, argv, device):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    rolling.rolling_kernel_launches = 0
-    for key in bsr.bsr_kernel_launches:
-        bsr.bsr_kernel_launches[key] = 0
-    for key in banded.banded_kernel_launches:
-        banded.banded_kernel_launches[key] = 0
+    kernel_counts(rolling, bsr, banded, reset=True)
     print(f"[cli {label}] eigenpinns_torch.main.cli {argv + ['--platform', 'cuda']}",
           flush=True)
     t0 = time.time()
     cli([*argv, "--platform", "cuda"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = {"K1": rolling.rolling_kernel_launches,
-              "K2": bsr.bsr_kernel_launches["grouped"],
-              "K3": bsr.bsr_kernel_launches["burst"],
-              "K4": banded.banded_kernel_launches["spmm"],
-              "K5": banded.banded_kernel_launches["spmm_gram"]}
+    counts = kernel_counts(rolling, bsr, banded)
     peak = torch.cuda.max_memory_allocated(device) / 2**20
     print(f"[cli {label}] cli() wall {wall:.3f} s (mesh load, hierarchy "
           f"build, training, polish, VTU export, diagnostics), kernel "
@@ -2373,6 +2426,583 @@ def cli_phase(rolling, bsr, banded, device, phases):
               f"{bar_b:.3e}")
         phases.done("CLI run B")
     return counts_a["K1"], rows_a, counts_b["K2"], counts_b["K3"], row_b
+
+
+# ---- PDE apps and device geometry (step 15) ------------------------------
+
+# The PDE apps at the widths of the JAX package's examples and slow tests.
+# The sphere is the JAX tests' make_sphere_mesh(3) (icosphere(3), 642
+# vertices); the coil example's coil_1.2_MM.obj (1546 vertices) is not in
+# the repository, so E1 runs on the bunny stand-in perturbed_icosphere(4)
+# (2562 vertices), from vertex 0, as the example does on the coil.
+PDE_SPHERE_SUB = 3
+GEODESIC_BARS = {"median_rel": 0.1, "d_src": 0.05, "corr": 0.99}
+# E1: examples/eikonal_coil.py (test_eikonal_pinn_on_reference_coil).
+E1_EIGS = 20
+E1_JOINT = dict(n_modes=20, hidden=(64, 64, 64), mode="whiten", w_trace=1.0,
+                epochs=20000, seed=0)
+E1_EIK = dict(n_data=50, hidden=(100,), epochs=8000, element_batch=512,
+              seed=0)
+E1_BARS = {"exact": 0.98, "learned": 0.85, "eig_rel": 0.1}
+# On the stand-in the whitened training keeps only the modes below
+# w_orth / w_trace = 1 (modes 0-3; mode 4 is at 1.88): each of the other
+# 16 columns costs less collapsed (0.05 in the orthogonality term) than
+# as a mode (lambda / 20 in the trace), in both packages and for every
+# seed. So the coil test's eigenvalue bar holds modes 1..3, and the
+# collapse itself is held to the JAX package's figure at 1..4 (rel
+# 3.658) within E1_COLLAPSE_TOL: the port read 3.687-3.706 over seeds
+# 0-2 and the card, 1.3% apart from JAX at most.
+E1_COLLAPSE_TOL = 0.05
+# E2: test_eikonal_pinn_learned_encodings (penalty-mode training).
+E2_EIGS = 10
+E2_JOINT = dict(n_modes=10, hidden=(64, 64, 64), epochs=6000, w_res=1.0,
+                w_orth=10.0, seed=0)
+E2_EIK = dict(n_data=50, hidden=(100,), epochs=4000, element_batch=256,
+              seed=0)
+E2_BARS = {"exact": 0.995, "learned": 0.995, "learned_rms": 0.15,
+           "rms_gap": 0.06}
+# E3: test_eikonal_ntk_weights.
+E3_EIGS = 20
+E3_EIK = dict(n_data=50, hidden=(64,), epochs=1200, element_batch=256,
+              ntk_weights=True, ntk_every=400, ntk_batch=64, seed=0)
+E3_BAR = 0.98
+# S1: examples/schrodinger_well.py at its full settings (the driver's
+# defaults: hidden (64, 64), batch 256, quad 512, lr 2e-3); S2:
+# test_solve_well_2d. The bars are the JAX slow tests'.
+S1_WELL = dict(n_modes=2, epochs_per_mode=6000, lambda_init=3.0,
+               lambda_growth=2.5, seed=1)
+S1_OSC = dict(n_modes=1, epochs_per_mode=3000, lambda_init=0.4, seed=0)
+S2_BOX = dict(n_modes=1, hidden=(48, 48), epochs_per_mode=8000,
+              batch_size=256, lr=3e-3, lambda_init=8.0, seed=0,
+              quad_points=8192)
+S1_BARS = {"well": (0.01, 0.05), "boundary": 1e-6, "osc": 0.02}
+S2_BAR = 0.01
+# The JAX package's figures at these settings on the CPU
+# (pde_jax_reference.py; E2's exact and learned figures are also in
+# test_eikonal_pinn_learned_encodings' docstring).
+PDE_JAX = {
+    "E1_exact_corr": 0.9980302847412535, "E1_exact_rms": 0.12675179541110992,
+    "E1_learned_corr": 0.988505959201116,
+    "E1_learned_rms": 0.22588352859020233, "E1_eig_rel": 3.657769877818925,
+    "E1_eig_rel_1_3": 4.267519069027515e-05,
+    "E2_exact_corr": 0.9997861193291455, "E2_exact_rms": 0.09071190655231476,
+    "E2_learned_corr": 0.9998341592455383,
+    "E2_learned_rms": 0.09312787652015686, "E3_corr": 0.9999074717544504,
+    "S1_well_rel0": 0.0019661744176821963,
+    "S1_well_rel1": 0.06035154402378348,
+    "S1_osc_err": 0.00023865699768066406, "S2_rel": 0.0009315176584713009}
+# Card against CPU: epochs of each driver from the same parameters and
+# draws, every history key held to PARITY_TOL.
+PARITY_EPOCHS, PARITY_NTK_EVERY, PARITY_TOL = 100, 25, 1e-4
+# Device geometry at sizes its users would call real: kNN at the native
+# Laplacian's neighbor count on a 60k cloud (the JAX docstring's range is
+# <= 100k points); FPS on the 1M cloud; projection of noisy queries.
+KNN_N, KNN_K = 60_000, 30
+FPS_SAMPLES = 1024
+PROJ_QUERIES, PROJ_NOISE = 4096, 0.02
+
+
+def box_window(x):
+    """test_solve_well_2d's window on (0, 1)^2, zero on the boundary (for
+    arrays of either package)."""
+    return x[:, 0] * (1 - x[:, 0]) * x[:, 1] * (1 - x[:, 1])
+
+
+def kernel_counts(rolling, bsr, banded, reset: bool = False) -> dict:
+    """The launch counts of K1-K5 (set to 0 first with `reset`)."""
+    if reset:
+        rolling.rolling_kernel_launches = 0
+        for key in bsr.bsr_kernel_launches:
+            bsr.bsr_kernel_launches[key] = 0
+        for key in banded.banded_kernel_launches:
+            banded.banded_kernel_launches[key] = 0
+    return {"K1": rolling.rolling_kernel_launches,
+            "K2": bsr.bsr_kernel_launches["grouped"],
+            "K3": bsr.bsr_kernel_launches["burst"],
+            "K4": banded.banded_kernel_launches["spmm"],
+            "K5": banded.banded_kernel_launches["spmm_gram"]}
+
+
+def jax_figure(key: str) -> str:
+    return f"{PDE_JAX[key]:.5g}"
+
+
+def jax_bar(bar: float, key: str) -> float:
+    """A Schrodinger bar, or 1.5 x the JAX package's figure where that
+    misses it."""
+    return bar if PDE_JAX[key] < bar else 1.5 * PDE_JAX[key]
+
+
+def geodesic_inputs(mesh, src: int, n_eigs: int):
+    """(heat geodesics from `src`, the exact eigenvalues, encodings and
+    the FEM K and M) on the host."""
+    from eigenpinns_torch.geometry import heat_geodesics
+    from eigenpinns_torch.solvers import solve_eigenvalue_mesh
+
+    y = heat_geodesics(mesh, [src])
+    lam, vecs, K, M = solve_eigenvalue_mesh(mesh, n_eigs)
+    return y, lam, vecs.astype(np.float32), K, M
+
+
+def pde_run(log: list, label: str, fn, *args, **kw):
+    """fn(*args, **kw) on the card; logs its wall, per-chunk median rate
+    and peak device memory, returns its result."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = fn(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    times = res.chunk_times
+    rate = chunk_rate(times if isinstance(times[0], list) else [times])
+    log.append(f"[pde] {label}: {wall:.2f} s, per-chunk median {rate:.2f} "
+               f"steps/s{SHARED_CARD}, peak device memory {peak:.1f} MiB")
+    return res
+
+
+def eikonal_pair(log: list, checks: list, label: str, mesh, y,
+                 bases: dict, n_eigs: int, cfg: dict, device) -> dict:
+    """solve_eikonal on each basis's encodings; {name: (corr, rms)}."""
+    from eigenpinns_torch.operators import eigen_positional_encoding
+    from eigenpinns_torch.solvers import solve_eikonal
+
+    out = {}
+    for name, basis in bases.items():
+        res = pde_run(log, f"{label} eikonal, {name} encodings",
+                      solve_eikonal, mesh,
+                      eigen_positional_encoding(basis, n_eigs), y,
+                      device=device, **cfg)
+        corr = float(np.corrcoef(res.u, y)[0, 1])
+        out[name] = (corr, res.residual_rms)
+        checks.append((bool(np.isfinite(res.u).all())
+                       and res.u.shape == y.shape,
+                       f"{label} {name}: non-finite or misshapen field"))
+        log.append(f"[pde] {label} {name}: corr {corr:.5f} (JAX "
+                   f"{jax_figure(f'{label}_{name}_corr')}), residual rms "
+                   f"{res.residual_rms:.4f} (JAX "
+                   f"{jax_figure(f'{label}_{name}_rms')}), data mse "
+                   f"{res.data_mse:.3e}")
+    return out
+
+
+def geodesics_check(sphere, coil) -> None:
+    """Heat geodesics on the sphere against arccos, with
+    test_heat_geodesics_sphere's bars; on the stand-in from vertex 0."""
+    from eigenpinns_torch.geometry import heat_geodesics
+
+    t0 = time.time()
+    src = int(np.argmax(sphere.verts[:, 2]))
+    d = heat_geodesics(sphere, [src])
+    exact = np.arccos(np.clip(sphere.verts @ sphere.verts[src], -1, 1))
+    mask = exact > 0.1
+    med = float(np.median(np.abs(d[mask] - exact[mask]) / exact[mask]))
+    corr = float(np.corrcoef(d, exact)[0, 1])
+    d_coil = heat_geodesics(coil, [0])
+    print(f"[pde] heat geodesics on icosphere({PDE_SPHERE_SUB}) "
+          f"({sphere.n_verts} vertices) from {src}: median rel err vs "
+          f"arccos {med:.4f} (bar {GEODESIC_BARS['median_rel']}), d[src] "
+          f"{d[src]:.2e} (bar {GEODESIC_BARS['d_src']}), corr {corr:.5f} "
+          f"(bar {GEODESIC_BARS['corr']}); on the stand-in "
+          f"({coil.n_verts} vertices) from 0: range [{d_coil.min():.3g}, "
+          f"{d_coil.max():.3g}]; {time.time() - t0:.2f} s", flush=True)
+    check(med < GEODESIC_BARS["median_rel"], f"heat geodesics median rel "
+          f"err {med:.4f}")
+    check(d[src] < GEODESIC_BARS["d_src"], f"heat geodesics d[src] {d[src]}")
+    check(corr > GEODESIC_BARS["corr"], f"heat geodesics corr {corr:.5f}")
+    check(bool(np.isfinite(d_coil).all()) and d_coil[0] < 0.05,
+          "heat geodesics on the stand-in")
+
+
+def e1_case(device, log: list, checks: list) -> None:
+    """E1: the coil example's widths on the stand-in."""
+    from eigenpinns_torch.solvers import train_joint
+    from eigenpinns_torch.sparse import as_operator
+    from eigenpinns_torch.utils.fixtures import perturbed_icosphere
+
+    coil = perturbed_icosphere(4)
+    y, lam, vecs, K, M = geodesic_inputs(coil, 0, E1_EIGS)
+    log.append("[pde] E1: the stand-in perturbed_icosphere(4) for "
+               "coil_1.2_MM.obj (not in the repository), from vertex 0")
+    r = pde_run(log, f"E1 train_joint (whiten, {E1_JOINT['epochs']} "
+                "epochs)", train_joint, as_operator(K, device=device),
+                as_operator(M, device=device), coil.verts, **E1_JOINT)
+    rels = np.abs(r.eigenvalues[1:5] - lam[1:5]) / np.abs(lam[1:5])
+    rel3, rel = float(rels[:3].max()), float(rels.max())
+    off = abs(rel - PDE_JAX["E1_eig_rel"]) / PDE_JAX["E1_eig_rel"]
+    learned, exact = (np.array2string(v[:6], precision=5,
+                                      max_line_width=200)
+                      for v in (r.eigenvalues, lam))
+    log.append(f"[pde] E1 learned eigenvalues {learned}, exact {exact}; "
+               f"rel err at 1..3 {rel3:.3e} (bar {E1_BARS['eig_rel']}, JAX "
+               f"{jax_figure('E1_eig_rel_1_3')}), at 1..4 {rel:.4f} (the "
+               f"collapse past mode 3: JAX {jax_figure('E1_eig_rel')}, "
+               f"{off:.3f} apart, bar {E1_COLLAPSE_TOL})")
+    e1 = eikonal_pair(log, checks, "E1", coil, y,
+                      {"exact": vecs, "learned": r.eigenvectors}, E1_EIGS,
+                      E1_EIK, device)
+    checks += [(e1["exact"][0] > E1_BARS["exact"],
+                f"E1 exact corr {e1['exact']}"),
+               (e1["learned"][0] > E1_BARS["learned"],
+                f"E1 learned corr {e1['learned']}"),
+               (rel3 < E1_BARS["eig_rel"],
+                f"E1 learned eigenvalues 1..3 rel err {rel3:.3e}"),
+               (off < E1_COLLAPSE_TOL, f"E1 learned eigenvalues 1..4 rel "
+                f"err {rel:.4f}, {off:.3f} apart from JAX's")]
+
+
+def e2_case(device, log: list, checks: list) -> None:
+    """E2: the learned-encodings slow test on the sphere."""
+    from eigenpinns_torch.solvers import train_joint
+    from eigenpinns_torch.sparse import as_operator
+    from eigenpinns_torch.utils.fixtures import icosphere
+
+    sphere = icosphere(PDE_SPHERE_SUB)
+    src = int(np.argmax(sphere.verts[:, 2]))
+    y, _, vecs, K, M = geodesic_inputs(sphere, src, E2_EIGS)
+    r = pde_run(log, "E2 train_joint (penalty)", train_joint,
+                as_operator(K, device=device), as_operator(M, device=device),
+                sphere.verts, **E2_JOINT)
+    e2 = eikonal_pair(log, checks, "E2", sphere, y,
+                      {"exact": vecs, "learned": r.eigenvectors}, E2_EIGS,
+                      E2_EIK, device)
+    (corr_e, rms_e), (corr_l, rms_l) = e2["exact"], e2["learned"]
+    checks += [(corr_e > E2_BARS["exact"], f"E2 exact corr {corr_e:.5f}"),
+               (corr_l > E2_BARS["learned"], f"E2 learned corr {corr_l:.5f}"),
+               (rms_l < E2_BARS["learned_rms"], f"E2 learned rms {rms_l:.4f}"),
+               (rms_l < rms_e + E2_BARS["rms_gap"],
+                f"E2 learned rms {rms_l:.4f} vs exact {rms_e:.4f}")]
+
+
+def e3_case(device, log: list, checks: list) -> None:
+    """E3: NTK weighting on the sphere."""
+    from eigenpinns_torch.operators import eigen_positional_encoding
+    from eigenpinns_torch.solvers import solve_eikonal
+    from eigenpinns_torch.utils.fixtures import icosphere
+
+    sphere = icosphere(PDE_SPHERE_SUB)
+    src = int(np.argmax(sphere.verts[:, 2]))
+    y, _, vecs, _, _ = geodesic_inputs(sphere, src, E3_EIGS)
+    res = pde_run(log, "E3 eikonal with NTK weights", solve_eikonal, sphere,
+                  eigen_positional_encoding(vecs, E3_EIGS), y, device=device,
+                  **E3_EIK)
+    w_u, w_r = res.history["w_u"], res.history["w_r"]
+    corr = float(np.corrcoef(res.u, y)[0, 1])
+    every = E3_EIK["ntk_every"]
+    norm = abs(1 / w_u[-1] + 1 / w_r[-1] - 1)
+    log.append(f"[pde] E3: corr {corr:.5f} (bar {E3_BAR}, JAX "
+               f"{jax_figure('E3_corr')}); w_u {w_u[1]:.5g} -> "
+               f"{w_u[-1]:.5g}, w_r {w_r[1]:.5g} -> {w_r[-1]:.5g}, "
+               f"|1/w_u + 1/w_r - 1| {norm:.2e}")
+    checks += [
+        (bool(np.isfinite(w_u).all() and np.isfinite(w_r).all()),
+         "E3: non-finite NTK weights"),
+        (norm < 1e-4, "E3: the weights do not sum-normalize"),
+        (bool(np.all(w_u[1:every] == w_u[1])
+              and np.all(w_r[1:every] == w_r[1])),
+         f"E3: the weights moved between updates 1..{every - 1}"),
+        (bool(w_u[every] != w_u[every - 1] or w_r[every] != w_r[every - 1]),
+         f"E3: the weights did not change at epoch {every}"),
+        (corr > E3_BAR, f"E3 corr {corr:.5f}")]
+
+
+def s1_well_case(device, log: list, checks: list) -> None:
+    """S1: the infinite well at the example's full settings."""
+    from eigenpinns_torch.models import dirichlet_window
+    from eigenpinns_torch.operators import infinite_well, well_eigenvalues
+    from eigenpinns_torch.solvers import solve_schrodinger
+
+    res = pde_run(log, f"S1 well ({S1_WELL['n_modes']} modes x "
+                  f"{S1_WELL['epochs_per_mode']} epochs)", solve_schrodinger,
+                  infinite_well(), dirichlet_window(0.0, 1.0), (0.0, 1.0),
+                  device=device, **S1_WELL)
+    exact = well_eigenvalues(2).numpy().astype(np.float64)
+    rel = np.abs(res.eigenvalues - exact) / exact
+    u_b = float(np.abs(res.eval_mode(0, np.asarray([[0.0], [1.0]]))).max())
+    bars = [jax_bar(b, f"S1_well_rel{i}")
+            for i, b in enumerate(S1_BARS["well"])]
+    log.append(f"[pde] S1 well: eigenvalues {res.eigenvalues} (exact "
+               f"{exact}), rel err {rel} (bars {bars}: the tests' "
+               f"{S1_BARS['well']}, or 1.5 x JAX's where JAX misses one; "
+               f"JAX {jax_figure('S1_well_rel0')}, "
+               f"{jax_figure('S1_well_rel1')}), |u(0)|, |u(1)| <= "
+               f"{u_b:.1e}")
+    checks += [(rel[0] < bars[0] and rel[1] < bars[1],
+                f"S1 well rel err {rel}"),
+               (u_b <= S1_BARS["boundary"], f"S1 well boundary {u_b:.2e}")]
+
+
+def s1_osc_case(device, log: list, checks: list) -> None:
+    """S1: the harmonic oscillator's ground state."""
+    from eigenpinns_torch.models import gaussian_window
+    from eigenpinns_torch.operators import harmonic_oscillator
+    from eigenpinns_torch.solvers import solve_schrodinger
+
+    res = pde_run(log, f"S1 oscillator ({S1_OSC['epochs_per_mode']} "
+                  "epochs)", solve_schrodinger, harmonic_oscillator(),
+                  gaussian_window(1.0), (-4.0, 4.0), device=device, **S1_OSC)
+    err = abs(float(res.eigenvalues[0]) - 0.5)
+    bar = jax_bar(S1_BARS["osc"], "S1_osc_err")
+    log.append(f"[pde] S1 oscillator: E0 {res.eigenvalues[0]:.5f}, |E0 - "
+               f"0.5| {err:.4f} (bar {bar}, JAX {jax_figure('S1_osc_err')})")
+    checks.append((err < bar, f"S1 oscillator |E0 - 0.5| {err:.4f}"))
+
+
+def s2_case(device, log: list, checks: list) -> None:
+    """S2: the 2D well, the only run of `laplacian_nd`."""
+    from eigenpinns_torch.operators import infinite_well
+    from eigenpinns_torch.solvers import solve_schrodinger
+
+    res = pde_run(log, f"S2 2D well ({S2_BOX['epochs_per_mode']} epochs, "
+                  f"quad {S2_BOX['quad_points']})", solve_schrodinger,
+                  infinite_well(), box_window, [(0.0, 1.0), (0.0, 1.0)],
+                  device=device, **S2_BOX)
+    rel = abs(float(res.eigenvalues[0]) - np.pi**2) / np.pi**2
+    bar = jax_bar(S2_BAR, "S2_rel")
+    log.append(f"[pde] S2: E11 {res.eigenvalues[0]:.5f} (exact pi^2), rel "
+               f"err {rel:.4f} (bar {bar}, JAX {jax_figure('S2_rel')})")
+    checks.append((rel < bar, f"S2 rel err {rel:.4f}"))
+
+
+PDE_CASES = {"E1": e1_case, "E2": e2_case, "E3": e3_case,
+             "S1 well": s1_well_case, "S1 oscillator": s1_osc_case,
+             "S2": s2_case}
+
+
+def pde_case(name: str, device: str):
+    """One run of step 15 in a worker process of its own, on the card:
+    returns (the lines it logged, its (ok, what) checks, its K1-K5
+    launch counts)."""
+    from eigenpinns_torch.sparse import banded, bsr, rolling
+
+    log, checks = [], []
+    kernel_counts(rolling, bsr, banded, reset=True)
+    t0 = time.time()
+    PDE_CASES[name](torch.device(device), log, checks)
+    log.append(f"[pde] {name}: {time.time() - t0:.2f} s in its worker")
+    return log, checks, kernel_counts(rolling, bsr, banded)
+
+
+def start_pde_runs(device, jobs: list) -> dict:
+    """Step 15's trainings, each in a one-thread worker process of its own
+    on the card, all started at once: they are launch-bound (the card
+    idles > 90% of a step), so they run beside the solver family's
+    launch-bound phases (step 6b). Appends the workers to `jobs`."""
+    workers = {name: HostJob(f"PDE {name} run (on the card)", pde_case, name,
+                             str(device)) for name in PDE_CASES}
+    jobs.extend(workers.values())
+    return workers
+
+
+def finish_pde_runs(workers: dict) -> dict:
+    """Waits for the workers, prints each run's lines, holds its checks;
+    returns the K1-K5 launches summed over the runs."""
+    total = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    t0 = time.time()
+    for name, job in workers.items():
+        log, checks, counts = job.result()
+        print("\n".join(log), flush=True)
+        for ok, what in checks:
+            check(ok, what)
+        for key, n in counts.items():
+            total[key] += n
+        job.close()
+    print(f"[pde] waited {time.time() - t0:.2f} s for the PDE runs; their "
+          f"K1-K5 launches {total}", flush=True)
+    return total
+
+
+def parity_phase(sphere, device) -> None:
+    """Card against CPU: PARITY_EPOCHS of solve_eikonal (E3's widths, NTK
+    every PARITY_NTK_EVERY) and of solve_schrodinger (the well's first
+    mode at S1's widths) from the same parameters and draws; the card's
+    runs under torch.profiler (the eikonal and Schrodinger spans of step
+    15's profile)."""
+    from torch.profiler import record_function
+
+    from eigenpinns_torch.models import MLP, dirichlet_window
+    from eigenpinns_torch.operators import infinite_well
+    from eigenpinns_torch.solvers import (
+        SchrodingerMode,
+        solve_eikonal,
+        solve_schrodinger,
+    )
+
+    src = int(np.argmax(sphere.verts[:, 2]))
+    y, _, vecs, _, _ = geodesic_inputs(sphere, src, E3_EIGS)
+    rng = np.random.default_rng(7)
+    n_faces, n = sphere.n_faces, PARITY_EPOCHS
+    e_idx = rng.integers(0, n_faces, (n, E3_EIK["element_batch"]))
+    ntk_idx = rng.integers(0, n_faces, (n, E3_EIK["ntk_batch"]))
+    unit = rng.uniform(size=(n, 256, 1)).astype(np.float32)
+    mlp = MLP(E3_EIGS, E3_EIK["hidden"], 1, activation="tanh")
+    mlp.reset_parameters(torch.Generator().manual_seed(0))
+    mode = SchrodingerMode(1, (64, 64), dirichlet_window(0.0, 1.0))
+    mode.reset_parameters(torch.Generator().manual_seed(1))
+    eik = dict(E3_EIK, epochs=n, scan_chunk=n // 2,
+               ntk_every=PARITY_NTK_EVERY, init_params=mlp.state_dict())
+    schr = dict(n_modes=1, epochs_per_mode=n, scan_chunk=n // 2,
+                lambda_init=3.0, init_params=[mode.state_dict()])
+
+    def run(name, dev):
+        if name == "eik":
+            return solve_eikonal(sphere, vecs, y, device=dev,
+                                 draws=lambda e: (e_idx[e], ntk_idx[e]),
+                                 **eik).history
+        return solve_schrodinger(infinite_well(), dirichlet_window(0.0, 1.0),
+                                 (0.0, 1.0), device=dev,
+                                 draws=lambda m, e: unit[e],
+                                 **schr).histories[0]
+
+    runs = {}
+    with traced() as prof:
+        for name in ("eik", "schr"):
+            with record_function(f"pde.{name}"):
+                runs[name, device] = run(name, device)
+                torch.cuda.synchronize()
+    device_report("eikonal", prof, "pde.eik", steps=n)
+    device_report("schrodinger", prof, "pde.schr", steps=n)
+    for name in ("eik", "schr"):
+        runs[name, "cpu"] = run(name, "cpu")
+    worst = {}
+    for name in ("eik", "schr"):
+        card, cpu = runs[name, device], runs[name, "cpu"]
+        for key in cpu:
+            ref = np.asarray(cpu[key], np.float64)
+            worst[f"{name}.{key}"] = float(
+                np.abs(np.asarray(card[key], np.float64) - ref).max()
+                / max(np.abs(ref).max(), 1e-30))
+    top = max(worst, key=worst.get)
+    print(f"[pde] card vs CPU, {n} epochs from the same parameters and "
+          f"draws: largest rel difference {worst[top]:.3e} ({top}); "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()), flush=True)
+    check(worst[top] <= PARITY_TOL, f"card vs CPU: {top} differs by "
+          f"{worst[top]:.3e} > {PARITY_TOL}")
+
+
+def geometry_phase(X_xl, coil, device) -> None:
+    """kNN, FPS and projection on the card against the host."""
+    from scipy.spatial import cKDTree
+
+    from eigenpinns_torch.geometry import native, project_points
+    from eigenpinns_torch.geometry import project_points_device
+    from eigenpinns_torch.sampling import knn_graph, knn_graph_device
+    from eigenpinns_torch.sampling import fps_device
+    from eigenpinns_torch.utils.fixtures import make_cloud
+
+    # kNN against the host's exact (float64) neighbors. The device's
+    # squared distances |x_i|^2 + |x_j|^2 - 2 x_i.x_j (the JAX function's
+    # fp32 formula) are off by up to ~4 eps (|x_i|^2 + |x_j|^2), 1e-6 on
+    # this cloud, 4e-4 relative at the 30th neighbor: a row must list the
+    # host's neighbors wherever its k-th and (k+1)-th squared distances
+    # are further apart than `tol` = 8 eps (|x_i|^2 + max |x|^2), and on
+    # every row no listed neighbor may be farther than the host's k-th
+    # + tol.
+    X = make_cloud(KNN_N, seed=3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    E = knn_graph_device(X, KNN_K, device=device)
+    torch.cuda.synchronize()
+    t_dev = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.time()
+    host = knn_graph(X, KNN_K)
+    t_host = time.time() - t0
+    check(tuple(E.shape) == (2, KNN_N * KNN_K), f"kNN shape {E.shape}")
+    E = E.cpu().numpy()
+    dev_rows = np.sort(E[1].reshape(KNN_N, KNN_K), axis=1)
+    host_rows = np.sort(host[1].reshape(KNN_N, KNN_K), axis=1)
+    d2 = cKDTree(X).query(X, k=KNN_K + 2)[0] ** 2
+    sq = np.sum(X * X, axis=1)
+    tol = 8 * np.finfo(np.float32).eps * (sq + sq.max())
+    apart = d2[:, KNN_K + 1] - d2[:, KNN_K] > tol
+    differ = (dev_rows != host_rows).any(axis=1)
+    far = np.sum((X[E[0]] - X[E[1]]) ** 2, axis=1).reshape(KNN_N, KNN_K)
+    excess = float((far.max(axis=1) - d2[:, KNN_K] - tol).max())
+    print(f"[geometry] knn_graph_device({KNN_N} points, k = {KNN_K}): "
+          f"{t_dev:.2f} s, peak device memory {peak:.1f} MiB (the (N, N) "
+          f"fp32 distances alone {KNN_N**2 * 4 / 2**20:.1f} MiB); host "
+          f"knn_graph (native) {t_host:.2f} s; rows that differ "
+          f"{int(differ.sum())}, of the {int(apart.sum())} rows apart at k "
+          f"by more than the fp32 bound (median "
+          f"{np.median(tol):.2e}): {int((differ & apart).sum())}; farthest "
+          f"listed neighbor beyond the host's k-th + the bound by "
+          f"{max(excess, 0.0):.2e}", flush=True)
+    check(not (differ & apart).any(), "knn_graph_device lists other "
+          f"neighbors than the host on {int((differ & apart).sum())} rows")
+    check(excess <= 0, f"knn_graph_device lists a neighbor {excess:.2e} "
+          "beyond the host's k-th + the fp32 bound")
+    del E
+
+    # FPS on the 1M cloud against the native host loop (float64).
+    t0 = time.time()
+    sel = fps_device(X_xl, FPS_SAMPLES, start=0, device=device).cpu().numpy()
+    t_dev = time.time() - t0
+    t0 = time.time()
+    ref = native.fps_native(X_xl, FPS_SAMPLES, start=0)
+    t_host = time.time() - t0
+    part = np.flatnonzero(sel != ref)
+    msg = "equal indices"
+    if part.size:
+        j = int(part[0])
+        d = np.full(X_xl.shape[0], np.inf)
+        for i in ref[:j]:
+            np.minimum(d, np.linalg.norm(X_xl - X_xl[i], axis=1), out=d)
+        gap = (d.max() - d[sel[j]]) / d.max()
+        msg = (f"parted at sample {j} (a near-tie: the card's pick is "
+               f"{gap:.2e} relative below the host's maximum)")
+        check(gap <= 1e-6, f"fps_device parted from the host at sample {j}"
+              f" by {gap:.2e}")
+    print(f"[geometry] fps_device({X_xl.shape[0]} points, {FPS_SAMPLES} "
+          f"samples): {t_dev:.2f} s; host fps_native {t_host:.2f} s; "
+          f"{msg}", flush=True)
+
+    # Projection of noisy queries around the stand-in onto all faces.
+    rng = np.random.default_rng(5)
+    q = (coil.verts[rng.integers(0, coil.n_verts, PROJ_QUERIES)]
+         + PROJ_NOISE * rng.normal(size=(PROJ_QUERIES, 3)))
+    t0 = time.time()
+    proj, idx = project_points_device(coil.verts, coil.faces, q,
+                                      device=device)
+    proj = proj.cpu().numpy()
+    t_dev = time.time() - t0
+    t0 = time.time()
+    host_p = project_points(coil, q)[0]
+    t_host = time.time() - t0
+    d_dev = ((proj - q) ** 2).sum(1)
+    d_host = ((host_p - q) ** 2).sum(1)
+    print(f"[geometry] project_points_device({PROJ_QUERIES} queries, "
+          f"{coil.n_faces} faces): {t_dev:.3f} s; host project_points "
+          f"{t_host:.2f} s; max (card - host) squared distance "
+          f"{(d_dev - d_host).max():.2e}, queries where the card is "
+          f"closer by > 1e-6 {int((d_dev < d_host - 1e-6).sum())}",
+          flush=True)
+    check(bool(np.all(d_dev <= d_host + 1e-6)), "project_points_device is "
+          "farther than the host's projection")
+
+
+def pde_slice(rolling, bsr, banded, X_xl, device, phases,
+              run_counts: dict) -> dict:
+    """Step 15 of the module docstring after its trainings (`run_counts`:
+    their K1-K5 launches); returns the K1-K5 launch counts of the whole
+    phase (each must be 0)."""
+    from eigenpinns_torch.utils.fixtures import icosphere, perturbed_icosphere
+
+    kernel_counts(rolling, bsr, banded, reset=True)
+    sphere, coil = icosphere(PDE_SPHERE_SUB), perturbed_icosphere(4)
+    geodesics_check(sphere, coil)
+    geometry_phase(X_xl, coil, device)
+    phases.done("PDE: geodesics, device geometry")
+    parity_phase(sphere, device)
+    phases.done("PDE: card against CPU, profiled")
+    counts = {key: n + run_counts[key]
+              for key, n in kernel_counts(rolling, bsr, banded).items()}
+    print(f"[pde] hand-kernel launches in step 15 (its runs' workers and "
+          f"this process): {counts} (the PDE path runs none of K1-K5: an "
+          "MLP, gathers and einsums)", flush=True)
+    check(not any(counts.values()), f"step 15 launched {counts}")
+    return counts
 
 
 def main() -> int:
@@ -2613,6 +3243,9 @@ def smoke(oracles: list) -> int:
     # drivers, the mesh family, the matrix-only upscaler, per-level
     # transfer (K1) and the Dirichlet solve on the strip-BSR K (K2 at
     # k = 1), whose host reference has run in a worker since step 4.
+    # Step 15's trainings run beside the first four in workers of their
+    # own; the Dirichlet phase, which times K2 at k = 1, waits for them.
+    pde_workers = start_pde_runs(device, oracles)
     deflation_phase(mesh, device)
     phases.done("deflation phase")
     joint_family_phase(device, oracles)
@@ -2621,6 +3254,9 @@ def smoke(oracles: list) -> int:
     phases.done("upscaler phase")
     k1_transfer = transfer_phase(rolling, mesh, h_cpu, device)
     phases.done("transfer phase")
+    pde_run_counts = finish_pde_runs(pde_workers)
+    phases.done("step 15's trainings (E1, E2, E3, S1, S2; started with "
+                "the deflation phase)")
     k2_dirichlet, row_k1 = dirichlet_phase(bsr, K, L[perm][:, perm], perm,
                                            X, dirichlet_ref, mesh, device)
     phases.done("Dirichlet phase")
@@ -2663,6 +3299,9 @@ def smoke(oracles: list) -> int:
     # 14. The CLI's two runs, after every host stage and oracle.
     k1_cli, rows_fem, k2_cli, k3_cli, row_cli = cli_phase(
         rolling, bsr, banded, device, phases)
+
+    # 15. The PDE apps and the device geometry (no hand kernel).
+    pde_slice(rolling, bsr, banded, X_xl, device, phases, pde_run_counts)
 
     print(json.dumps({"kernels": [
         {"name": "rolling_spmm", "route": "cuda",

@@ -17,8 +17,13 @@ transfer learning, Dirichlet solves) runs on the same operators. The
 pipeline's CLI (`python -m eigenpinns_torch.main --config
 parameters.yml`, `main.py`) chains the mesh, `build_hierarchy` with any
 sampler (decimated FEM levels included), `MultigridTrainer`, the VTU
-export and the diagnostics. Every entry point runs on the card unless
-given `device="cpu"` (the CLI: `--platform cpu`).
+export and the diagnostics. The PDE apps run on the learned or exact
+spectra: the Delta-PINN eikonal driver with NTK weighting
+(`solvers/eikonal_driver.py`), heat-method geodesics
+(`geometry/geodesics.py`) and the Schrodinger ansatz driver
+(`solvers/schrodinger_driver.py`), beside the device geometry (kNN, FPS,
+point projection). Every entry point runs on the card unless given
+`device="cpu"` (the CLI: `--platform cpu`).
 
 Their hand-written kernels are built with nvcc on first use:
 `csrc/bsr_spmm.cu` (the grouped and burst strip-BSR SpMMs that replace

@@ -10,6 +10,9 @@ leaves as numpy arrays:
   * {'params': {'lambda_raw': (1,), 'hidden_i': {...}, 'out': {...}}}
     for `LambdaEigenNet`;
   * {'params': {'MLP_0': {...}, 'lam': ()}} for `HierarchicalUpscaler`;
+  * {'params': {'lambda_raw': (1,), 'MLP_0': {...}}} for
+    `SchrodingerMode` (`solvers/schrodinger_driver.py`) and {'params':
+    {'MLP_0': {...}}} for `ParametricAnsatz`;
   * the tree of `jax.vmap(JointEigenNet.init)` for
     `StackedJointEigenNet`: the same names, every leaf with a leading
     axis of F members.
@@ -23,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from eigenpinns_torch.models.ansatz import ParametricAnsatz
 from eigenpinns_torch.models.correctors import AdaptiveCorrector
 from eigenpinns_torch.models.eigennet import (
     LambdaEigenNet,
@@ -66,9 +70,17 @@ def _load_stacked(net: StackedJointEigenNet, tree) -> None:
 @torch.no_grad()
 def from_flax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
     """Load `tree` into `module` in place; returns the module."""
+    # The driver module imports this package; import it at call time.
+    from eigenpinns_torch.solvers.schrodinger_driver import SchrodingerMode
+
     if "params" in tree:
         tree = tree["params"]
-    if isinstance(module, AdaptiveCorrector):
+    if isinstance(module, SchrodingerMode):
+        _copy(module.lambda_raw, tree["lambda_raw"])
+        _load_mlp(module.mlp, tree["MLP_0"])
+    elif isinstance(module, ParametricAnsatz):
+        _load_mlp(module.mlp, tree["MLP_0"])
+    elif isinstance(module, AdaptiveCorrector):
         _copy(module.mode_scales, tree["mode_scales"])
         _load_mlp(module.inner.mlp, tree["SimpleCorrector_0"]["MLP_0"])
     elif isinstance(module, LambdaEigenNet):

@@ -28,6 +28,13 @@ from torch import nn
 from eigenpinns_torch.models.mlp import ACTIVATIONS, MLP, lecun_normal_
 
 
+def abs_jax(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the derivative JAX gives `abs` at 0 (+1, where torch.abs
+    gives 0): a learnable eigenvalue |lambda_raw| that starts at
+    lambda_raw = 0 must still move (ROADMAP F17)."""
+    return torch.where(x >= 0, x, -x)
+
+
 class JointEigenNet(nn.Module):
     """MLP mapping coordinates (N, in_dim) to k eigenfunction values."""
 
@@ -118,10 +125,8 @@ class LambdaEigenNet(nn.Module):
                 layer.bias.zero_()
 
     def forward(self, x: torch.Tensor):
-        # |raw| with the derivative JAX gives abs at 0 (+1, where
-        # torch.abs gives 0): mode 0 of the deflation starts at raw = 0.
-        raw = self.lambda_raw
-        lam = torch.where(raw >= 0, raw, -raw)[0]
+        # Mode 0 of the deflation starts at lambda_raw = 0.
+        lam = abs_jax(self.lambda_raw)[0]
         lam_col = lam.expand(x.shape[0], 1)
         h = torch.cat([x, lam_col], dim=1)
         for layer in self.layers()[:-1]:

@@ -6,12 +6,13 @@ hierarchy level, each sorted, with the full cloud appended as the finest
 level. Host-side, run once per mesh in preprocessing. A copy of the host
 paths of `eigenpinns_tpu/sampling/samplers.py`: farthest-point sampling
 takes the compiled kernel of `geometry/native.py` when its library loads,
-else the numpy loop.
+else the numpy loop. `fps_device` ports the JAX package's on-device FPS.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from eigenpinns_torch.geometry import native as _native
 
@@ -50,6 +51,31 @@ def farthest_point_levels(points: np.ndarray, hierarchy: list[int],
     levels = [np.sort(order[:n].copy()) for n in hierarchy]
     levels.append(np.arange(points.shape[0]))
     return levels
+
+
+def fps_device(points, n_samples: int, start: int = 0,
+               device="cuda") -> torch.Tensor:
+    """On-device farthest-point sampling: the port of the JAX package's
+    `fps_jax` (`eigenpinns_tpu/sampling/samplers.py`), for clouds where
+    the host loop is too slow.
+
+    Float32 Euclidean distances; every iteration stays on the device (the
+    index of the last pick is a 0-dim tensor, never read on the host), and
+    `torch.argmax` takes the first maximum, as `jnp.argmax`. Returns the
+    (n_samples,) int64 indices in selection order, starting at `start`.
+    """
+    pts = torch.as_tensor(np.asarray(points), dtype=torch.float32,
+                          device=device)
+    sel = torch.zeros(n_samples, dtype=torch.int64, device=device)
+    sel[0] = start
+    dist = torch.full((pts.shape[0],), torch.inf, device=device)
+    last = sel[0]
+    for i in range(1, n_samples):
+        d = torch.linalg.vector_norm(pts - pts[last], dim=1)
+        dist = torch.minimum(dist, d)
+        last = torch.argmax(dist)
+        sel[i] = last
+    return sel
 
 
 def voxel_levels(points: np.ndarray, hierarchy: list[int]) -> list[np.ndarray]:

@@ -8,6 +8,11 @@ from eigenpinns_torch.solvers.deflation import (
     solve_deflation_adaptive,
 )
 from eigenpinns_torch.solvers.direct import DirectResult, train_joint
+from eigenpinns_torch.solvers.eikonal_driver import (
+    EikonalResult,
+    ntk_traces,
+    solve_eikonal,
+)
 from eigenpinns_torch.solvers.lobpcg import (
     lobpcg,
     lobpcg_blocked,
@@ -32,6 +37,11 @@ from eigenpinns_torch.solvers.rayleigh_ritz import (
     filtered_whiten,
     rayleigh_ritz,
     rayleigh_ritz_robust,
+)
+from eigenpinns_torch.solvers.schrodinger_driver import (
+    SchrodingerMode,
+    SchrodingerResult,
+    solve_schrodinger,
 )
 from eigenpinns_torch.solvers.smoothers import (
     cg_solve,
@@ -63,4 +73,6 @@ __all__ = [
     "BatchedResult", "train_joint_family", "UpscaleResult",
     "hierarchical_eigensolve", "TransferResult", "train_per_level",
     "solve_laplace_dirichlet", "solve_laplace_dirichlet_device",
+    "solve_schrodinger", "SchrodingerResult", "SchrodingerMode",
+    "solve_eikonal", "EikonalResult", "ntk_traces",
 ]

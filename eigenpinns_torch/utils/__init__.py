@@ -1,3 +1,8 @@
+from eigenpinns_torch.utils.debug import (
+    assert_finite,
+    debug_nans,
+    deterministic_mode,
+)
 from eigenpinns_torch.utils.fixtures import (
     align_ritz_vectors,
     generate_test_matrices,
@@ -15,4 +20,5 @@ from eigenpinns_torch.utils.profiling import PhaseTimer, annotate, trace
 __all__ = ["align_ritz_vectors", "icosphere", "perturbed_icosphere", "laplacian_1d",
            "laplacian_1d_eigenvalues", "tridiagonal", "random_spd",
            "generate_test_matrices", "verify_eigenpairs",
-           "subsample_hierarchy", "PhaseTimer", "annotate", "trace"]
+           "subsample_hierarchy", "PhaseTimer", "annotate", "trace",
+           "debug_nans", "deterministic_mode", "assert_finite"]
