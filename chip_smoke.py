@@ -252,10 +252,44 @@ present or the package is not beside it. On the card it:
      wall, per-chunk median steps/s and peak device memory beside the
      JAX package's figure.
 
+ 16. (before the JSON line of step 13) runs the sharded path
+     (`eigenpinns_torch.parallel`, SPMD, one process per rank): 16a
+     builds the 300k cloud's `build_sharded_operator` for 4 shards
+     (printing the kind it picks) and holds K4 on each shard's
+     rectangular (per x per + 2B) block, against its halo window of one
+     global U (k = 20, the ring's wrap included), and on each block's
+     transpose (win x per, from a U of per rows) against the plain
+     version (rel 1e-5), and the assembled product against the
+     single-device BandedELL product of the same ordered core (rel 1e-5),
+     timing shard 1's block and transpose beside torch.sparse.mm and the
+     bound; 16b, in this process, a world-size-1 NCCL group: on the 1M
+     cloud, `train_joint_sharded` at XL_CFG's widths (fp32 sharded
+     operators) with K4's launches counted from zero, the
+     800-iteration `lobpcg_sharded` polish with 8 guard columns (bar
+     1.71e-3, as the single-device 1M phase) and `spectral_basis(
+     n_devices=1)` at SPEC_CFG (bar 1e-3), each printed beside the
+     single-device phase's eigenvalues, and K4 timed on the 1M shard
+     block; 16c, 4 ranks that share the card over gloo (host-staged:
+     NCCL refuses two ranks on one device, which a 2-rank NCCL spawn on
+     the card shows first), started beside 16b: `train_joint_sharded`
+     on the 300k cloud at the XL widths, with the fp32 MLP of the JAX
+     test whose bars these are, held to a world-size-1 run of the same
+     configuration (loss history rel 1e-3, eigenvalues rel 1e-4, mode 0
+     against |lambda_1|) and its 800-iteration polish to the 300k oracle
+     (1e-3), then `MultigridTrainer.train(h, n_devices=4)` on
+     perturbed_icosphere(4) at the bench's widths (fuse_level_ops=False,
+     'highest' on both sides, its epochs cut) held to the single-device
+     trainer: eigenvalues rel 2e-2, and the loss history rel 1e-2 over
+     the epochs in which the single-device trainer run with fused sums
+     (reassociation alone) stays within 1e-3 of it: the bench-width
+     training is chaotic past them. The host data goes
+     to the ranks as files; they reuse the built kernel libraries. Step
+     16 prints its wall time and each sub-step's.
+
 Every depth cut of a path is printed: the sequential deflation's 1000
 of 6000 epochs a mode, the adaptive deflation's 11500 of 25000 epochs,
 the n = 4096 upscaler's 300 of 1500 epochs a level, the CLI run B's 2000
-of 10000.
+of 10000, step 16c's multigrid epochs.
 
 Every LOBPCG polish prints its iterations and the max and median of its
 scaled residual norms. Steps 8 and 9 and the rolling-band training run
@@ -434,6 +468,32 @@ YAML_SECTIONS = {
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and
 # FLOP/s of fp32 FFMA and of bf16 tensor-core products.
+# Step 16, the sharded path: 4 shards of the 300k cloud (16a, 16c), the
+# XL widths with the sharded trainer's own arguments (its operators are
+# fp32: no loss_mxu_precision; penalty mode only), and 16c's multigrid
+# epochs, cut from the bench's 2000 (every step of the 4-rank loop is
+# some 65 host-staged collectives).
+SHARD_DEV = 4
+SHARD_CFG = {key: v for key, v in XL_CFG.items()
+             if key not in ("mode", "loss_mxu_precision")}
+SHARD_MG_EPOCHS = 300
+# The corrector-scale ramp cut in the same proportion (the bench's 5000
+# over 2000 epochs), so that training ends at the same share of it.
+SHARD_MG_RAMP = 5000 * SHARD_MG_EPOCHS // 2000
+SHARD_LOSS_REL, SHARD_LAM_REL = 1e-3, 1e-4
+# 16c's training, 4 ranks against world size 1: the XL configuration
+# with the fp32 MLP of the JAX test those bars come from
+# (tests/test_parallel.py:222-242). With the bf16 MLP the loss histories
+# stay within their bar but the eigenvalues do not: the GEMMs' shapes
+# differ between 75k and 300k rows, and so does the bf16 rounding of
+# their results (ROADMAP F26). The eigenvalues are the XL configuration's
+# Rayleigh quotients (no Rayleigh-Ritz finish: on this barely trained,
+# ill-conditioned basis the k x k solve amplifies the sums' order).
+SHARD_16C_CFG = dict(SHARD_CFG, mlp_compute_dtype=None)
+SHARD_MG_LOSS_REL, SHARD_MG_LAM_REL = 1e-2, 2e-2
+# Eigenvalues of the single-device phases, by label, for step 16.
+PHASE_EIGS = {}
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 
@@ -654,12 +714,14 @@ def bound(n_bytes: float, flops: dict) -> dict:
 
 
 def least_bytes(nnz: int, value_bytes: int, n: int, k: int,
-                gram: bool = False) -> int:
-    """Least bytes of W = A U (n x n A with nnz nonzeros, U and W fp32 of
-    width k): each nonzero's value and 4-byte column index and the row
-    pointers read once, U read once, W (and the k x k fp32 Gram) written
-    once. Zeros that a kernel's tiles hold are not counted."""
-    return (nnz * (value_bytes + 4) + (n + 1) * 4 + 2 * n * k * 4
+                gram: bool = False, n_cols: int | None = None) -> int:
+    """Least bytes of W = A U (n x n_cols A, n_cols = n by default, with
+    nnz nonzeros, U and W fp32 of width k): each nonzero's value and
+    4-byte column index and the row pointers read once, U read once, W
+    (and the k x k fp32 Gram) written once. Zeros that a kernel's tiles
+    hold are not counted."""
+    n_cols = n if n_cols is None else n_cols
+    return (nnz * (value_bytes + 4) + (n + 1) * 4 + (n + n_cols) * k * 4
             + (k * k * 4 if gram else 0))
 
 
@@ -1073,6 +1135,7 @@ def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
     vals = oracle.result()[:k]
     lam_raw = np.sort(res.eigenvalues)[:k]
     lam_pol = np.sort(pol.eigenvalues.cpu().numpy())[:k]
+    PHASE_EIGS[label] = lam_pol
     raw = np.abs(lam_raw[1:] - vals[1:]) / np.abs(vals[1:])
     polished = np.abs(lam_pol[1:] - vals[1:]) / np.abs(vals[1:])
     loss = res.history["loss"]
@@ -1535,6 +1598,7 @@ def spectral_slice(banded, X, L, m_diag, oracle, device, label="spectral",
 
     vals = oracle.result()
     lam = res.eigenvalues
+    PHASE_EIGS[label] = lam
     rel = np.abs(lam[1:] - vals[1:]) / np.abs(vals[1:])
     V = res.eigenvectors.astype(np.float64)
     MV = m_diag[:, None] * V
@@ -2520,6 +2584,7 @@ def kernel_counts(rolling, bsr, banded, reset: bool = False) -> dict:
             "K2": bsr.bsr_kernel_launches["grouped"],
             "K3": bsr.bsr_kernel_launches["burst"],
             "K4": banded.banded_kernel_launches["spmm"],
+            "K4 rect": banded.banded_kernel_launches["spmm_rect"],
             "K5": banded.banded_kernel_launches["spmm_gram"]}
 
 
@@ -2797,7 +2862,7 @@ def start_pde_runs(device, jobs: list) -> dict:
 def finish_pde_runs(workers: dict) -> dict:
     """Waits for the workers, prints each run's lines, holds its checks;
     returns the K1-K5 launches summed over the runs."""
-    total = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    total = collections.Counter()
     t0 = time.time()
     for name, job in workers.items():
         log, checks, counts = job.result()
@@ -2808,8 +2873,8 @@ def finish_pde_runs(workers: dict) -> dict:
             total[key] += n
         job.close()
     print(f"[pde] waited {time.time() - t0:.2f} s for the PDE runs; their "
-          f"K1-K5 launches {total}", flush=True)
-    return total
+          f"K1-K5 launches {dict(total)}", flush=True)
+    return dict(total)
 
 
 def parity_phase(sphere, device) -> None:
@@ -3003,6 +3068,450 @@ def pde_slice(rolling, bsr, banded, X_xl, device, phases,
           "MLP, gathers and einsums)", flush=True)
     check(not any(counts.values()), f"step 15 launched {counts}")
     return counts
+
+
+# ---- the sharded path (step 16) ------------------------------------------
+
+def window_of(U: torch.Tensor, shard: int, per: int, B: int) -> torch.Tensor:
+    """Shard `shard`'s halo window of the global padded U, as the ring
+    gives it: rows [s per - B, (s + 1) per + B), wrapping around."""
+    ext = torch.cat([U[-B:], U, U[:B]])
+    return ext[shard * per:shard * per + per + 2 * B].contiguous()
+
+
+def shard_block_row(banded, A, U: torch.Tensor, label: str) -> dict:
+    """K4 on one rectangular block (U: its whole input) vs the plain
+    version, timed beside torch.sparse.mm of the block and its bound;
+    returns the row."""
+    k = U.shape[1]
+    W = banded.banded_spmm_cuda(A, U)
+    Wp = banded.banded_spmm_plain(A, U)
+    err = rel_err(W, Wp)
+    csr = band_csr(A)
+    nnz = int(csr.values().numel())
+    t = {"ms": median_ms(lambda: banded.banded_spmm_cuda(A, U)),
+         "plain_ms": median_ms(lambda: banded.banded_spmm_plain(A, U)),
+         "library_ms": median_ms(lambda: torch.sparse.mm(csr, U))}
+    b = bound(least_bytes(nnz, A.band.element_size(), A.n, k,
+                          n_cols=U.shape[0]), {"fp32": 2 * nnz * k})
+    print(f"[shard] {label} {A.n} x {A.n_cols} band "
+          f"{tuple(A.band.shape)} k={k}: rel err vs plain {err:.3e}; K4 "
+          f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, torch.sparse.mm "
+          f"{t['library_ms']:.4f}, bound {b['bound_ms']:.4f} "
+          f"{b['bound_by']}); nnz {nnz}, occupied 16 x 16 sub-blocks "
+          f"{occupied_share(A.occupancy)}", flush=True)
+    check(err <= BANDED_TOL["W"], f"{label}: K4 rel err {err:.3e}")
+    return {"max_abs_err": float((W - Wp).abs().max()), **t, **b}
+
+
+def shard_kernel_phase(banded, L, X, device) -> dict:
+    """16a: the 300k cloud's 4-shard operator; K4 on every shard block
+    and transpose vs plain, the assembled product vs the single-device
+    product; returns the rows of shard 1's block and transpose."""
+    from eigenpinns_torch.parallel import build_sharded_operator
+    from eigenpinns_torch.parallel.sharded_banded import _split_decompose
+    from eigenpinns_torch.sparse import BandedELL
+
+    t0 = time.time()
+    kind, (core, rem), perm = build_sharded_operator(
+        L, SHARD_DEV, X=X, device=device)
+    torch.cuda.synchronize()
+    n, per, B = core.n, core.per, core.B
+    print(f"[shard] build_sharded_operator({SHARD_DEV} shards) picks "
+          f"'{kind}' in {time.time() - t0:.2f} s: per {per}, B {B}, blocks "
+          f"{tuple(core.band.shape)}, transposes {tuple(core.band_t.shape)}"
+          f", remainder "
+          f"{'none' if rem is None else tuple(rem.indices.shape)}",
+          flush=True)
+    Ap = L.tocsr()[perm][:, perm].tocsr()
+    core_sp = (Ap if kind == "banded" else
+               _split_decompose(Ap, core.tile, min(SPEC_CFG["window"],
+                                                   per))[0])
+    gen = torch.Generator("cuda").manual_seed(16)
+    U = torch.randn((core.n_pad, DIRECT_K), generator=gen, device=device)
+    U[n:] = 0
+    parts, errs = [], []
+    rows = {}
+    for s_ in range(SHARD_DEV):
+        A = core.block(s_, device)
+        win = window_of(U, s_, per, B)
+        g = torch.randn((per, DIRECT_K), generator=gen, device=device)
+        W = banded.banded_spmm_cuda(A, win)
+        Wt = banded.banded_spmm_cuda(A.transpose_banded, g)
+        errs.append((rel_err(W, banded.banded_spmm_plain(A, win)),
+                     rel_err(Wt, banded.banded_spmm_plain(
+                         A.transpose_banded, g))))
+        parts.append(W)
+        if s_ == 1:
+            rows["block"] = shard_block_row(banded, A, win, "shard 1 block")
+            rows["transpose"] = shard_block_row(
+                banded, A.transpose_banded, g, "shard 1 transpose")
+    single, _ = BandedELL.from_scipy(core_sp, reorder=False, device=device)
+    W1 = banded.banded_spmm_cuda(single, U[:n].contiguous())
+    assembled = rel_err(torch.cat(parts)[:n], W1)
+    print(f"[shard] K4 vs plain on each shard (block, transpose): "
+          f"{[(f'{a:.2e}', f'{b:.2e}') for a, b in errs]}; assembled "
+          f"product vs the single-device BandedELL product "
+          f"{tuple(single.band.shape)}: rel {assembled:.3e}", flush=True)
+    check(max(max(e) for e in errs) <= BANDED_TOL["W"],
+          f"shard blocks: K4 rel err {errs}")
+    check(assembled <= BANDED_TOL["W"],
+          f"assembled shard products vs single device: {assembled:.3e}")
+    return rows
+
+
+def nccl_shared_card_rank() -> str:
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return "no error"
+
+
+def shard_rank(inputs: dict) -> dict:
+    """16c on one of the 4 ranks that share the card (gloo): the 300k
+    sharded training and its polish, then the sharded multigrid
+    trainer. Returns numpy results and this rank's K4 launches."""
+    import scipy.sparse as sp
+
+    from eigenpinns_torch.configs import Config
+    from eigenpinns_torch.parallel import make_mesh
+    from eigenpinns_torch.sampling import Hierarchy
+    from eigenpinns_torch.solvers import (
+        MultigridTrainer,
+        lobpcg_sharded,
+        prepare_sharded_problem,
+        train_joint_sharded,
+    )
+    from eigenpinns_torch.sparse import banded
+
+    mesh = make_mesh(device_type="cuda")
+    L = sp.load_npz(inputs["L"])
+    m_diag = np.load(inputs["m"])
+    X = np.load(inputs["X"])
+    M = sp.diags(m_diag).tocsr()
+    out = {}
+    t0 = time.time()
+    prob = prepare_sharded_problem(L, M, X=X, mesh=mesh)
+    out["prepare_s"] = time.time() - t0
+    out["kind"] = prob.kind
+    for key in banded.banded_kernel_launches:
+        banded.banded_kernel_launches[key] = 0
+    t0 = time.time()
+    res = train_joint_sharded(L, M, X, mesh=mesh, problem=prob,
+                              **SHARD_16C_CFG)
+    out["train_s"] = time.time() - t0
+    out["loss"], out["lam"] = res.history["loss"], res.eigenvalues
+    out["rate"] = chunk_rate([res.chunk_times])
+    guards = np.random.default_rng(3).normal(
+        size=(prob.n, POLISH_GUARD)).astype(np.float32)
+    t0 = time.time()
+    vals, _, resid = lobpcg_sharded(
+        L, M, DIRECT_K + POLISH_GUARD, problem=prob,
+        X0=np.concatenate([res.eigenvectors, guards], axis=1),
+        max_iter=POLISH_ITERS, tol=POLISH_TOL)
+    out["polish_s"] = time.time() - t0
+    out["polished"] = np.sort(vals)[:DIRECT_K]
+    out["launches"] = dict(banded.banded_kernel_launches)
+    del prob
+    torch.cuda.empty_cache()
+    h = Hierarchy.load(inputs["h"], operator_format="auto",
+                       device=mesh.device)
+    t0 = time.time()
+    mg = MultigridTrainer(Config(**inputs["mg_cfg"])).train(h, mesh=mesh)
+    out["mg_s"] = time.time() - t0
+    out["mg_loss"], out["mg_lam"] = mg.history["loss"], mg.eigenvalues
+    out["mg_rate"] = chunk_rate([mg.chunk_times])
+    return out
+
+
+def start_shard_ranks(L, m_diag, X, mg_cfg: dict, workdir: str):
+    """16c's spawn in a thread: first 2 NCCL ranks on one card (which
+    NCCL refuses), then the 4 gloo ranks. The host data goes to the
+    ranks as files in `workdir`."""
+    import scipy.sparse as sp
+
+    from eigenpinns_torch.parallel import spawn
+    from eigenpinns_torch.sampling import build_hierarchy
+    from eigenpinns_torch.utils.fixtures import perturbed_icosphere
+
+    inputs = {"L": os.path.join(workdir, "L.npz"),
+              "m": os.path.join(workdir, "m.npy"),
+              "X": os.path.join(workdir, "X.npy"),
+              "h": os.path.join(workdir, "h"), "mg_cfg": mg_cfg}
+    sp.save_npz(inputs["L"], L.tocsr())
+    np.save(inputs["m"], m_diag)
+    np.save(inputs["X"], X)
+    build_hierarchy(perturbed_icosphere(4), LEVELS, n_modes=N_MODES,
+                    operator_format="auto", device="cpu").save(inputs["h"])
+
+    def run():
+        t0 = time.time()
+        try:
+            spawn(nccl_shared_card_rank, 2, backend="nccl", device="cuda:0",
+                  timeout=180, store_dir=workdir)
+            refusal = "NCCL ran 2 ranks on one card without an error"
+        except (RuntimeError, TimeoutError) as err:
+            lines = [ln for ln in str(err).splitlines() if ln.strip()]
+            refusal = "NCCL refused: " + (lines[-1] if lines else repr(err))
+        refusal += f" ({time.time() - t0:.1f} s)"
+        t0 = time.time()
+        out = spawn(shard_rank, SHARD_DEV, backend="gloo", device="cuda:0",
+                    args=(inputs,), timeout=900, store_dir=workdir)
+        return refusal, out, time.time() - t0
+
+    pool = ThreadPoolExecutor(1)
+    return pool, pool.submit(run), inputs
+
+
+def sharded_xl_phase(banded, L, m_diag, X, oracle, mesh, device) -> tuple:
+    """16b on a world-size-1 NCCL mesh: the 1M sharded training, its
+    polish and the sharded spectral basis; returns K4's launches (from
+    zero, over all three) and the 1M shard block's row."""
+    import scipy.sparse as sp
+
+    from eigenpinns_torch.solvers import (
+        lobpcg_sharded,
+        prepare_sharded_problem,
+        spectral_basis,
+        train_joint_sharded,
+    )
+
+    M = sp.diags(m_diag).tocsr()
+    t0 = time.time()
+    prob = prepare_sharded_problem(L, M, X=X, mesh=mesh)
+    torch.cuda.synchronize()
+    print(f"[shard xl] prepare_sharded_problem on {prob.n} points (1 "
+          f"rank) picks '{prob.kind}' in {time.time() - t0:.2f} s: block "
+          f"{tuple(prob.core.band.shape)}, transpose "
+          f"{tuple(prob.core.band_t.shape)}", flush=True)
+    gen = torch.Generator("cuda").manual_seed(17)
+    U = torch.randn((prob.n_pad, DIRECT_K), generator=gen, device=device)
+    row_1m = shard_block_row(banded, prob.core.block(0, device),
+                             window_of(U, 0, prob.per, prob.core.B),
+                             "1M split core, one shard")
+    del U
+    for key in banded.banded_kernel_launches:
+        banded.banded_kernel_launches[key] = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    res = train_joint_sharded(L, M, X, mesh=mesh, problem=prob, **SHARD_CFG)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    guards = np.random.default_rng(3).normal(
+        size=(prob.n, POLISH_GUARD)).astype(np.float32)
+    t0 = time.time()
+    vals_p, _, resid = lobpcg_sharded(
+        L, M, DIRECT_K + POLISH_GUARD, problem=prob,
+        X0=np.concatenate([res.eigenvectors, guards], axis=1),
+        max_iter=POLISH_ITERS, tol=POLISH_TOL)
+    polish_s = time.time() - t0
+    del prob
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    spec = spectral_basis(X, operators=(L, m_diag), mesh=mesh, log_fn=None,
+                          **{key: v for key, v in SPEC_CFG.items()
+                             if key != "operator_format"})
+    spec_s = time.time() - t0
+    launches = dict(banded.banded_kernel_launches)
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+
+    vals = oracle.result()
+    k = DIRECT_K
+    lam = np.sort(vals_p)[:k]
+    rel = np.abs(lam[1:] - vals[1:k]) / np.abs(vals[1:k])
+    d_single = (np.abs(lam[1:] - PHASE_EIGS["xl"][1:])
+                / np.abs(PHASE_EIGS["xl"][1:]))
+    sb = spec.eigenvalues
+    rel_sb = np.abs(sb[1:] - vals[1:]) / np.abs(vals[1:])
+    d_sb = (np.abs(sb[1:] - PHASE_EIGS["xl spectral"][1:])
+            / np.abs(PHASE_EIGS["xl spectral"][1:]))
+    V = spec.eigenvectors.astype(np.float64)
+    orth = float(np.abs(V.T @ (m_diag[:, None] * V) - np.eye(SPEC_K)).max())
+    loss = res.history["loss"]
+    print(f"[shard xl] train_joint_sharded {res.epochs_run} epochs in "
+          f"{train_s:.3f} s (per-chunk median "
+          f"{chunk_rate([res.chunk_times]):.2f} steps/s; card shared with "
+          f"16c's ranks), loss {loss[0]:.6g} -> {loss[-1]:.6g}; polish "
+          f"{polish_s:.3f} s (max scaled residual of modes 0..{k - 1} "
+          f"{float(np.max(resid[:k])):.3e}); spectral_basis(n_devices=1) "
+          f"{spec_s:.3f} s, timings "
+          f"{ {key: round(v, 3) for key, v in spec.timings.items()} }; K4 "
+          f"launches {launches}; peak device memory {peak:.1f} MiB",
+          flush=True)
+    print(f"[shard xl] polished max rel err of modes 1..{k - 1} vs eigsh "
+          f"{rel.max():.3e} (bar {XL_BAR}); vs the single-device 1M "
+          f"phase's polished eigenvalues (modes 1+): max rel "
+          f"{d_single.max():.3e}\n"
+          f"[shard xl] spectral basis max rel err of modes 1..{SPEC_K - 1} "
+          f"vs eigsh {rel_sb.max():.3e} (bar {MAX_REL_ERR}), |V^T M V - I| "
+          f"{orth:.3e}; vs the single-device 1M spectral basis (modes 1+): "
+          f"max rel {d_sb.max():.3e}", flush=True)
+    check(launches["spmm_rect"] > 0, "16b launched K4 on no shard block")
+    check(bool(np.isfinite(loss).all() and np.isfinite(lam).all()
+               and np.isfinite(sb).all()), "non-finite 16b results")
+    check(rel.max() <= XL_BAR, f"16b polished max rel err {rel.max():.3e}")
+    check(rel_sb.max() <= MAX_REL_ERR,
+          f"16b spectral basis max rel err {rel_sb.max():.3e}")
+    check(orth <= 1e-3, f"16b spectral basis not M-orthonormal: {orth:.3e}")
+    return launches["spmm_rect"], row_1m
+
+
+def shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl, oracle, oracle_xl,
+                device) -> tuple:
+    """Step 16: 16a, then 16c's 4 ranks beside 16b and the single-device
+    and world-size-1 runs 16c is held to. Returns (K4 rectangular
+    launches of 16b, the rows)."""
+    import tempfile
+
+    import scipy.sparse as sp
+    import torch.distributed as dist
+
+    from eigenpinns_torch.configs import Config
+    from eigenpinns_torch.parallel import make_mesh
+    from eigenpinns_torch.sampling import Hierarchy
+    from eigenpinns_torch.solvers import (
+        MultigridTrainer,
+        prepare_sharded_problem,
+        train_joint_sharded,
+    )
+
+    t_all = time.time()
+    rows = shard_kernel_phase(banded, L, X, device)
+    print(f"[time] 16a: {time.time() - t_all:.2f} s", flush=True)
+
+    mg_cfg = dict(n_modes=N_MODES, hierarchy=LEVELS, hidden_layers=[256] * 6,
+                  epochs=SHARD_MG_EPOCHS, scan_chunk=100,
+                  scale_ramp_epochs=SHARD_MG_RAMP,
+                  corrector_scale=10.0, weight_residual=1000.0,
+                  weight_orthogonal=10.0, log_every=0,
+                  early_stop_patience=10**9, plateau_patience=2000,
+                  polish_iters=100, fuse_level_ops=False,
+                  loss_mxu_precision="highest")
+    print(f"[shard] 16c multigrid: {SHARD_MG_EPOCHS} of the bench's 2000 "
+          f"epochs, the scale ramp {SHARD_MG_RAMP} of its 5000 (cut), "
+          "fuse_level_ops=False, 'highest'", flush=True)
+    workdir = tempfile.mkdtemp(prefix="shard16_")
+    t0 = time.time()
+    pool, job, inputs = start_shard_ranks(L, m_diag, X, mg_cfg, workdir)
+    print(f"[shard] 16c inputs written in {time.time() - t0:.2f} s; 4 "
+          "ranks on one card over gloo (host-staged collectives) started",
+          flush=True)
+
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl1",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        k4_rect, row_1m = sharded_xl_phase(banded, L_xl, m_xl, X_xl,
+                                           oracle_xl, mesh, device)
+        print(f"[time] 16b: {time.time() - t0:.2f} s", flush=True)
+        # The world-size-1 run 16c's training is held to.
+        t0 = time.time()
+        prob1 = prepare_sharded_problem(L, sp.diags(m_diag).tocsr(), X=X,
+                                        mesh=mesh)
+        ref = train_joint_sharded(L, sp.diags(m_diag).tocsr(), X,
+                                  mesh=mesh, problem=prob1, **SHARD_16C_CFG)
+        del prob1
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    h = Hierarchy.load(inputs["h"], operator_format="auto", device=device)
+    mg1 = MultigridTrainer(Config(**mg_cfg)).train(h)
+    # The same training with the levels' sums in another order (the fused
+    # block-diagonal operator): how far the single-device trainer parts
+    # from itself under reassociation alone. At the bench's widths the
+    # training is chaotic (ROADMAP F24): the 4-rank run is held to the
+    # loss bar over the epochs in which this pair agrees to a tenth of
+    # it.
+    mg1f = MultigridTrainer(Config(**dict(mg_cfg, fuse_level_ops=True))
+                            ).train(h)
+    del h
+    print(f"[shard] world-size-1 300k training and the single-device "
+          f"multigrid run in {time.time() - t0:.2f} s", flush=True)
+
+    t0 = time.time()
+    refusal, ranks, ranks_s = job.result()
+    pool.shutdown()
+    print(f"[shard] waited {time.time() - t0:.2f} s for 16c's ranks "
+          f"({ranks_s:.2f} s of spawn); {refusal}", flush=True)
+    r0 = ranks[0]
+    print(f"[shard] 16c rank 0: prepare {r0['prepare_s']:.2f} s, train "
+          f"{r0['train_s']:.2f} s, polish {r0['polish_s']:.2f} s, multigrid "
+          f"{r0['mg_s']:.2f} s", flush=True)
+    vals = oracle.result()[:DIRECT_K]
+
+    def rel(a, b):
+        return np.abs(a - b) / np.abs(b)
+
+    def lam_rel(a, b):
+        """Modes 1+ relative; mode 0 (the rigid-body mode, ~0) against
+        the spectrum's scale |b_1|, as every spectrum check here."""
+        return np.concatenate([[abs(a[0] - b[0]) / abs(b[1])],
+                               rel(a[1:], b[1:])])
+
+    order = np.argsort(ref.eigenvalues)
+    d_loss = rel(r0["loss"], ref.history["loss"])
+    d_lam = lam_rel(r0["lam"][order], ref.eigenvalues[order])
+    pol = rel(r0["polished"][1:], vals[1:])
+    l1, l1f = mg1.history["loss"], mg1f.history["loss"]
+    apart = np.nonzero(rel(l1f, l1) > SHARD_MG_LOSS_REL / 10)[0]
+    window = int(apart[0]) if apart.size else len(l1)
+    d_mg = rel(r0["mg_loss"], l1)[:window]
+    d_mg_lam = lam_rel(r0["mg_lam"], mg1.eigenvalues)
+    print(f"[shard] 16c training eigenvalues, 4 ranks "
+          f"{np.array2string(r0['lam'][order], precision=7)}\n"
+          f"[shard] world size 1                   "
+          f"{np.array2string(ref.eigenvalues[order], precision=7)}\n"
+          f"[shard] 16c multigrid eigenvalues, 4 ranks "
+          f"{np.array2string(r0['mg_lam'], precision=7)}\n"
+          f"[shard] single device                      "
+          f"{np.array2string(mg1.eigenvalues, precision=7)}\n"
+          f"[shard] single device, fused sums          "
+          f"{np.array2string(mg1f.eigenvalues, precision=7)}\n"
+          f"[shard] multigrid loss over {len(l1)} epochs, single device "
+          f"fused vs per-level sums (reassociation alone): max rel "
+          f"{rel(l1f, l1).max():.3e}, first past {SHARD_MG_LOSS_REL / 10} "
+          f"at epoch {window}; 4 ranks vs single device: max rel "
+          f"{rel(r0['mg_loss'], l1).max():.3e} over all epochs, "
+          f"{d_mg.max():.3e} over the first {window}", flush=True)
+    same = all(np.array_equal(r["lam"], r0["lam"])
+               and np.array_equal(r["mg_lam"], r0["mg_lam"])
+               for r in ranks[1:])
+    print(f"[shard] 16c 4 ranks (gloo, one card, rates shared with 16b): "
+          f"'{r0['kind']}' operator prepared in {r0['prepare_s']:.2f} s; "
+          f"train {r0['train_s']:.3f} s ({r0['rate']:.2f} steps/s), polish "
+          f"{r0['polish_s']:.3f} s, multigrid {r0['mg_s']:.3f} s "
+          f"({r0['mg_rate']:.2f} steps/s; single device "
+          f"{chunk_rate([mg1.chunk_times]):.2f}); K4 launches per rank "
+          f"{[r['launches'] for r in ranks]}", flush=True)
+    print(f"[shard] 16c vs world size 1: loss history max rel "
+          f"{d_loss.max():.3e} (bar {SHARD_LOSS_REL}), eigenvalues max rel "
+          f"{d_lam.max():.3e} (bar {SHARD_LAM_REL}); polished max rel err "
+          f"vs the 300k eigsh {pol.max():.3e} (bar {MAX_REL_ERR}); "
+          f"multigrid vs single device: loss max rel over the first "
+          f"{window} epochs {d_mg.max():.3e} (bar {SHARD_MG_LOSS_REL}), "
+          f"eigenvalues max rel {d_mg_lam.max():.3e} "
+          f"(bar {SHARD_MG_LAM_REL}); every rank the same: {same}",
+          flush=True)
+    check(same, "16c ranks returned different results")
+    check(all(r["launches"]["spmm_rect"] > 0 for r in ranks),
+          "16c: a rank launched K4 on no shard block")
+    check(d_loss.max() <= SHARD_LOSS_REL, f"16c loss rel {d_loss.max():.3e}")
+    check(d_lam.max() <= SHARD_LAM_REL, f"16c eigenvalues rel "
+          f"{d_lam.max():.3e}")
+    check(pol.max() <= MAX_REL_ERR, f"16c polished rel err {pol.max():.3e}")
+    check(window >= 10, f"16c multigrid: reassociation alone moves the "
+          f"single-device loss by {SHARD_MG_LOSS_REL / 10} at epoch {window}")
+    check(d_mg.max() <= SHARD_MG_LOSS_REL, f"16c multigrid loss rel "
+          f"{d_mg.max():.3e} over the first {window} epochs")
+    check(d_mg_lam.max() <= SHARD_MG_LAM_REL, f"16c multigrid eigenvalues "
+          f"rel {d_mg_lam.max():.3e}")
+    print(f"[time] step 16: {time.time() - t_all:.2f} s", flush=True)
+    rows["1m"] = row_1m
+    rows["launches_4_ranks"] = [r["launches"]["spmm_rect"] for r in ranks]
+    return k4_rect, rows
 
 
 def main() -> int:
@@ -3303,6 +3812,12 @@ def smoke(oracles: list) -> int:
     # 15. The PDE apps and the device geometry (no hand kernel).
     pde_slice(rolling, bsr, banded, X_xl, device, phases, pde_run_counts)
 
+    # 16. The sharded path: K4 on shard blocks, world size 1 over NCCL at
+    # 1M, 4 ranks on the card over gloo at 300k.
+    k4_rect, shard_rows = shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl,
+                                      oracle, oracle_xl, device)
+    phases.done("step 16 (sharded path)")
+
     print(json.dumps({"kernels": [
         {"name": "rolling_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
@@ -3335,7 +3850,14 @@ def smoke(oracles: list) -> int:
         {"name": "banded_spmm_gram", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/banded.py:382",
-         "launches": k5_launches, **banded_rows["banded_spmm_gram"]}]}))
+         "launches": k5_launches, **banded_rows["banded_spmm_gram"]},
+        {"name": "banded_spmm_rect", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/banded_spmm.cu",
+         "replaces": "eigenpinns_tpu/sparse/banded.py:455",
+         "launches": k4_rect, **shard_rows["block"],
+         "row_transpose": shard_rows["transpose"],
+         "row_1m": shard_rows["1m"],
+         "launches_4_ranks": shard_rows["launches_4_ranks"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

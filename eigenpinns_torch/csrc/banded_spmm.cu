@@ -30,7 +30,10 @@
 //     row n - 1. A rolling band is a full-window band whose starts are
 //     implicit and whose pieces wrap; that is all K1 adds to K4, so it is
 //     a third instantiation here and not a source of its own.
-// U rows outside [0, n) read as zero (no padded copy of U is made).
+// W has n rows and U n_u: a full-window band may be a rectangular block
+// (a shard's rows against its halo window, or that block's transpose),
+// and U rows outside [0, n_u) read as zero (no padded copy of U is made).
+// The Gram takes the tile's own U rows, so K5 is square only (n_u == n).
 //
 // The Pallas kernels walked the tiles in order on a sequential grid: the
 // full-window ones double-buffered each tile's whole U window into VMEM,
@@ -120,7 +123,8 @@ band_spmm_kernel(const BandT* __restrict__ band,
                  const int* __restrict__ starts, int pre,
                  const unsigned char* __restrict__ occupancy,
                  const float* __restrict__ U, float* __restrict__ W,
-                 float* __restrict__ partial, int n, int B, int k, int n_cb) {
+                 float* __restrict__ partial, int n, int n_u, int B, int k,
+                 int n_cb) {
   // The warps' scratch; the Gram's stages follow the product in the same
   // memory.
   constexpr size_t kScratch = sizeof(occ::WarpScratch) * (kThreads / 32);
@@ -151,7 +155,7 @@ band_spmm_kernel(const BandT* __restrict__ band,
     off = (long long)(row0 + stripe * kSub) * B + c;
   };
   occ::stripe_product<kRoundU, kCols>(
-      band, (size_t)B, occupancy, t * P, (t + 1) * P, piece, U, n, k, col0,
+      band, (size_t)B, occupancy, t * P, (t + 1) * P, piece, U, n_u, k, col0,
       scratch[stripe], acc);
   occ::store_stripe<BandT, kCols>(W, row0 + stripe * kSub, n, k, col0, acc);
 
@@ -188,25 +192,25 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial,
 template <typename BandT, bool kRoundU, bool kRolling, bool kGram, int kCols>
 cudaError_t launch_cols(const void* band, const int* starts, int pre,
                         const void* occupancy, const float* U, float* W,
-                        float* partial, int n, int n_pad, int B, int k,
-                        cudaStream_t s) {
+                        float* partial, int n, int n_u, int n_pad, int B,
+                        int k, cudaStream_t s) {
   const int n_cb = (k + 32 * kCols - 1) / (32 * kCols);
   const dim3 grid((unsigned)(n_pad / kT) * n_cb);
   band_spmm_kernel<BandT, kRoundU, kRolling, kGram, kCols>
       <<<grid, kThreads, 0, s>>>(
           static_cast<const BandT*>(band), starts, pre,
-          static_cast<const unsigned char*>(occupancy), U, W, partial, n, B,
-          k, n_cb);
+          static_cast<const unsigned char*>(occupancy), U, W, partial, n, n_u,
+          B, k, n_cb);
   return cudaGetLastError();
 }
 
 template <typename BandT, bool kRoundU, bool kRolling>
 cudaError_t launch(const void* band, const int* starts, int pre,
                    const void* occupancy, const float* U, float* W,
-                   float* partial, int n, int n_pad, int B, int k,
+                   float* partial, int n, int n_u, int n_pad, int B, int k,
                    int col_block, cudaStream_t s) {
 #define EPK_BAND_ARGS \
-  band, starts, pre, occupancy, U, W, partial, n, n_pad, B, k, s
+  band, starts, pre, occupancy, U, W, partial, n, n_u, n_pad, B, k, s
   if (partial != nullptr) {
     return col_block == 64
                ? launch_cols<BandT, kRoundU, kRolling, true, 2>(EPK_BAND_ARGS)
@@ -221,14 +225,14 @@ cudaError_t launch(const void* band, const int* starts, int pre,
 template <typename BandT, bool kRoundU>
 cudaError_t launch_layout(const void* band, const int* starts, int pre,
                           const void* occupancy, const float* U, float* W,
-                          float* partial, int n, int n_pad, int B, int k,
-                          int col_block, cudaStream_t s) {
+                          float* partial, int n, int n_u, int n_pad, int B,
+                          int k, int col_block, cudaStream_t s) {
   return starts == nullptr
              ? launch<BandT, kRoundU, true>(band, starts, pre, occupancy, U,
-                                            W, partial, n, n_pad, B, k,
+                                            W, partial, n, n_u, n_pad, B, k,
                                             col_block, s)
              : launch<BandT, kRoundU, false>(band, starts, pre, occupancy, U,
-                                             W, partial, n, n_pad, B, k,
+                                             W, partial, n, n_u, n_pad, B, k,
                                              col_block, s);
 }
 
@@ -240,24 +244,26 @@ extern "C" {
 // full-window band (starts (n_pad / 128,) int32; pre is not read: K4, K5)
 // or, with starts == nullptr, a rolling band whose windows start pre rows
 // above their tile (K1). Shapes: band (n_pad, B) fp32 or bf16, occupancy
-// (n_pad / 128, B / 128) int64, U and W (n, k) fp32, partial (n_pad /
-// 128, k, k) and G (k, k) fp32; col_block is 32 or 64 output columns per
-// block. The wrappers check types, shapes, contiguity, B % 128 == 0,
-// pre % 128 == 0 and 16-byte alignment of the band. Returns
+// (n_pad / 128, B / 128) int64, U (n_u, k) and W (n, k) fp32, partial
+// (n_pad / 128, k, k) and G (k, k) fp32; col_block is 32 or 64 output
+// columns per block. n_u == n for the rolling band and the Gram; a
+// full-window block may be rectangular. The wrappers check types, shapes,
+// contiguity, B % 128 == 0, pre % 128 == 0 and 16-byte alignment of the
+// band. Returns
 // cudaGetLastError() after the launches.
 int epk_banded_spmm(const void* band, int band_is_bf16, const int* starts,
                   int pre, const void* occupancy, const float* U, float* W,
-                  float* partial, float* G, int n, int n_pad, int B, int k,
-                  int col_block, void* stream) {
+                  float* partial, float* G, int n, int n_u, int n_pad, int B,
+                  int k, int col_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       band_is_bf16
           ? launch_layout<__nv_bfloat16, true>(band, starts, pre, occupancy,
-                                               U, W, partial, n, n_pad, B, k,
-                                               col_block, s)
+                                               U, W, partial, n, n_u, n_pad, B,
+                                               k, col_block, s)
           : launch_layout<float, false>(band, starts, pre, occupancy, U, W,
-                                        partial, n, n_pad, B, k, col_block,
-                                        s);
+                                        partial, n, n_u, n_pad, B, k,
+                                        col_block, s);
   if (err != cudaSuccess || partial == nullptr) return (int)err;
   const int kk = k * k;
   gram_reduce_kernel<<<(kk + kRedX - 1) / kRedX, dim3(kRedX, kRedY), 0, s>>>(

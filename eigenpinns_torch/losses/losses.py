@@ -19,7 +19,16 @@ from __future__ import annotations
 
 import torch
 
-from eigenpinns_torch.sparse.ops import gram, spmm, spmm_gram
+from eigenpinns_torch.sparse.ops import gram, node_reduce, spmm, spmm_gram
+
+
+def _node_mean(A, x):
+    """mean(x) of an (N, k) block over every shard of A's rows: the
+    local mean on one device; on a sharded operator the all-reduced sum
+    over its true row count (padded rows hold zeros)."""
+    if getattr(A, "reduce", None) is None:
+        return x.mean()
+    return A.reduce(x.sum()) / (A.n * x.shape[1])
 
 
 def rayleigh_residual_orth(U, K, M, eps: float = 1e-12):
@@ -31,7 +40,7 @@ def rayleigh_residual_orth(U, K, M, eps: float = 1e-12):
     res = Ku - Mu * lam[None, :]
     k = U.shape[1]
     orth = ((Gm - torch.eye(k, dtype=U.dtype, device=U.device)) ** 2).sum() / k
-    return lam, (res**2).mean(), orth
+    return lam, _node_mean(M, res**2), orth
 
 
 def rayleigh_and_residual(U, K, M, eps: float = 1e-12):
@@ -39,15 +48,16 @@ def rayleigh_and_residual(U, K, M, eps: float = 1e-12):
     squared eigen-residual, sharing the K U / M U products."""
     Ku = spmm(K, U)
     Mu = spmm(M, U)
-    lam = (U * Ku).sum(0) / ((U * Mu).sum(0) + eps)
+    lam = (node_reduce(M, (U * Ku).sum(0))
+           / (node_reduce(M, (U * Mu).sum(0)) + eps))
     res = Ku - Mu * lam[None, :]
-    return lam, (res**2).mean()
+    return lam, _node_mean(M, res**2)
 
 
 def gram_orthogonality(U, M):
     """||U^T M U - I||_F^2 / k (the reference divides by n_modes)."""
     k = U.shape[1]
-    G = gram(U, spmm(M, U))
+    G = node_reduce(M, gram(U, spmm(M, U)))
     return ((G - torch.eye(k, dtype=U.dtype, device=U.device)) ** 2).sum() / k
 
 
@@ -82,7 +92,7 @@ def zero_mean(U, M, skip_first: bool = True):
     """(1^T M u_j)^2 summed over modes j >= 1 (mode 0 is the constant)."""
     m_row = spmm(M, torch.ones((U.shape[0], 1), dtype=U.dtype,
                                device=U.device))[:, 0]
-    moments = m_row @ U
+    moments = node_reduce(M, m_row @ U)
     if skip_first:
         moments = moments[1:]
     return (moments**2).sum()
@@ -105,4 +115,4 @@ def smoothness(U, K):
 
 def projection(U_fine, Pt, U_coarse):
     """||P^T U_f - U_c||^2: anchor fine predictions to the coarse level."""
-    return ((spmm(Pt, U_fine) - U_coarse) ** 2).mean()
+    return _node_mean(Pt, (spmm(Pt, U_fine) - U_coarse) ** 2)

@@ -8,6 +8,12 @@ from eigenpinns_torch.solvers.deflation import (
     solve_deflation_adaptive,
 )
 from eigenpinns_torch.solvers.direct import DirectResult, train_joint
+from eigenpinns_torch.solvers.direct_sharded import (
+    ShardedDirectResult,
+    ShardedProblem,
+    prepare_sharded_problem,
+    train_joint_sharded,
+)
 from eigenpinns_torch.solvers.eikonal_driver import (
     EikonalResult,
     ntk_traces,
@@ -18,6 +24,7 @@ from eigenpinns_torch.solvers.lobpcg import (
     lobpcg_blocked,
     lobpcg_from_random,
 )
+from eigenpinns_torch.solvers.lobpcg_sharded import lobpcg_sharded
 from eigenpinns_torch.solvers.multigrid import (
     MultigridResult,
     MultigridTrainer,
@@ -75,4 +82,6 @@ __all__ = [
     "solve_laplace_dirichlet", "solve_laplace_dirichlet_device",
     "solve_schrodinger", "SchrodingerResult", "SchrodingerMode",
     "solve_eikonal", "EikonalResult", "ntk_traces",
+    "ShardedDirectResult", "ShardedProblem", "prepare_sharded_problem",
+    "train_joint_sharded", "lobpcg_sharded",
 ]

@@ -11,9 +11,9 @@ Port of `eigenpinns_tpu/solvers/direct.py::train_joint`:
 Every epoch runs the model on all N points, the loss SpMMs (the operator's
 kernel, in `loss_mxu_precision`) and the k x k Grams in fp32, on the
 device of the operators; the host syncs once per chunk of `scan_chunk`
-epochs (`train/loop.py`). Not ported yet (ROADMAP queue 1, slice 2):
-node-minibatched training (`batch_nodes`) and the chained throughput
-probe (`timing_chunks`); asking for either raises NotImplementedError.
+epochs (`train/loop.py`; `timing_chunks` runs its throughput probe).
+Not ported yet (ROADMAP queue 1, item 6): node-minibatched training
+(`batch_nodes`); asking for it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from eigenpinns_torch.losses.whitening import newton_schulz_orthonormalize
 from eigenpinns_torch.models.eigennet import JointEigenNet
 from eigenpinns_torch.solvers.rayleigh_ritz import rayleigh_ritz_robust
 from eigenpinns_torch.sparse.ops import rayleigh_quotients
-from eigenpinns_torch.train.loop import run_chunked_loop
+from eigenpinns_torch.train.loop import module_state_fns, run_chunked_loop
 from eigenpinns_torch.train.optim import adam_exp_decay
 
 
@@ -93,12 +93,10 @@ def train_joint(
     """
     if mode not in ("penalty", "whiten"):
         raise ValueError(f"mode must be 'penalty' or 'whiten', got '{mode}'")
-    unported = {"batch_nodes": batch_nodes > 0,
-                "timing_chunks": timing_chunks > 0}
-    if any(unported.values()):
+    if batch_nodes > 0:
         raise NotImplementedError(
-            f"not ported to the torch train_joint yet (ROADMAP queue 1, "
-            f"slice 2): {[k for k, on in unported.items() if on]}")
+            "batch_nodes is not ported to the torch train_joint yet "
+            "(ROADMAP queue 1, item 6)")
     device = torch.device(device) if device is not None else (
         K.diagonal().device)
     X = torch.as_tensor(np.asarray(X), dtype=torch.float32, device=device)
@@ -152,7 +150,8 @@ def train_joint(
 
     result = run_chunked_loop(step, n_epochs=epochs, chunk=scan_chunk,
                               log_every=log_every, log_fn=log_fn,
-                              device=device)
+                              device=device, timing_chunks=timing_chunks,
+                              state_fns=module_state_fns(params, opt))
 
     with torch.no_grad():
         U = model(X)
@@ -170,4 +169,5 @@ def train_joint(
         epochs_run=result.epochs_run,
         wall_time=result.wall_time,
         chunk_times=result.chunk_times,
+        steady_steps_per_sec=result.steady_rate,
     )

@@ -15,6 +15,12 @@ counted 84 syncs in 20 iterations of the 1M polish, `chip_smoke.py`).
 
 `lobpcg_blocked` runs it in deflated sweeps for large mode counts.
 
+Every sum over the node axis (column norms, Rayleigh quotients, Grams)
+goes through `node_reduce(M, .)`: on the sharded operators of
+`solvers/lobpcg_sharded.py` it is the all-reduce over the mesh's data
+axis, so the same iteration runs on row-sharded blocks; elsewhere it is
+the local sum.
+
 Departures from the JAX iteration (ROADMAP queue 3). The first three
 are the same iteration in exact arithmetic; the fourth is an added step:
 
@@ -48,7 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from eigenpinns_torch.sparse.ops import gram, hdot, spmm
+from eigenpinns_torch.sparse.ops import gram, hdot, node_reduce, spmm
 from eigenpinns_torch.solvers.rayleigh_ritz import (
     eigh_generalized,
     filtered_whiten,
@@ -72,36 +78,46 @@ def _sentinel(A: torch.Tensor) -> torch.Tensor:
 
 def _b_orthonormalize(X, M, eps):
     """Spectral M-orthonormalization of a block; dropped directions -> 0."""
-    d = torch.sqrt(torch.clamp((X * spmm(M, X)).sum(0), min=0.0))
+    d = torch.sqrt(torch.clamp(node_reduce(M, (X * spmm(M, X)).sum(0)),
+                               min=0.0))
     X = X * torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-30),
                         torch.zeros_like(d))[None, :]
-    Xw, good, _ = filtered_whiten(X, gram(X, spmm(M, X)), eps=eps)
+    Xw, good, _ = filtered_whiten(X, node_reduce(M, gram(X, spmm(M, X))),
+                                  eps=eps)
     # In fp32 the whitening of an exactly dependent block can keep a
     # noise direction (its Gram eigenvalue sits just above eps * e_max)
     # whose M-norm comes out far from 1; in the Rayleigh-Ritz step such a
     # column poses as a spurious tiny Ritz value. Drop it like the
     # filtered ones. Well-conditioned blocks are unchanged.
-    good = good & (((Xw * spmm(M, Xw)).sum(0) - 1.0).abs() < 0.5)
+    good = good & ((node_reduce(M, (Xw * spmm(M, Xw)).sum(0)) - 1.0).abs()
+                   < 0.5)
     return Xw * good[None, :], good
 
 
-def _rayleigh_quotients(X, KX, MX):
+def _rayleigh_quotients(X, KX, MX, M):
     """x^T K x / x^T M x per column; 0 for the zero columns of dropped
     directions."""
-    den = (X * MX).sum(0)
-    return (X * KX).sum(0) / torch.where(den > 0, den, torch.ones_like(den))
+    den = node_reduce(M, (X * MX).sum(0))
+    return (node_reduce(M, (X * KX).sum(0))
+            / torch.where(den > 0, den, torch.ones_like(den)))
 
 
-def _residual_norms(X, KX, MX, lam):
+def _column_norms(R, M):
+    """The 2-norm of each column of R over every shard of its rows."""
+    if getattr(M, "reduce", None) is None:
+        return torch.linalg.vector_norm(R, dim=0)
+    return torch.sqrt(node_reduce(M, (R * R).sum(0)))
+
+
+def _residual_norms(X, KX, MX, lam, M):
     R = KX - MX * lam[None, :]
-    return torch.linalg.vector_norm(R, dim=0) / torch.clamp(lam.abs(),
-                                                            min=1.0)
+    return _column_norms(R, M) / torch.clamp(lam.abs(), min=1.0)
 
 
-def _project_out(Y, X, MX):
+def _project_out(Y, X, MX, M):
     """Y - X (X^T M Y), applied twice for f32 robustness."""
-    Y = Y - hdot(X, gram(MX, Y))
-    return Y - hdot(X, gram(MX, Y))
+    Y = Y - hdot(X, node_reduce(M, gram(MX, Y)))
+    return Y - hdot(X, node_reduce(M, gram(MX, Y)))
 
 
 @torch.no_grad()
@@ -119,24 +135,23 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
     MY = spmm(M, Y) if Y is not None else None
 
     def _deflate(V):
-        return _project_out(V, Y, MY) if Y is not None else V
+        return _project_out(V, Y, MY, M) if Y is not None else V
 
     def body(X, P, good_x):
         MX = spmm(M, X)
         KX = spmm(K, X)
-        lam = _rayleigh_quotients(X, KX, MX)
+        lam = _rayleigh_quotients(X, KX, MX, M)
         R = KX - MX * lam[None, :]
-        res = torch.linalg.vector_norm(R, dim=0) / torch.clamp(
-            lam.abs(), min=1.0)
+        res = _column_norms(R, M) / torch.clamp(lam.abs(), min=1.0)
         W = precond[:, None] * R
-        W = _project_out(_deflate(W), X, MX)
+        W = _project_out(_deflate(W), X, MX, M)
         W, good_w = _b_orthonormalize(W, M, whiten_eps)
         MW = spmm(M, W)
-        P = _project_out(_project_out(_deflate(P), X, MX), W, MW)
+        P = _project_out(_project_out(_deflate(P), X, MX, M), W, MW, M)
         P, good_p = _b_orthonormalize(P, M, whiten_eps)
 
         S = torch.cat([X, W, P], dim=1)            # (N, 3k)
-        A = gram(S, spmm(K, S))
+        A = node_reduce(M, gram(S, spmm(K, S)))
         good = torch.cat([good_x, good_w, good_p])
         A = 0.5 * (A + A.T)
         A = A + torch.diag(torch.where(good, torch.zeros((), device=A.device),
@@ -173,8 +188,8 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
             break
 
     KX, MX = spmm(K, X), spmm(M, X)
-    lam = _rayleigh_quotients(X, KX, MX)
-    return LobpcgResult(lam, X, it, _residual_norms(X, KX, MX, lam))
+    lam = _rayleigh_quotients(X, KX, MX, M)
+    return LobpcgResult(lam, X, it, _residual_norms(X, KX, MX, lam, M))
 
 
 @torch.no_grad()
@@ -182,12 +197,26 @@ def _rayleigh_ritz_f64(K, M, V: torch.Tensor):
     """Rayleigh-Ritz of span(V) with the k x k Grams and their eigh in
     fp64: (Ritz values, rotated V, residual norms)."""
     KV, MV = spmm(K, V), spmm(M, V)
-    A = V.double().T @ KV.double()
-    B = V.double().T @ MV.double()
+    A = node_reduce(M, V.double().T @ KV.double())
+    B = node_reduce(M, V.double().T @ MV.double())
     C = eigh_generalized(0.5 * (A + A.T), 0.5 * (B + B.T))[1].to(V.dtype)
     V, KV, MV = hdot(V, C), hdot(KV, C), hdot(MV, C)
-    lam = _rayleigh_quotients(V, KV, MV)
-    return lam, V, _residual_norms(V, KV, MV, lam)
+    lam = _rayleigh_quotients(V, KV, MV, M)
+    return lam, V, _residual_norms(V, KV, MV, lam, M)
+
+
+def _randn_rows(K, width: int, generator: torch.Generator, dtype,
+                device) -> torch.Tensor:
+    """A normal (N, width) block drawn from `generator`; on a sharded
+    operator the global padded block is drawn (alike on every rank) and
+    this rank's rows are kept."""
+    rows = getattr(K, "rows", None)
+    if rows is None:
+        return torch.randn((K.shape[0], width), generator=generator,
+                           dtype=dtype, device=device)
+    first, n_pad = rows
+    return torch.randn((n_pad, width), generator=generator, dtype=dtype,
+                       device=device)[first:first + K.shape[0]]
 
 
 def lobpcg_from_random(K, M, k: int, generator: torch.Generator | None = None,
@@ -287,8 +316,7 @@ def lobpcg_blocked(K, M, k_total: int, block: int = 16, guard: int = 4,
     while b0 < k_total:
         keep = min(block, k_total - b0)
         kb = min(block + guard, k_total + guard - b0)
-        X0 = torch.randn((n, kb), generator=generator, dtype=dtype,
-                         device=device)
+        X0 = _randn_rows(K, kb, generator, dtype, device)
         if X0_full is not None and b0 + keep <= X0_full.shape[1]:
             X0[:, :keep] = torch.as_tensor(X0_full[:, b0:b0 + keep],
                                            dtype=dtype, device=device)

@@ -15,9 +15,12 @@ trainer: `cfg.checkpoint_dir` resumes from the newest checkpoint there
 corrector-scale ramp does not replay) and saves one after the run;
 `cfg.profile_dir` writes a torch.profiler trace of the training loop;
 `eval_callback(epochs_run, U_finest)` sees the M-normalized finest-level
-prediction after every chunk. Not ported yet: the sharded trainer
-(`mesh`, `n_devices`, `cfg.mesh_shape`) and the `timing_chunks` probe;
-asking for them raises NotImplementedError.
+prediction after every chunk; `cfg.timing_chunks` runs the loop's
+throughput probe (`steady_steps_per_sec`). `mesh` / `n_devices` (or a
+nonempty `cfg.mesh_shape`) run the training loop node-sharded
+(`solvers/multigrid_sharded.py`) on every rank of an initialized
+`torch.distributed` group; pre- and postprocessing stay on the
+single-device layout on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -51,7 +55,7 @@ from eigenpinns_torch.sparse.ops import (
     spmm,
 )
 from eigenpinns_torch.train.checkpoint import TrainCheckpointer
-from eigenpinns_torch.train.loop import run_chunked_loop
+from eigenpinns_torch.train.loop import module_state_fns, run_chunked_loop
 from eigenpinns_torch.train.optim import AdamPlateau
 from eigenpinns_torch.utils.profiling import trace
 
@@ -68,6 +72,7 @@ class MultigridResult:
     chunk_times: list
     polish_time: float = 0.0      # final extraction + polish wall (s)
     polish_iterations: int = 0
+    steady_steps_per_sec: float | None = None  # cfg.timing_chunks probe
 
 
 def _level_features(X, U_norm, lam, edge_index, K, M, level_idx, n_levels):
@@ -94,6 +99,45 @@ def _level_features(X, U_norm, lam, edge_index, K, M, level_idx, n_levels):
     return torch.cat([X_t, res_feat, deg_feat, K.diagonal()[:, None],
                       M.diagonal()[:, None], res_mag, rayleigh, U_norm],
                      dim=1)
+
+
+def corrector_scale(cfg, epoch: int) -> float:
+    """The ramped corrector scale at `epoch` (fp32, as the JAX trainer)."""
+    ramp = min(np.float32(1.0),
+               np.float32(epoch) / np.float32(cfg.scale_ramp_epochs))
+    return float(np.float32(cfg.corrector_scale) * ramp)
+
+
+def level_loss(cfg, U_l, K, M):
+    """One level's terms of the per-level loss: (U_l, M-normalized with
+    `normalize_in_loss`, lam, residual, orthogonality, the weighted
+    zero-mean term or None). The sums over the level's rows come from the
+    operators (`node_reduce`), so a sharded level takes the same code."""
+    if cfg.normalize_in_loss:
+        U_l = m_normalize_columns(U_l, M)
+    lam, res, orth = rayleigh_residual_orth(U_l, K, M)
+    zm = None
+    if cfg.w_zero_mean > 0:
+        zm = (cfg.w_zero_mean / cfg.weight_residual) * zero_mean(U_l, M)
+    return U_l, lam, res, orth, zm
+
+
+def loss_terms(cfg, loss_res, loss_orth, loss_proj, lam0, lam_target,
+               scale: float, device):
+    """(total, metrics) from the summed level terms and level 0's
+    eigenvalues (src/multigrid_model.py:326-348)."""
+    terms = {
+        "res": cfg.weight_residual * loss_res,
+        "orth": cfg.weight_orthogonal * loss_orth,
+        "proj": cfg.weight_projection * loss_proj,
+        "trace": cfg.weight_trace * trace_loss(lam0),
+        "order": cfg.w_order * ordering(lam0),
+        "eigen": cfg.w_eigen * eigenvalue_target(lam0, lam_target),
+    }
+    total = (terms["res"] + terms["orth"] + terms["proj"]
+             + terms["trace"] + terms["order"] + terms["eigen"])
+    return total, {"loss": total, **terms,
+                   "scale": torch.full((), scale, device=device)}
 
 
 class MultigridTrainer:
@@ -129,16 +173,6 @@ class MultigridTrainer:
                             i, h.n_levels)
             for i in range(h.n_levels)], dim=0)
 
-    def _check_supported(self, mesh, n_devices):
-        cfg = self.cfg
-        asked = {"mesh": mesh is not None, "n_devices": n_devices is not None,
-                 "cfg.mesh_shape": bool(cfg.mesh_shape),
-                 "cfg.timing_chunks": cfg.timing_chunks > 0}
-        missing = [name for name, on in asked.items() if on]
-        if missing:
-            raise NotImplementedError(
-                f"not ported to the torch trainer yet: {missing}")
-
     def train(self, h, log_fn=None, eval_callback=None, mesh=None,
               n_devices=None, init_params=None,
               guard_block=None) -> MultigridResult:
@@ -147,12 +181,23 @@ class MultigridTrainer:
         `init_params` (a state_dict of the corrector) replaces the seeded
         initialization and `guard_block` ((N_finest, polish_guard)
         array) the seeded polish guard vectors — the hooks that let a
-        test feed both packages the same values.
+        test feed both packages the same values. `mesh` / `n_devices`
+        (or `cfg.mesh_shape`, its product the data axis) run the loop
+        sharded; the hierarchy must then be on the mesh's device.
         """
-        self._check_supported(mesh, n_devices)
         cfg = self.cfg
         k = cfg.n_modes
         device = h.device
+        if mesh is None and n_devices is None and cfg.mesh_shape:
+            n_devices = int(np.prod(cfg.mesh_shape))
+        sharded = mesh is not None or n_devices is not None
+        if sharded:
+            from eigenpinns_torch.solvers.direct_sharded import resolve_mesh
+
+            mesh = resolve_mesh(mesh, n_devices, device)
+            if mesh.device != device:
+                raise ValueError(f"the hierarchy is on {device}, the mesh "
+                                 f"on {mesh.device}")
 
         with torch.no_grad():
             U_cgc, lam_list = self._init_cgc(h)
@@ -191,8 +236,30 @@ class MultigridTrainer:
                 return op.with_precision(cfg.loss_mxu_precision)
             return op
 
-        use_fused = cfg.fuse_level_ops is not False and h.n_levels > 1
-        if use_fused:
+        if sharded and cfg.fuse_level_ops:
+            # The sharded loss has no fused block-diagonal path: each
+            # level rides its own layout and halo-banded SpMM.
+            warnings.warn(
+                "fuse_level_ops=True: the sharded multigrid trainer has "
+                "no fused block-diagonal path; training proceeds with "
+                "per-level halo-banded dispatches (numerically identical "
+                "loss)", stacklevel=2)
+        use_fused = (not sharded and cfg.fuse_level_ops is not False
+                     and h.n_levels > 1)
+        if sharded:
+            from eigenpinns_torch.parallel.sharded import (
+                average_gradients,
+                broadcast_,
+            )
+            from eigenpinns_torch.solvers.multigrid_sharded import (
+                build_sharded_multigrid_loop,
+            )
+
+            broadcast_(params, mesh)
+            sharded_loss = build_sharded_multigrid_loop(
+                h, cfg, mesh, model, feats, U_base, lam_list[0],
+                graph_kind=cfg.model_type.lower())
+        elif use_fused:
             K_blk, M_blk = h.fused_level_ops(dtype=U_base.dtype)
             K_blk, M_blk = _loss_op(K_blk), _loss_op(M_blk)
         else:
@@ -203,9 +270,7 @@ class MultigridTrainer:
 
         def loss_fn(epoch: int):
             corr_raw = model(feats, graph)
-            ramp = min(np.float32(1.0),
-                       np.float32(epoch) / np.float32(cfg.scale_ramp_epochs))
-            scale = float(np.float32(cfg.corrector_scale) * ramp)
+            scale = corrector_scale(cfg, epoch)
             U_pred = U_base + scale * corr_raw
             zero = U_pred.new_zeros(())
             loss_res, loss_orth, loss_proj = zero, zero, zero
@@ -235,40 +300,27 @@ class MultigridTrainer:
                                                / cfg.weight_residual
                                                ) * (moments**2).sum()
                 else:
-                    K, M = K_loss[i], M_loss[i]
-                    if cfg.normalize_in_loss:
-                        U_l = m_normalize_columns(U_l, M)
+                    U_l, lam_l, res_l, orth_l, zm = level_loss(
+                        cfg, U_l, K_loss[i], M_loss[i])
                     U_slices.append(U_l)
-                    lam_l, res_l, orth_l = rayleigh_residual_orth(U_l, K, M)
                     lam_levels.append(lam_l)
                     loss_res = loss_res + res_l
                     loss_orth = loss_orth + orth_l
-                    if cfg.w_zero_mean > 0:
-                        loss_res = loss_res + (cfg.w_zero_mean
-                                               / cfg.weight_residual
-                                               ) * zero_mean(U_l, M)
+                    if zm is not None:
+                        loss_res = loss_res + zm
                 if cfg.weight_projection > 0 and i >= 1:
                     loss_proj = loss_proj + projection(
                         U_l, h.Pt_ops[i - 1], U_slices[i - 1])
-            lam0 = lam_levels[0]
-            terms = {
-                "res": cfg.weight_residual * loss_res,
-                "orth": cfg.weight_orthogonal * loss_orth,
-                "proj": cfg.weight_projection * loss_proj,
-                "trace": cfg.weight_trace * trace_loss(lam0),
-                "order": cfg.w_order * ordering(lam0),
-                "eigen": cfg.w_eigen * eigenvalue_target(lam0, lam_target),
-            }
-            total = (terms["res"] + terms["orth"] + terms["proj"]
-                     + terms["trace"] + terms["order"] + terms["eigen"])
-            return total, {"loss": total, **terms,
-                           "scale": torch.full((), scale, device=device)}
+            return loss_terms(cfg, loss_res, loss_orth, loss_proj,
+                              lam_levels[0], lam_target, scale, device)
 
         def step(epoch: int):
             for p in params:
                 p.grad = None
-            total, metrics = loss_fn(epoch)
+            total, metrics = (sharded_loss if sharded else loss_fn)(epoch)
             total.backward()
+            if sharded:
+                average_gradients(params, mesh)
             opt.step(total)
             return metrics
 
@@ -308,10 +360,16 @@ class MultigridTrainer:
                                   else None),
                 track_params=params if cfg.track_best else None,
                 device=device, start_epoch=epoch0,
-                chunk_callback=chunk_cb)
+                chunk_callback=chunk_cb, timing_chunks=cfg.timing_chunks,
+                state_fns=module_state_fns(params, opt))
         if ckptr is not None:
-            ckptr.save(epoch0 + result.epochs_run,
-                       self._train_state(model, opt))
+            # Replicated parameters: one writer, and the checkpoint does
+            # not depend on the mesh.
+            if not sharded or torch.distributed.get_rank() == 0:
+                ckptr.save(epoch0 + result.epochs_run,
+                           self._train_state(model, opt))
+            if sharded:
+                torch.distributed.barrier()
         t_polish = time.time()
         with torch.no_grad():
             if cfg.track_best:
@@ -361,7 +419,8 @@ class MultigridTrainer:
             history=result.history, epochs_run=result.epochs_run,
             wall_time=result.wall_time, level_eigenvalues=lam_levels,
             chunk_times=result.chunk_times,
-            polish_time=time.time() - t_polish, polish_iterations=iters)
+            polish_time=time.time() - t_polish, polish_iterations=iters,
+            steady_steps_per_sec=result.steady_rate)
 
     @staticmethod
     def _train_state(model, opt) -> dict:

@@ -2,14 +2,15 @@
 
 Port of `eigenpinns_tpu/solvers/rayleigh_ritz.py`: the k x k problem
 stays on the operator's device (Cholesky reduction, or spectral-filtered
-whitening when the mass Gram may be near-singular).
+whitening when the mass Gram may be near-singular). The Grams sum over
+every shard of a sharded operator's rows (`node_reduce`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from eigenpinns_torch.sparse.ops import gram, hdot, spmm
+from eigenpinns_torch.sparse.ops import gram, hdot, node_reduce, spmm
 
 
 def eigh_generalized(A: torch.Tensor, B: torch.Tensor, jitter: float = 0.0):
@@ -45,8 +46,8 @@ def filtered_whiten(S: torch.Tensor, G: torch.Tensor, eps: float = 1e-6):
 def rayleigh_ritz(U: torch.Tensor, K, M, jitter: float = 0.0):
     """Solve the projected problem (U^T K U, U^T M U) and rotate U
     (src/multigrid_model.py:386-408)."""
-    A = gram(U, spmm(K, U))
-    B = gram(U, spmm(M, U))
+    A = node_reduce(M, gram(U, spmm(K, U)))
+    B = node_reduce(M, gram(U, spmm(M, U)))
     w, C = eigh_generalized(0.5 * (A + A.T), 0.5 * (B + B.T), jitter=jitter)
     return w, hdot(U, C)
 
@@ -54,9 +55,9 @@ def rayleigh_ritz(U: torch.Tensor, K, M, jitter: float = 0.0):
 def rayleigh_ritz_robust(U: torch.Tensor, K, M, eps: float = 1e-6):
     """Rayleigh-Ritz with spectral filtering of the mass Gram: dependent
     directions are dropped and their Ritz values pushed to a sentinel."""
-    B = gram(U, spmm(M, U))
+    B = node_reduce(M, gram(U, spmm(M, U)))
     Uw, good, _ = filtered_whiten(U, B, eps=eps)
-    A = gram(Uw, spmm(K, Uw))
+    A = node_reduce(M, gram(Uw, spmm(K, Uw)))
     A = 0.5 * (A + A.T)
     big = 10.0 * A.diagonal().abs().max() + 1.0
     A = A + torch.diag(torch.where(good, torch.zeros_like(big), big))

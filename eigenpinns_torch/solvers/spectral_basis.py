@@ -1,6 +1,6 @@
 """Large-scale spectral basis driver: N-point cloud -> k eigenpairs.
 
-Port of `eigenpinns_tpu/solvers/spectral_basis.py` (single device):
+Port of `eigenpinns_tpu/solvers/spectral_basis.py`:
 
   1. the point-cloud Laplacian (the port's host stage: its C++ kernels
      when their library loads, else numpy),
@@ -9,10 +9,13 @@ Port of `eigenpinns_tpu/solvers/spectral_basis.py` (single device):
      the cluster-ordered SplitBanded (`sparse/split.py`, kernel K4),
   4. blocked deflated LOBPCG (`solvers/lobpcg.py::lobpcg_blocked`).
 
+With `n_devices` or `mesh` steps 3-4 run node-sharded on every rank of
+an initialized `torch.distributed` group (`solvers/lobpcg_sharded.py`:
+the halo-banded sharded SpMM through K4, psum'd reductions); steps 1-2
+run on every rank's host alike.
+
 `spectral_basis_family` pads every member of a family of clouds to one
 common strip-BSR shape without group tables, so its solves run kernel K3.
-The node-sharded path (`n_devices` / `mesh`) belongs to the multi-GPU
-slice (ROADMAP queue 1, slice 5) and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -94,12 +97,24 @@ def spectral_basis(
     or 'split' (cluster-ordered banded core of width `window` + gather
     remainder). `operator_precision` ('highest', 'high', 'bf16') applies
     to 'bsr' only, as in the JAX package; 'highest' and 'high' are both
-    exact fp32 on the card. The solve runs on `device`.
+    exact fp32 on the card. The solve runs on `device`, or with
+    `n_devices` / `mesh` on the mesh (every rank calls it alike and gets
+    the same result; `operator_format` and `device` are then not read:
+    the sharded operator picks its own form, on the mesh's device; a
+    mesh made here is on `device`'s type).
     """
-    if n_devices is not None or mesh is not None:
-        raise NotImplementedError(
-            "the node-sharded spectral_basis is not ported yet (ROADMAP "
-            "queue 1, slice 5: multi-GPU)")
+    sharded = n_devices is not None or mesh is not None
+    if sharded:
+        from eigenpinns_torch.solvers.direct_sharded import resolve_mesh
+
+        mesh = resolve_mesh(mesh, n_devices, device)
+        if operator_precision != "highest":
+            import warnings
+
+            warnings.warn(
+                "operator_precision is not supported on the sharded path "
+                "(its banded blocks run fp32); solving at 'highest'",
+                stacklevel=2)
     if operator_format not in OPERATOR_FORMATS:
         raise ValueError(f"operator_format must be one of "
                          f"{OPERATOR_FORMATS}, got {operator_format!r}")
@@ -120,6 +135,20 @@ def spectral_basis(
     X0_full = _warm_start(X, L, m_diag, k, n_neighbors, coarse_n,
                           prolongation_neighbors)
     timings["warm_start_s"] = time.time() - t0
+
+    if sharded:
+        from eigenpinns_torch.solvers.lobpcg_sharded import lobpcg_sharded
+
+        t0 = time.time()
+        vals, vecs, resids = lobpcg_sharded(
+            L, sp.diags(m_diag).tocsr(), k, mesh=mesh, X=X, X0=X0_full,
+            block=block, guard=guard, max_iter=max_iter, tol=tol,
+            window=window, checkpoint_dir=checkpoint_dir,
+            log_fn=(None if log_fn is None else
+                    lambda b0, keep, r: log_fn(
+                        f"  modes [{b0}:{b0 + keep}] converged")))
+        timings["solve_s"] = time.time() - t0
+        return SpectralBasisResult(vals, vecs, resids, timings)
 
     t0 = time.time()
     if operator_format == "bsr":

@@ -19,12 +19,14 @@ from eigenpinns_torch.sparse.bsr import (
 from eigenpinns_torch.sparse.formats import Diagonal, SparseELL, as_operator
 from eigenpinns_torch.sparse.occupancy import occupancy_mask, occupied_blocks
 from eigenpinns_torch.sparse.ops import (
+    FunctionOperator,
     gcn_normalized_adjacency,
     gram,
     hdot,
     m_gram,
     m_normalize_columns,
     neighbor_mean_operator,
+    node_reduce,
     rayleigh_quotients,
     residual,
     spmm,
@@ -59,6 +61,7 @@ __all__ = [
     "rolling_spmm_plain", "rolling_spmm_gram_plain",
     "gcn_normalized_adjacency", "gram", "hdot", "m_gram",
     "m_normalize_columns", "neighbor_mean_operator", "rayleigh_quotients",
+    "FunctionOperator", "node_reduce",
     "residual", "spmm", "spmm_gram", "spmv",
     "occupancy_mask", "occupied_blocks",
 ]

@@ -51,8 +51,10 @@ from eigenpinns_torch.sparse.occupancy import (
     occupied_blocks,
 )
 
-# Launches of each CUDA kernel (one per wrapper call that reaches it).
-banded_kernel_launches = {"spmm": 0, "spmm_gram": 0}
+# Launches of each CUDA kernel (one per wrapper call that reaches it):
+# K4 on a square operator, K4 on a rectangular block (a shard of the
+# sharded path), K5.
+banded_kernel_launches = {"spmm": 0, "spmm_rect": 0, "spmm_gram": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -86,7 +88,9 @@ class BandedELL:
             relative to the tile's window start
     starts: (n_tiles,) int32 — window start row of U for each tile
     n:      true row count (N_pad = round_up(n, tile))
-    n_cols: column count of the (square) operator
+    n_cols: column count: n for a square operator; a rectangular block
+            (a shard's rows against its halo window, or its transpose:
+            `parallel/sharded_banded.py`) has its own
     tile:   rows per tile
     transpose_banded: A^T in the same layout (None = symmetric)
     occupancy: (N_pad / 128, B / 128) int64 — bit 8 i + j of a word is
@@ -188,14 +192,18 @@ class BandedELL:
 
 def banded_spmm_plain(A: BandedELL, U: torch.Tensor) -> torch.Tensor:
     """A @ U in fp32: gather each tile's U window, one batched product.
-    A bf16 band rounds U to bf16 first, as the kernels do."""
+    A bf16 band rounds U to bf16 first, as the kernels do. U is padded
+    with zero rows to N_pad + B when it is shorter; a longer U (a halo
+    window of a rectangular block) is read as it is, as the JAX
+    `pad_u` does."""
     tile, B = A.tile, A.bandwidth
     n_pad = A.band.shape[0]
     n_tiles = n_pad // tile
     Uf = U.float()
     if A.band.dtype == torch.bfloat16:
         Uf = Uf.bfloat16().float()
-    Up = torch.nn.functional.pad(Uf, (0, 0, 0, n_pad + B - U.shape[0]))
+    Up = torch.nn.functional.pad(
+        Uf, (0, 0, 0, max(n_pad + B - U.shape[0], 0)))
     idx = (A.starts.long()[:, None]
            + torch.arange(B, device=U.device)[None, :])
     W = torch.bmm(A.band.float().view(n_tiles, tile, B), Up[idx])
@@ -220,7 +228,7 @@ def build_kernel() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.epk_banded_spmm.restype = i
     lib.epk_banded_spmm.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i,
-                                    i, p]
+                                    i, i, p]
     lib.epk_banded_error_string.restype = ctypes.c_char_p
     lib.epk_banded_error_string.argtypes = [i]
     return lib
@@ -229,12 +237,13 @@ def build_kernel() -> ctypes.CDLL:
 def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
                        pre: int, occ: torch.Tensor | None, U: torch.Tensor,
                        n: int, with_gram: bool, col_block: int | None):
-    """One launch of csrc/banded_spmm.cu on a square n x n operator: a
-    full-window band (`starts` given) or a rolling band (`starts` None,
-    windows `pre` rows above their tile). Checks what both layouts share
-    (the band, its occupancy table, U, `col_block`), allocates the
-    outputs and raises when the launch fails. Returns (W, G); G is None
-    without `with_gram`."""
+    """One launch of csrc/banded_spmm.cu, W (n, k) = A U: a full-window
+    band (`starts` given; U of any length >= 1, rows past its end read
+    as zero) or a rolling band (`starts` None, windows `pre` rows above
+    their tile; U has n rows). The Gram takes U with n rows. Checks what
+    both layouts share (the band, its occupancy table, U, `col_block`),
+    allocates the outputs and raises when the launch fails. Returns (W,
+    G); G is None without `with_gram`."""
     if occ is None:
         raise ValueError("the band kernels need the band's occupancy "
                          "table (from_scipy makes it; "
@@ -245,9 +254,11 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
     if band.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the band must be float32 or bfloat16, got "
                          f"{band.dtype}")
-    if (U.dtype != torch.float32 or U.dim() != 2 or U.shape[0] != n
-            or U.shape[1] == 0):
-        raise ValueError(f"U must be float32 ({n}, k >= 1), got "
+    square = starts is None or with_gram
+    if (U.dtype != torch.float32 or U.dim() != 2 or U.shape[1] == 0
+            or U.shape[0] == 0 or (square and U.shape[0] != n)):
+        rows = n if square else "n_u >= 1"
+        raise ValueError(f"U must be float32 ({rows}, k >= 1), got "
                          f"{U.dtype} {tuple(U.shape)}")
     n_pad, B = band.shape
     if n_pad % 128 or B % 128 or not 0 < n <= n_pad:
@@ -283,8 +294,8 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
         None if starts is None else starts.data_ptr(), pre, occ.data_ptr(),
         U.data_ptr(), W.data_ptr(),
         None if partial is None else partial.data_ptr(),
-        None if G is None else G.data_ptr(), n, n_pad, B, k, col_block,
-        stream)
+        None if G is None else G.data_ptr(), n, U.shape[0], n_pad, B, k,
+        col_block, stream)
     if err != 0:
         raise RuntimeError("banded_spmm kernel launch failed: "
                            + lib.epk_banded_error_string(err).decode())
@@ -294,21 +305,27 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
 def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
                      col_block: int | None = None):
     """Launch csrc/banded_spmm.cu: W = A U (K4), and with `with_gram` also
-    G = U^T A U (K5). `col_block` (32 or 64 output columns per block)
+    G = U^T A U (K5). K4 takes a rectangular block too, with U of any
+    length >= 1 (rows past U's end read as zero); K5 takes a square
+    operator only. `col_block` (32 or 64 output columns per block)
     defaults to `default_col_block(k, band.dtype)`. Raises on anything
     the kernels do not take."""
     band, starts = A.band, A.starts
     n_pad = band.shape[0]
-    if A.tile != 128 or A.n != A.n_cols:
-        raise ValueError("the banded kernels take a square operator with "
-                         f"128-row tiles (tile {A.tile}, shape {A.shape})")
+    if A.tile != 128:
+        raise ValueError(f"the banded kernels take 128-row tiles (tile "
+                         f"{A.tile})")
+    if with_gram and A.n != A.n_cols:
+        raise ValueError("the fused Gram (K5) takes a square operator, got "
+                         f"shape {A.shape}")
     if (starts.dtype != torch.int32 or starts.shape != (n_pad // 128,)
             or starts.device != band.device or not starts.is_contiguous()):
         raise ValueError("starts must be contiguous int32 (n_pad / 128,) "
                          "on the band's device")
     W, G = launch_band_kernel(band, starts, 0, A.occupancy, U, A.n,
                               with_gram, col_block)
-    banded_kernel_launches["spmm_gram" if with_gram else "spmm"] += 1
+    banded_kernel_launches["spmm_gram" if with_gram else
+                           "spmm" if A.n == A.n_cols else "spmm_rect"] += 1
     return (W, G) if with_gram else W
 
 

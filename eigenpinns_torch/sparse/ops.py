@@ -6,6 +6,12 @@ its backward pass is a second gather on the stored transpose, so neither
 direction scatters (no `index_add_`). Every Gram / Rayleigh product runs
 in full fp32: the package disables TF32 on import (see `__init__`), which
 is the torch form of the reference's `hdot` rule (ops.py:49-55).
+
+Node-axis reductions (Grams, column sums) take their sum over the shards
+from the operator (`node_reduce`): a `FunctionOperator` over a sharded
+SpMM (`parallel/`) carries the all-reduce over the mesh's data axis, and
+every other operator's rows are all on one device, so the local sum is
+the whole.
 """
 
 from __future__ import annotations
@@ -31,6 +37,41 @@ from eigenpinns_torch.sparse.split import (
     split_spmm,
     split_spmm_gram,
 )
+
+
+class FunctionOperator:
+    """Duck-typed operator: any U -> A @ U callable plus its diagonal
+    (port of the JAX `FunctionOperator`), accepted by `spmm` and by the
+    solvers written against `spmm(A, U)` / `A.diagonal()`: the sharded
+    SpMMs of `parallel/` in particular. On a sharded operator `fn` maps
+    this rank's rows to this rank's rows, `diag` holds this rank's rows,
+    `reduce` is the differentiable sum of a node-axis partial over the
+    data axis, `n` the true (unpadded) global row count and `rows` this
+    rank's (first row, padded global row count) in the global layout.
+    `reduce=None` means one device."""
+
+    def __init__(self, fn, diag, reduce=None, n: int | None = None,
+                 rows: tuple | None = None):
+        self.fn = fn
+        self.diag = diag
+        self.reduce = reduce
+        self.n = n
+        self.rows = rows
+
+    def diagonal(self):
+        return self.diag
+
+    @property
+    def shape(self):
+        n = self.diag.shape[0]
+        return (n, n)
+
+
+def node_reduce(A, x: torch.Tensor) -> torch.Tensor:
+    """x, a partial sum over this rank's rows, summed over every shard
+    of A's rows: A's all-reduce when A is sharded, else x itself."""
+    red = getattr(A, "reduce", None)
+    return x if red is None else red(x)
 
 
 def hdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -75,6 +116,8 @@ def spmm(A, U: torch.Tensor) -> torch.Tensor:
         return split_spmm(A, U)
     if isinstance(A, BSRTile):
         return bsr_spmm(A, U)
+    if isinstance(A, FunctionOperator):
+        return A.fn(U)
     raise TypeError(f"unsupported operator {type(A)}")
 
 
@@ -96,7 +139,7 @@ def spmm_gram(A, U: torch.Tensor):
     if isinstance(A, BSRTile):
         return bsr_spmm_gram(A, U)
     W = spmm(A, U)
-    return W, gram(U, W)
+    return W, node_reduce(A, gram(U, W))
 
 
 def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -106,7 +149,7 @@ def gram(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
 def m_gram(U: torch.Tensor, M) -> torch.Tensor:
     """U^T M U — the M-inner-product Gram matrix."""
-    return gram(U, spmm(M, U))
+    return node_reduce(M, gram(U, spmm(M, U)))
 
 
 def rayleigh_quotients(U: torch.Tensor, K, M,
@@ -114,14 +157,15 @@ def rayleigh_quotients(U: torch.Tensor, K, M,
     """Per-mode Rayleigh quotients diag(U^T K U) / diag(U^T M U)."""
     Ku = spmm(K, U)
     Mu = spmm(M, U)
-    return (U * Ku).sum(0) / ((U * Mu).sum(0) + eps)
+    return (node_reduce(M, (U * Ku).sum(0))
+            / (node_reduce(M, (U * Mu).sum(0)) + eps))
 
 
 def m_normalize_columns(U: torch.Tensor, M,
                         eps: float = 1e-12) -> torch.Tensor:
     """Normalize each column to unit M-norm."""
     Mu = spmm(M, U)
-    return U / torch.sqrt((U * Mu).sum(0) + eps)[None, :]
+    return U / torch.sqrt(node_reduce(M, (U * Mu).sum(0)) + eps)[None, :]
 
 
 def residual(U: torch.Tensor, K, M, lam: torch.Tensor) -> torch.Tensor:

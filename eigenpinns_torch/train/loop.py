@@ -5,6 +5,12 @@ Port of `eigenpinns_tpu/train/loop.py::run_scan_loop`. The JAX loop fuses
 are enqueued eagerly and the host waits on the device once per chunk, to
 read that chunk's metrics and the early-stop counter. The best-loss
 counter and the optional best-parameter snapshot live on the device.
+
+The `timing_chunks` probe is the JAX loop's chained probe: after
+training, 3 x `timing_chunks` more chunks run back to back with one sync
+at the end of each third, and the training state is then put back as it
+was (`state_fns`), so the probe changes neither the trained state nor
+the history. `steady_rate` is the fastest third's epochs per second.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ class LoopResult(NamedTuple):
     stopped_early: bool
     chunk_times: list        # [(n_epochs, seconds)] per chunk
     best_params: list | None = None  # snapshot at the best loss
+    steady_rate: float | None = None  # timing_chunks probe, epochs/s
 
 
 def run_chunked_loop(
@@ -39,6 +46,8 @@ def run_chunked_loop(
     device=None,
     start_epoch: int = 0,
     chunk_callback: Callable | None = None,
+    timing_chunks: int = 0,
+    state_fns: tuple | None = None,
 ) -> LoopResult:
     """Run `step_fn` for up to n_epochs, syncing once per chunk.
 
@@ -57,6 +66,9 @@ def run_chunked_loop(
     ramps and schedules continue rather than replay); `epochs_run` and
     the history count this call's epochs. `chunk_callback(epochs_run)`
     (optional) runs on the host after every chunk, after its sync.
+    `timing_chunks` > 0 runs the throughput probe; `state_fns` is then
+    (save() -> snapshot, restore(snapshot)) of the training state that
+    `step_fn` changes.
     """
     if early_stop_mode not in ("improve", "below_tol"):
         raise ValueError(f"early_stop_mode must be 'improve' or "
@@ -113,6 +125,53 @@ def run_chunked_loop(
             stopped = True
             break
     wall = time.time() - t0
+    steady_rate = None
+    if timing_chunks > 0:
+        steady_rate = _probe(step_fn, state_fns, timing_chunks, chunk,
+                             start_epoch + epochs_run, early_stop_metric)
     history = {k: np.concatenate(v) for k, v in history.items()}
     return LoopResult(history, epochs_run, wall, stopped, chunk_times,
-                      best_params)
+                      best_params, steady_rate)
+
+
+def _probe(step_fn, state_fns, timing_chunks: int, chunk: int, epoch0: int,
+           metric: str) -> float:
+    """Epochs per second of `timing_chunks` chunks run back to back with
+    one forcing read at the end, the fastest of three; the training state
+    is restored afterwards (the JAX loop discards the probe's carry)."""
+    if state_fns is None:
+        raise ValueError("timing_chunks needs state_fns=(save, restore) to "
+                         "put the training state back after the probe")
+    save, restore = state_fns
+    snapshot = save()
+    rates = []
+    epoch = epoch0
+    for _ in range(3):
+        t_probe = time.time()
+        for _ in range(timing_chunks * chunk):
+            metrics = step_fn(epoch)
+            epoch += 1
+        float(metrics[metric].detach())   # the one forcing read
+        rates.append(timing_chunks * chunk
+                     / max(time.time() - t_probe, 1e-9))
+    restore(snapshot)
+    return max(rates)
+
+
+def module_state_fns(params: list, opt) -> tuple:
+    """(save, restore) of `params` (updated in place) and the state of
+    `opt` (anything with state_dict / load_state_dict), for the probe."""
+    import copy
+
+    def save():
+        return ([p.detach().clone() for p in params],
+                copy.deepcopy(opt.state_dict()))
+
+    def restore(snapshot):
+        values, opt_state = snapshot
+        with torch.no_grad():
+            for p, v in zip(params, values):
+                p.copy_(v)
+        opt.load_state_dict(opt_state)
+
+    return save, restore

@@ -241,7 +241,8 @@ def test_banded_cuda_kernels_match_plain(case, k, dtype):
     W2, G = tbanded.banded_spmm_cuda(op, U, with_gram=True)
     torch.cuda.synchronize()
     assert tbanded.banded_kernel_launches == {
-        "spmm": before["spmm"] + 1, "spmm_gram": before["spmm_gram"] + 1}
+        "spmm": before["spmm"] + 1, "spmm_rect": before["spmm_rect"],
+        "spmm_gram": before["spmm_gram"] + 1}
     Wp, Gp = tbanded.banded_spmm_gram_plain(op, U)
     assert torch.equal(W, W2)
     for cb in (32, 64):
@@ -259,3 +260,52 @@ def test_banded_cuda_kernels_match_plain(case, k, dtype):
     At = op.transpose_banded if op.transpose_banded is not None else op
     ref = tbanded.banded_spmm_plain(At, gW + U @ gG) + Wp @ gG.T
     assert _rel(Uk.grad.cpu(), ref.cpu()) < 1e-4
+
+
+@pytest.fixture(scope="module")
+def shard_blocks():
+    """Rank 1's (per x per + 2B) block of a 4-shard split core of a
+    6000-point cloud and its (win_pad x per) transpose, in fp32 and bf16
+    (host tables on the CPU; moved to the card per test)."""
+    from eigenpinns_torch.parallel import build_sharded_operator
+
+    _need_card()
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(6000, 3))
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    L, _ = point_cloud_laplacian(X, n_neighbors=15)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _, (core, _), _ = build_sharded_operator(
+            L, 4, X=X, dtype=dtype, max_bandwidth=512, window=512,
+            shards=(1,), device="cpu")
+        out[dtype] = core
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 20, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["block", "transpose"])
+def test_banded_cuda_rectangular_shard_blocks(shard_blocks, which, dtype, k):
+    """K4 on a shard's rectangular block against its halo window (U of
+    per + 2B rows) and on the block's transpose (W of win rows from a U
+    of per rows, the rows past U's end read as zero), vs the plain
+    version; W the same bits from both column blocks. K5 refuses a
+    rectangular operator."""
+    _need_card()
+    A = shard_blocks[dtype].block(1, "cuda")
+    if which == "transpose":
+        A = A.transpose_banded
+    gen = torch.Generator("cuda").manual_seed(k)
+    U = torch.randn((A.n_cols, k), generator=gen, device="cuda")
+    before = tbanded.banded_kernel_launches["spmm_rect"]
+    W = tbanded.banded_spmm_cuda(A, U)
+    torch.cuda.synchronize()
+    assert tbanded.banded_kernel_launches["spmm_rect"] == before + 1
+    assert W.shape == (A.n, k)
+    assert _rel(W.cpu(), tbanded.banded_spmm_plain(A, U).cpu()) < 1e-5
+    for cb in (32, 64):
+        assert torch.equal(tbanded.banded_spmm_cuda(A, U, col_block=cb), W)
+    with pytest.raises(ValueError, match="square"):
+        tbanded.banded_spmm_cuda(A, U, with_gram=True)

@@ -232,10 +232,18 @@ def test_train_joint_seeded_init_and_unported_options(cloud):
     with pytest.raises(ValueError, match="mode"):
         train_joint(cloud["tK"], cloud["tM"], cloud["X"], mode="svd",
                     **dict(TRAIN, epochs=1))
-    for option in ("batch_nodes", "timing_chunks"):
-        with pytest.raises(NotImplementedError, match=option):
-            train_joint(cloud["tK"], cloud["tM"], cloud["X"],
-                        **dict(TRAIN, epochs=1, **{option: 2}))
+    with pytest.raises(NotImplementedError, match="batch_nodes"):
+        train_joint(cloud["tK"], cloud["tM"], cloud["X"],
+                    **dict(TRAIN, epochs=1, batch_nodes=2))
+    # The timing_chunks probe (ported) reports a rate and puts the
+    # trained state back: the same history and eigenvalues as without.
+    probed = train_joint(cloud["tK"], cloud["tM"], cloud["X"],
+                         **dict(TRAIN, epochs=4, scan_chunk=2,
+                                timing_chunks=2))
+    assert probed.steady_steps_per_sec > 0
+    np.testing.assert_array_equal(probed.history["loss"],
+                                  res.history["loss"])
+    np.testing.assert_array_equal(probed.eigenvalues, res.eigenvalues)
 
 
 def test_make_cloud_is_the_bench_cloud():
