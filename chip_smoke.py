@@ -177,7 +177,9 @@ present or the package is not beside it. On the card it:
  13. prints a JSON line describing the five kernels (launches on their
      path, max abs err, kernel, plain and library times; K1 with its
      300k row beside the multigrid one and its launches on the transfer
-     path and in CLI run A with its FEM K_blk and M_blk rows, K2 and K4
+     path and in CLI run A with its FEM K_blk and M_blk rows and its
+     launches in step 17's smoother and torchrun CLI, K4's rectangular
+     form with its launches in that CLI, K2 and K4
      with their 1M rows and launches, K2 with its k = 1 row and launches
      on the Dirichlet path and its launches and k = 64 row in CLI run B,
      K3 with its launches in run B (0); and the bound:
@@ -285,6 +287,42 @@ present or the package is not beside it. On the card it:
      training is chaotic past them. The host data goes
      to the ranks as files; they reuse the built kernel libraries. Step
      16 prints its wall time and each sub-step's.
+ 17. (before the JSON line of step 13) runs the rest of the JAX
+     package's public surface. 17c starts first, as two processes of
+     their own beside 17b: CLI run A cut to 300 epochs and its corrector
+     ramp by the same share (ROADMAP F25), once as one process and once
+     under `python -m torch.distributed.run --standalone --nproc_per_node
+     1 -m eigenpinns_torch.main` with mesh_shape [1] (one rank on the
+     card over NCCL, the sharded multigrid trainer: K4 on the shard
+     blocks, K1 in pre- and postprocessing), and a third process, the
+     one-process run with fuse_level_ops=False; the torchrun run must
+     write exactly one VTU, launch K1 and K4's rectangular form (the
+     counts its run summary prints) and match the one-process run: the
+     eigenvalues of modes 1+ rel 1e-4, and the loss rel 1e-2 over the
+     epochs before reassociation alone (the one-process pair) parts by
+     1e-3, at least 20 (ROADMAP F24, step 16c's rule). 17b: `smooth_eigenfunctions` (tau 0.1, 30 CG
+     iterations) on the 300k rolling band in 'highest' from the 300k
+     oracle's 20 eigenvectors plus seeded noise of 1e-2 relative: K1
+     launches exactly 1 + 30 times (the first residual, then one
+     matvec an iteration), the result equals the same call on K1's plain
+     version to rel 1e-5, `m_orthonormalize_cholesky` makes U^T M U = I
+     to 1e-5, and the Rayleigh-Ritz error against eigsh before and after
+     the smoothing is printed. 17a: node-minibatched `train_joint` on
+     the JAX minibatch test's harness (a 300-point sphere, 4 modes,
+     64 x 64, 64 rows a step): the card repeats the CPU run from the
+     same parameters and rows over 200 epochs (rel 1e-4) and meets the
+     test's bar at 4000 epochs (modes 1-2 within 0.15 of eigsh); then on
+     the 1M Laplacian as SparseELL (the XL phase's matrix, no second
+     host stage) at phase_xl's widths, 150 epochs of 65536 rows, the
+     Rayleigh-Ritz finish: steps/s (per-chunk median of the 4 chunks of
+     30 after the first), peak device memory, and the max rel err of
+     modes 1+ against the 1M oracle and the finish's |U^T M U - I|, both
+     printed (tests/test_torch_minibatch.py holds both to the JAX
+     package's at 20k points); held: the Ritz values ascend, none is
+     below the oracle's (to 1e-4 of the largest), each equals its
+     vector's Rayleigh quotient in fp64 on the host to rel 1e-2 of the
+     largest, and `m_orthonormalize_cholesky` of the result gives
+     |U^T M U - I| <= 1e-4. Step 17 prints its wall time.
 
 Every depth cut of a path is printed: the sequential deflation's 1000
 of 6000 epochs a mode, the adaptive deflation's 11500 of 25000 epochs,
@@ -499,10 +537,19 @@ PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 
 
 def eigsh_values(L, M, k: int) -> np.ndarray:
-    """The host oracle's k smallest eigenvalues (runs in a worker)."""
+    """eigsh's k smallest eigenvalues of (L, M)."""
     from eigenpinns_torch.solvers import eigsh_smallest
 
     return eigsh_smallest(L, M, k)[0]
+
+
+def eigsh_pairs(L, M, k: int, n_vectors: int):
+    """The host oracle's work (runs in a worker): eigsh's k smallest
+    eigenvalues and the first n_vectors eigenvectors (none for 0)."""
+    from eigenpinns_torch.solvers import eigsh_smallest
+
+    vals, vecs = eigsh_smallest(L, M, k)
+    return vals, np.ascontiguousarray(vecs[:, :n_vectors], np.float32)
 
 
 
@@ -630,9 +677,19 @@ class HostJob:
         self.pool.join()
 
 
-def HostOracle(label: str, L, M, k: int) -> HostJob:
-    """eigsh's k smallest eigenvalues of (L, M) as a HostJob."""
-    return HostJob(f"{label} eigsh oracle ({k} modes)", eigsh_values, L, M, k)
+class HostOracle(HostJob):
+    """eigsh's k smallest eigenvalues of (L, M) as a HostJob (`result()`),
+    and with `n_vectors` its first eigenvectors (`vectors()`)."""
+
+    def __init__(self, label: str, L, M, k: int, n_vectors: int = 0):
+        super().__init__(f"{label} eigsh oracle ({k} modes)", eigsh_pairs,
+                         L, M, k, n_vectors)
+
+    def result(self) -> np.ndarray:
+        return super().result()[0]
+
+    def vectors(self) -> np.ndarray:
+        return super().result()[1]
 
 
 class SmokeFailure(RuntimeError):
@@ -2558,6 +2615,51 @@ PDE_JAX = {
 # Card against CPU: epochs of each driver from the same parameters and
 # draws, every history key held to PARITY_TOL.
 PARITY_EPOCHS, PARITY_NTK_EVERY, PARITY_TOL = 100, 25, 1e-4
+
+# Step 17a: node-minibatched `train_joint` on the 1M Laplacian as
+# SparseELL (minibatching reads the rows' own stencils, which the JAX
+# package supports on Diagonal and SparseELL operators only) at
+# phase_xl's widths, 65536 rows (~1/16 of the nodes) a step, then the
+# Rayleigh-Ritz finish, in chunks of 30 epochs so that 4 are timed after
+# the first. Its error against eigsh and its M-orthonormality defect are
+# printed, not held: the JAX package has no figure at this size, and at
+# 20k points tests/test_torch_minibatch.py holds both to the JAX
+# package's (the bf16 MLP's rounding of U dominates the error in both).
+# Held: the Ritz values ascend and none is below eigsh's (to
+# MB_RITZ_TOL of the largest), each equals its vector's fp64 Rayleigh
+# quotient to MB_RQ_TOL of the largest, and m_orthonormalize_cholesky of
+# the result is M-orthonormal to MB_ORTH_BAR.
+MB_CFG = dict(XL_CFG, batch_nodes=65536, rayleigh_ritz_finish=True,
+              scan_chunk=30)
+MB_ORTH_BAR, MB_RITZ_TOL, MB_RQ_TOL = 1e-4, 1e-4, 1e-2
+# The check that can fail: the JAX test's harness
+# (tests/test_direct_deflation.py::test_train_joint_minibatched: a
+# 300-point sphere, 15 neighbors, 4 modes, 64 x 64, 64 rows a step): the
+# card repeats the port's CPU run from the same parameters and rows to
+# MB_PARITY_TOL over MB_PARITY_EPOCHS epochs, and at 4000 epochs meets
+# the test's bar on modes 1-2.
+MB_SPHERE = dict(n_modes=4, hidden=(64, 64), mode="penalty", w_res=1.0,
+                 w_orth=10.0, lr_start=5e-3, lr_end=1e-4, seed=0,
+                 batch_nodes=64)
+MB_PARITY_EPOCHS, MB_PARITY_TOL, MB_SPHERE_BAR = 200, 1e-4, 0.15
+# Step 17b: `smooth_eigenfunctions` (tau 0.1, 30 CG iterations) on the
+# 300k rolling band in 'highest', from the oracle's 20 eigenvectors with
+# seeded noise of 1e-2 relative, then `m_orthonormalize_cholesky`.
+SMOOTH_TAU, SMOOTH_ITERS, SMOOTH_NOISE = 0.1, 30, 1e-2
+SMOOTH_TOL, SMOOTH_ORTH_TOL = 1e-5, 1e-5
+# Step 17c: CLI run A under torchrun, one rank on the card over NCCL, its
+# 2000 epochs and the corrector's 5000-epoch ramp both cut to 15%
+# (ROADMAP F25), held to the single-process CLI at the same cut by step
+# 16c's bars and rule (ROADMAP F24): eigenvalues rel 1e-4, and the loss
+# rel 1e-2 over the epochs in which reassociation alone (the one-process
+# run with fuse_level_ops=False against the default fused one) stays
+# within a tenth of that. On run A's mesh path that window was 32 epochs
+# on an H100 (53 on 16c's point-cloud path), so at least
+# TORCHRUN_MIN_WINDOW are required.
+TORCHRUN_CUT = ["epochs=300", "scale_ramp_epochs=750", "log_every=1",
+                "verbose=True"]
+TORCHRUN_LOSS_TOL, TORCHRUN_EIG_TOL, TORCHRUN_MIN_WINDOW = 1e-2, 1e-4, 20
+TORCHRUN_TIMEOUT = 600
 # Device geometry at sizes its users would call real: kNN at the native
 # Laplacian's neighbor count on a 60k cloud (the JAX docstring's range is
 # <= 100k points); FPS on the 1M cloud; projection of noisy queries.
@@ -3514,6 +3616,304 @@ def shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl, oracle, oracle_xl,
     return k4_rect, rows
 
 
+# ---- the rest of the public surface (step 17) ----------------------------
+
+def sphere_harness():
+    """The JAX minibatch test's problem: (X, L, M, eigsh values)."""
+    from eigenpinns_torch.geometry import point_cloud_laplacian
+
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(300, 3))
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    L, M = point_cloud_laplacian(X, n_neighbors=15)
+    return X, L, M, eigsh_values(L, M, 6)
+
+
+def minibatch_phase(L, m_diag, X, oracle, device) -> None:
+    """Step 17a: the JAX test's harness on the card against the CPU and
+    at 4000 epochs, then node-minibatched training at 1M."""
+    from eigenpinns_torch.models import JointEigenNet
+    from eigenpinns_torch.solvers import m_orthonormalize_cholesky, train_joint
+    from eigenpinns_torch.sparse import Diagonal, SparseELL, as_operator
+
+    Xs, Ls, Ms, vals_s = sphere_harness()
+    net = JointEigenNet(3, MB_SPHERE["hidden"], MB_SPHERE["n_modes"])
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    rows = np.random.default_rng(17).integers(
+        0, Xs.shape[0], (MB_PARITY_EPOCHS, MB_SPHERE["batch_nodes"]))
+    runs = {}
+    for dev in ("cpu", device):
+        runs[str(dev)] = train_joint(
+            as_operator(Ls, device=dev), as_operator(Ms, device=dev), Xs,
+            epochs=MB_PARITY_EPOCHS, scan_chunk=50, device=dev,
+            init_params=net.state_dict(), batch_rows=rows, **MB_SPHERE)
+    cpu, card = runs["cpu"], runs[str(device)]
+    dev_hist = max(float(np.abs(card.history[key] - cpu.history[key]).max()
+                         / np.abs(cpu.history[key]).max())
+                   for key in ("loss", "res", "orth", "lam_mean"))
+    dev_lam = float(np.abs(card.eigenvalues - cpu.eigenvalues).max()
+                    / np.abs(cpu.eigenvalues).max())
+    print(f"[minibatch] sphere harness, {MB_PARITY_EPOCHS} epochs from the "
+          f"same parameters and rows: card vs CPU history rel "
+          f"{dev_hist:.3e}, eigenvalues rel {dev_lam:.3e} (tol "
+          f"{MB_PARITY_TOL})", flush=True)
+    check(dev_hist <= MB_PARITY_TOL and dev_lam <= MB_PARITY_TOL,
+          f"minibatched train_joint: card vs CPU {dev_hist:.3e} / "
+          f"{dev_lam:.3e}")
+    t0 = time.time()
+    full = train_joint(as_operator(Ls, device=device),
+                       as_operator(Ms, device=device), Xs, epochs=4000,
+                       device=device, **MB_SPHERE)
+    rel_s = np.abs(full.eigenvalues[1:3] - vals_s[1:3]) / vals_s[1:3]
+    print(f"[minibatch] sphere harness, 4000 epochs (the port's own "
+          f"initialization and rows) in {time.time() - t0:.2f} s: modes "
+          f"1-2 max rel err {rel_s.max():.3e} (bar {MB_SPHERE_BAR})",
+          flush=True)
+    check(bool(np.isfinite(full.eigenvalues).all())
+          and rel_s.max() < MB_SPHERE_BAR,
+          f"minibatched sphere harness: {rel_s.max():.3e} >= "
+          f"{MB_SPHERE_BAR}")
+
+    # The 1M Laplacian the XL phases hold, as SparseELL: no second host
+    # stage.
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    K = SparseELL.from_scipy(L, device=device)
+    M = Diagonal(torch.as_tensor(m_diag, dtype=torch.float32, device=device))
+    torch.cuda.synchronize()
+    print(f"[minibatch] 1M SparseELL K in {time.time() - t0:.2f} s: "
+          f"{tuple(K.indices.shape)}, stored transpose "
+          f"{K.transpose_ell is not None}", flush=True)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    res = train_joint(K, M, X, device=device, **MB_CFG)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    rates = sorted(n / t for n, t in res.chunk_times[1:])
+    vals = oracle.result()[:DIRECT_K]
+    lam = res.eigenvalues.astype(np.float64)
+    U = res.eigenvectors.astype(np.float64)
+    rel = np.abs(lam[1:] - vals[1:]) / np.abs(vals[1:])
+
+    def defect(V):
+        V = V.astype(np.float64)
+        return float(np.abs(V.T @ (m_diag[:, None] * V)
+                            - np.eye(V.shape[1])).max())
+
+    rr_defect = defect(U)
+    orth = defect(m_orthonormalize_cholesky(
+        torch.as_tensor(res.eigenvectors, device=device), M).cpu().numpy())
+    rq = np.sum(U * (L @ U), 0) / np.sum(U * (m_diag[:, None] * U), 0)
+    rq_dev = float(np.abs(rq - lam).max() / np.abs(lam).max())
+    below = float((vals - lam).max() / np.abs(vals).max())
+    print(f"[minibatch] 1M, {MB_CFG['batch_nodes']} rows a step, "
+          f"{res.epochs_run} epochs + Rayleigh-Ritz finish in {wall:.2f} s: "
+          f"per-chunk median {rates[len(rates) // 2]:.2f} steps/s over "
+          f"{len(rates)} chunks (first excluded), chunk times "
+          f"{[round(t, 4) for _, t in res.chunk_times]}, peak device memory "
+          f"{peak:.1f} MiB; printed, not held: max rel err of modes "
+          f"1..{DIRECT_K - 1} vs eigsh {rel.max():.3e}, the finish's "
+          f"|U^T M U - I| {rr_defect:.3e}; held: Ritz values ascending "
+          f"{bool(np.all(np.diff(lam) >= 0))}, most below eigsh "
+          f"{below:.3e} of the largest (tol {MB_RITZ_TOL}), Ritz value vs "
+          f"fp64 Rayleigh quotient {rq_dev:.3e} (tol {MB_RQ_TOL}), after "
+          f"m_orthonormalize_cholesky |U^T M U - I| {orth:.3e} (bar "
+          f"{MB_ORTH_BAR})", flush=True)
+    check(bool(np.isfinite(res.eigenvalues).all()
+               and np.isfinite(res.eigenvectors).all()
+               and np.isfinite(res.history["loss"]).all()),
+          "minibatched 1M training: non-finite results")
+    check(bool(np.all(np.diff(lam) >= 0)) and below <= MB_RITZ_TOL,
+          f"minibatched 1M: Ritz values not ascending or {below:.3e} "
+          f"below eigsh")
+    check(rq_dev <= MB_RQ_TOL, f"minibatched 1M: Ritz values and Rayleigh "
+          f"quotients part by {rq_dev:.3e}")
+    check(orth <= MB_ORTH_BAR, f"minibatched 1M: |U^T M U - I| {orth:.3e}")
+    del K, M, res
+    torch.cuda.empty_cache()
+
+
+def smoother_phase(rolling, L, m_diag, oracle, device) -> int:
+    """Step 17b; returns K1's launches in the smoother."""
+    from eigenpinns_torch.solvers import (
+        m_orthonormalize_cholesky,
+        rayleigh_ritz,
+        smooth_eigenfunctions,
+    )
+    from eigenpinns_torch.sparse import Diagonal, RollingBanded
+    from eigenpinns_torch.sparse.ops import FunctionOperator
+
+    K, perm = RollingBanded.from_scipy(L, max_bandwidth=8192, device=device)
+    K = K.with_precision("highest")
+    plain = FunctionOperator(lambda U: rolling.rolling_spmm_plain(K, U),
+                             K.diagonal())
+    M = Diagonal(torch.as_tensor(m_diag[perm], dtype=torch.float32,
+                                 device=device))
+    vecs = oracle.vectors()[perm]
+    noise = np.random.default_rng(21).normal(size=vecs.shape)
+    U0 = torch.as_tensor(vecs + SMOOTH_NOISE * np.abs(vecs).max() * noise,
+                         dtype=torch.float32, device=device)
+    vals = oracle.result()[:DIRECT_K]
+
+    def rr_err(U):
+        lam = np.sort(rayleigh_ritz(U, K, M)[0].cpu().numpy())
+        return float((np.abs(lam[1:] - vals[1:]) / np.abs(vals[1:])).max())
+
+    torch.cuda.synchronize()
+    rolling.rolling_kernel_launches = 0
+    t0 = time.time()
+    U_s = smooth_eigenfunctions(M, K, U0, tau=SMOOTH_TAU,
+                                n_iters=SMOOTH_ITERS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = rolling.rolling_kernel_launches
+    U_p = smooth_eigenfunctions(M, plain, U0, tau=SMOOTH_TAU,
+                                n_iters=SMOOTH_ITERS)
+    dev = rel_err(U_s, U_p)
+    U_o = m_orthonormalize_cholesky(U_s, M)
+    G = (U_o.double().T @ (M.diag.double()[:, None] * U_o.double()))
+    orth = float((G - torch.eye(DIRECT_K, dtype=torch.float64,
+                                device=device)).abs().max())
+    print(f"[smoother] 300k rolling band, k = {DIRECT_K}, tau {SMOOTH_TAU}, "
+          f"{SMOOTH_ITERS} CG iterations in {wall:.3f} s: K1 launches "
+          f"{launches} (1 + n_iters = {1 + SMOOTH_ITERS}); against the same "
+          f"call on K1's plain version rel {dev:.3e} (tol {SMOOTH_TOL}); "
+          f"after m_orthonormalize_cholesky |U^T M U - I| {orth:.3e}; "
+          f"Rayleigh-Ritz max rel err of modes 1..{DIRECT_K - 1} vs eigsh "
+          f"before {rr_err(U0):.3e}, after smoothing {rr_err(U_o):.3e}",
+          flush=True)
+    check(launches == 1 + SMOOTH_ITERS,
+          f"the smoother launched K1 {launches} times")
+    check(dev <= SMOOTH_TOL, f"smoother, kernel vs plain: {dev:.3e}")
+    check(orth <= SMOOTH_ORTH_TOL, f"m_orthonormalize_cholesky: {orth:.3e}")
+    check(bool(torch.isfinite(U_o).all()), "smoother: non-finite result")
+    del K, plain, U0, U_s, U_p, U_o
+    torch.cuda.empty_cache()
+    return launches
+
+
+def start_torchrun_cli(workdir: str) -> dict:
+    """Step 17c's three CLI runs, started at once as processes of their
+    own: run A at the cut as one process (as it is, and with the levels'
+    sums unfused) and under torchrun with mesh_shape [1]; returns
+    {name: (Popen, its directory, its log)}."""
+    runs = cli_inputs(workdir)
+    argv, _, _ = runs["A"]
+    argv = [a for a in argv if not a.startswith("vtu_file=")]
+    argv += [*TORCHRUN_CUT, "vtu_file=out.vtu"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("EIGENPINNS_PLATFORM", None)
+    launches = {
+        "one": [sys.executable, "-m", "eigenpinns_torch.main", *argv,
+                "--platform", "cuda"],
+        "one_unfused": [sys.executable, "-m", "eigenpinns_torch.main",
+                        *argv, "fuse_level_ops=False", "--platform", "cuda"],
+        "torchrun": [sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc_per_node", "1", "-m",
+                     "eigenpinns_torch.main", *argv, "mesh_shape=[1]",
+                     "--platform", "cuda"]}
+    procs = {}
+    for name, cmd in launches.items():
+        cwd = os.path.join(workdir, name)
+        os.makedirs(cwd)
+        log = open(os.path.join(cwd, "log.txt"), "w+")
+        print(f"[torchrun] {name}: {' '.join(cmd[1:])}", flush=True)
+        procs[name] = (subprocess.Popen(cmd, cwd=cwd, env=env, stdout=log,
+                                        stderr=subprocess.STDOUT), cwd, log)
+    return procs
+
+
+def finish_torchrun_cli(procs: dict, t_start: float) -> dict:
+    """Waits for step 17c's runs and checks them; returns the torchrun
+    run's kernel launches."""
+    import re
+
+    out = {}
+    try:
+        for name, (proc, cwd, log) in procs.items():
+            rc = proc.wait(timeout=max(
+                TORCHRUN_TIMEOUT - (time.time() - t_start), 1))
+            log.seek(0)
+            text = log.read()
+            check(rc == 0, f"CLI run A {name} exited {rc}:\n{text[-4000:]}")
+            summary = json.loads(
+                text.split("Run summary: ")[1].splitlines()[0])
+            losses = np.asarray([float(v) for v in re.findall(
+                r"Epoch +\d+: Loss=([-\d.e+]+)", text)])
+            out[name] = (summary, losses, sorted(
+                f for f in os.listdir(cwd) if f.endswith(".vtu")))
+            print(f"[torchrun] {name}: "
+                  + " | ".join(line for line in text.splitlines()
+                               if line.startswith(("Hierarchy", "Trained",
+                                                   "Extraction"))),
+                  flush=True)
+    finally:
+        for proc, _, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    (s1, l1, _), (sr, lr, vtus) = out["one"], out["torchrun"]
+    lu = out["one_unfused"][1]
+    apart = np.nonzero(np.abs(lu - l1) / np.abs(l1)
+                       > TORCHRUN_LOSS_TOL / 10)[0]
+    n = int(apart[0]) if apart.size else len(l1)
+    dev_loss = float((np.abs(lr[:n] - l1[:n]) / np.abs(l1[:n])).max())
+    lam1, lamr = np.asarray(s1["eigenvalues"]), np.asarray(sr["eigenvalues"])
+    dev_lam = float(np.abs(lamr[1:] - lam1[1:]).max()
+                    / np.abs(lam1[1:]).max())
+    counts = sr["kernel_launches"]
+    print(f"[torchrun] CLI run A cut to 300 epochs (ramp 750): the "
+          f"one-process run fused vs unfused (reassociation alone) first "
+          f"parts by more than {TORCHRUN_LOSS_TOL / 10} at epoch {n}; "
+          f"torchrun world size {sr['world_size']} vs one process, loss "
+          f"over the first {n} epochs rel {dev_loss:.3e} (tol "
+          f"{TORCHRUN_LOSS_TOL}; "
+          f"over all {len(l1)} "
+          f"{float((np.abs(lr - l1) / np.abs(l1)).max()):.3e}, printed), "
+          f"eigenvalues (modes 1+) rel {dev_lam:.3e} (tol "
+          f"{TORCHRUN_EIG_TOL}); VTU files {vtus}; the torchrun rank's "
+          f"kernel launches {counts}; one process's "
+          f"{s1['kernel_launches']}; wall {time.time() - t_start:.2f} s",
+          flush=True)
+    check(sr["world_size"] == 1 and s1["world_size"] == 1,
+          "step 17c world sizes")
+    check(len(l1) == len(lr) == len(lu) == 300, "step 17c loss histories")
+    check(n >= TORCHRUN_MIN_WINDOW, f"step 17c: reassociation alone parts "
+          f"the one-process runs at epoch {n}")
+    check(dev_loss <= TORCHRUN_LOSS_TOL,
+          f"CLI under torchrun: loss rel {dev_loss:.3e}")
+    check(dev_lam <= TORCHRUN_EIG_TOL,
+          f"CLI under torchrun: eigenvalues rel {dev_lam:.3e}")
+    check(vtus == ["out.vtu"], f"CLI under torchrun wrote {vtus}")
+    check(counts["banded_spmm_rect"] > 0 and counts["rolling"] > 0,
+          f"CLI under torchrun: kernel launches {counts}")
+    return counts
+
+
+def surface_slice(rolling, L, m_diag, X, oracle, L_xl, m_xl, X_xl,
+                  oracle_xl, device, phases) -> dict:
+    """Step 17; returns K1's launches in the smoother and the torchrun
+    rank's K1 and K4 launches."""
+    import tempfile
+
+    t_all = time.time()
+    with tempfile.TemporaryDirectory() as work:
+        procs = start_torchrun_cli(work)
+        k1_smooth = smoother_phase(rolling, L, m_diag, oracle, device)
+        phases.done("step 17b (smoother on the 300k rolling band; step "
+                    "17c's runs beside it)")
+        cli_counts = finish_torchrun_cli(procs, t_all)
+        phases.done("step 17c (CLI run A under torchrun)")
+    minibatch_phase(L_xl, m_xl, X_xl, oracle_xl, device)
+    phases.done("step 17a (minibatched train_joint)")
+    print(f"[time] step 17: {time.time() - t_all:.2f} s", flush=True)
+    return {"k1_smooth": k1_smooth, "k1_torchrun": cli_counts["rolling"],
+            "k4_torchrun": cli_counts["banded_spmm_rect"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3689,7 +4089,7 @@ def smoke(oracles: list) -> int:
     m_diag = np.asarray(M_sp.diagonal())
     print(f"[host] {DIRECT_N} points: native Laplacian in "
           f"{time.time() - t0:.2f} s, nnz {L.nnz}", flush=True)
-    oracle = HostOracle("300k", L, M_sp, SPEC_K)
+    oracle = HostOracle("300k", L, M_sp, SPEC_K, n_vectors=DIRECT_K)
     oracles.append(oracle)
     dirichlet_ref = HostJob("300k Dirichlet host solution (float64 CG)",
                             dirichlet_reference, L, *dirichlet_problem(X))
@@ -3818,6 +4218,12 @@ def smoke(oracles: list) -> int:
                                       oracle, oracle_xl, device)
     phases.done("step 16 (sharded path)")
 
+    # 17. The rest of the public surface: the smoother on the 300k
+    # rolling band (K1), the CLI under torchrun (K1, K4 on shard blocks),
+    # node-minibatched training at 1M.
+    surface = surface_slice(rolling, L, m_diag, X, oracle, L_xl, m_xl,
+                            X_xl, oracle_xl, device, phases)
+
     print(json.dumps({"kernels": [
         {"name": "rolling_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
@@ -3828,7 +4234,9 @@ def smoke(oracles: list) -> int:
          "launches_300k_polish": k1_polish, "row_300k": row_300k,
          "launches_transfer": k1_transfer, "launches_cli_a": k1_cli,
          "row_cli_fem_K_blk": rows_fem["K"],
-         "row_cli_fem_M_blk": rows_fem["M"]},
+         "row_cli_fem_M_blk": rows_fem["M"],
+         "launches_smoother": surface["k1_smooth"],
+         "launches_cli_torchrun": surface["k1_torchrun"]},
         {"name": "bsr_spmm_grouped", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
@@ -3857,7 +4265,8 @@ def smoke(oracles: list) -> int:
          "launches": k4_rect, **shard_rows["block"],
          "row_transpose": shard_rows["transpose"],
          "row_1m": shard_rows["1m"],
-         "launches_4_ranks": shard_rows["launches_4_ranks"]}]}))
+         "launches_4_ranks": shard_rows["launches_4_ranks"],
+         "launches_cli_torchrun": surface["k4_torchrun"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,9 +11,9 @@ Field-for-field copy of `eigenpinns_tpu/configs/config.py`, so one YAML
 drives both packages. `from_yaml` reads the file with the package's own
 reader of the sectioned subset (`configs/yaml_reader.py`), which returns
 what `yaml.safe_load` returns on such a file and raises on anything
-else; PyYAML is never imported. The TPU-only knobs (`timing_chunks`,
-`mesh_shape`) are kept for compatibility; the port's trainer rejects
-them.
+else; PyYAML is never imported. `mesh_shape` trains node-sharded over
+the ranks of a `torch.distributed` group (the CLI under torchrun,
+`main.py`).
 """
 
 from __future__ import annotations

@@ -20,8 +20,8 @@ once per hierarchy level); the assembled sparse operators are then
 converted to device formats by `eigenpinns_torch.sparse`. Step 6 is
 vectorized over all triangles.
 
-A copy of `eigenpinns_tpu/geometry/point_cloud.py` (the literal tufted
-double cover left out), so that the port never imports the JAX package.
+A copy of `eigenpinns_tpu/geometry/point_cloud.py`, so that the port
+never imports the JAX package.
 Steps 1-4 and the intrinsic-Delaunay flips run in the compiled kernels of
 `geometry/native.py` when that library loads (the C++ triangulation and
 flips of the JAX package's own source), else in numpy/scipy; either
@@ -243,6 +243,57 @@ def intrinsic_delaunay_flips(tris: np.ndarray, lengths: np.ndarray,
     return tris, lengths, weights
 
 
+def tufted_double_cover(tris: np.ndarray, lengths: np.ndarray,
+                        weights: np.ndarray, points: np.ndarray,
+                        max_flips: int | None = None):
+    """Sharp & Crane's tufted double cover + intrinsic Delaunay flips.
+
+    The literal published construction (sec 3.3): every triangle is
+    doubled (front + back copy); around each vertex-pair edge the sides
+    are sorted radially and the BACK copy of side i glues to the FRONT
+    copy of side i+1 (cyclically), so EVERY edge — including nonmanifold
+    soup edges and boundary edges — becomes exactly 2-sided and
+    participates in flips. Weights are halved so stiffness/mass totals
+    match one surface cover; the generalized spectrum is then directly
+    comparable to the single cover's.
+
+    Returns new (tris, lengths, weights) of length 2T; inputs are not
+    mutated. Python-only (no csrc path): measured on the reference
+    bunny GT this is spectrally equivalent to the default single-copy
+    radial pairing (mean 0.91%/max 1.83% vs 0.93%/1.82% — docs/PARITY.md
+    ledger), so it is exposed for completeness/verification rather than
+    as the default.
+    """
+    T = tris.shape[0]
+    if max_flips is None:
+        max_flips = 60 * T
+    tris2 = np.concatenate([tris, tris], axis=0).astype(np.int64)
+    lengths2 = np.concatenate([lengths, lengths], axis=0)
+    weights2 = 0.5 * np.concatenate([weights, weights], axis=0)
+
+    sides: dict = {}
+    tri_eid = -np.ones((2 * T, 3), dtype=np.int64)
+    next_eid = 0
+    for (u, v), lst in _group_sides_by_edge(tris).items():
+        lst = _radial_side_order(lst, tris, points, u, v)
+        m = len(lst)
+        for i in range(m) if m >= 2 else [0]:
+            if m >= 2:
+                tb, cb = lst[i]            # back copy of side i ...
+                ta, ca = lst[(i + 1) % m]  # ... to front copy of side i+1
+                s = [(tb + T, cb), (ta, ca)]
+            else:
+                t, c = lst[0]              # lone side: glue its two copies
+                s = [(t, c), (t + T, c)]
+            sides[next_eid] = s
+            for t, corner in s:
+                tri_eid[t, corner] = next_eid
+            next_eid += 1
+
+    _flip_core(tris2, lengths2, weights2, sides, tri_eid, max_flips)
+    return tris2, lengths2, weights2
+
+
 def _flip_core(tris, lengths, weights, sides, tri_eid, max_flips):
     """Intrinsic-Delaunay flip queue over a pre-glued edge structure.
 
@@ -330,29 +381,30 @@ def _flip_core(tris, lengths, weights, sides, tri_eid, max_flips):
     return n_flips
 
 
-def cotan_laplacian_from_soup(points: np.ndarray, tris: np.ndarray,
-                              tri_weights: np.ndarray | None,
-                              mollify_factor: float,
-                              delaunay_flips: bool | None = None):
+def cotan_laplacian_from_soup(
+    points: np.ndarray, tris: np.ndarray, mollify_factor: float = 1e-5,
+    tri_weights: np.ndarray | None = None,
+    delaunay_flips: bool | str = "auto",
+):
     """Intrinsic cotan stiffness + barycentric lumped mass of a triangle soup.
 
     Operates purely on (mollified) edge lengths so it is robust to skinny or
     flipped triangles. Vectorized over all T triangles. ``tri_weights``
     scales each triangle's stiffness and mass contributions (multiplicity
-    weighting of overlapping soups).
+    weighting of overlapping soups); None weighs every triangle 1.
 
-    The intrinsic-Delaunay flip pass runs first (Sharp-Crane sec 3.4;
-    measurably softens the spectrum toward the C++ robust_laplacian
-    output) whenever the native library loads (seconds at millions of
-    triangles), and otherwise only below 100k triangles, where the Python
-    loop (~1.2 ms per 1k triangles) stays cheap: the JAX package's
-    `delaunay_flips="auto"`, taken when `delaunay_flips` is None.
-    `tri_weights=None` weighs every triangle 1.
+    ``delaunay_flips``: run the intrinsic-Delaunay flip pass first
+    (Sharp-Crane sec 3.4; measurably softens the spectrum toward the
+    C++ robust_laplacian output). "auto" enables it whenever the native
+    library loads (seconds at millions of triangles); without it the
+    Python loop (~1.2 ms per 1k triangles) is only used below 100k
+    triangles. "tufted" runs the flips on the literal tufted double
+    cover (`tufted_double_cover`; Python-only, so ~2x the Python flip
+    cost), spectrally equivalent to the default pairing on the bunny
+    GT, exposed for verification.
     """
-    if delaunay_flips is None:
+    if delaunay_flips == "auto":
         delaunay_flips = _native.available() or tris.shape[0] < 100_000
-    if tri_weights is None:
-        tri_weights = np.ones(len(tris))
     n = points.shape[0]
     p = points[tris]  # (T, 3, 3)
     # Edge lengths opposite each corner: l[:, c] = |edge opposite corner c|
@@ -363,10 +415,17 @@ def cotan_laplacian_from_soup(points: np.ndarray, tris: np.ndarray,
         axis=1,
     )
     l = _intrinsic_mollify(l, mollify_factor)
+    if tri_weights is None:
+        tri_weights = np.ones(len(tris))
     if delaunay_flips:
-        tris, l, tri_weights = intrinsic_delaunay_flips(
-            np.array(tris, dtype=np.int64, copy=True), l,
-            np.array(tri_weights, dtype=np.float64, copy=True), points)
+        tris = np.array(tris, dtype=np.int64, copy=True)
+        w = np.array(tri_weights, dtype=np.float64, copy=True)
+        if delaunay_flips == "tufted":
+            # Halved per copy: the totals match one cover.
+            tris, l, tri_weights = tufted_double_cover(tris, l, w, points)
+        else:
+            tris, l, tri_weights = intrinsic_delaunay_flips(tris, l, w,
+                                                            points)
     l2 = l**2
     # Heron (numerically-stable enough after mollification).
     s = 0.5 * l.sum(axis=1)
@@ -407,7 +466,10 @@ def cotan_laplacian_from_soup(points: np.ndarray, tris: np.ndarray,
 
 
 def point_cloud_laplacian(points: np.ndarray, n_neighbors: int = 38,
-                          use_native: bool | None = None):
+                          mollify_factor: float = 1e-5,
+                          use_native: bool | None = None,
+                          frame_neighbors: int | None = None,
+                          cover: str = "paired"):
     """(L, M) for a raw point cloud — drop-in for
     `robust_laplacian.point_cloud_laplacian` (src/utils.py:174).
 
@@ -416,6 +478,9 @@ def point_cloud_laplacian(points: np.ndarray, n_neighbors: int = 38,
     takes it when the library loads, True raises when it cannot be built
     or loaded, False takes the numpy/scipy triangulation. The flips take
     the C++ kernel whenever the library loads (`cotan_laplacian_from_soup`).
+    `cover` picks the flip gluing: "paired" (default; single-copy radial
+    pairing, with the native path) or "tufted" (the literal Sharp & Crane
+    doubled cover, spectrally equivalent on the bunny GT, Python-only).
 
     Defaults (n_neighbors=38, PCA frame over min(n_neighbors, 34); the
     C++ library's own single knob defaults to 30): tuned against the
@@ -427,8 +492,13 @@ def point_cloud_laplacian(points: np.ndarray, n_neighbors: int = 38,
     (docs/PARITY.md has the full tuning ledger: weighting schemes, flip
     ablation, 2-D kn scan, PCA-centering variants).
     """
+    if cover not in ("paired", "tufted"):
+        # Validate before the triangulation, the dominant preprocessing
+        # cost at large N (minutes at 300k+).
+        raise ValueError(f"unknown cover {cover!r}")
     points = np.asarray(points, dtype=np.float64)
-    frame_neighbors = min(n_neighbors, 34)
+    if frame_neighbors is None:
+        frame_neighbors = min(n_neighbors, 34)
     if use_native is None:
         use_native = _native.available()
     if use_native:
@@ -438,8 +508,9 @@ def point_cloud_laplacian(points: np.ndarray, n_neighbors: int = 38,
     else:
         tris, weights = local_triangulations(
             points, n_neighbors=n_neighbors, frame_neighbors=frame_neighbors)
-    return cotan_laplacian_from_soup(points, tris, weights,
-                                     mollify_factor=1e-5)
+    return cotan_laplacian_from_soup(
+        points, tris, mollify_factor, tri_weights=weights,
+        delaunay_flips="tufted" if cover == "tufted" else "auto")
 
 
 def mesh_laplacian(verts: np.ndarray, faces: np.ndarray,
@@ -454,6 +525,6 @@ def mesh_laplacian(verts: np.ndarray, faces: np.ndarray,
     return cotan_laplacian_from_soup(
         np.asarray(verts, dtype=np.float64),
         np.asarray(faces, dtype=np.int64),
-        None, mollify_factor,
+        mollify_factor,
         delaunay_flips=delaunay_flips,
     )

@@ -7,19 +7,22 @@ Port of `eigenpinns_tpu/models/correctors.py` (src/corrector_model.py):
   * AdaptiveCorrector — SimpleCorrector with learnable per-mode output
                         scales (init 0.01)
 
-The aggregation is a prebuilt ELL operator (`neighbor_mean_operator` /
-`gcn_normalized_adjacency`), so forward and backward are gathers.
+The aggregation is a prebuilt operator (`neighbor_mean_operator` /
+`gcn_normalized_adjacency`, or a `FunctionOperator` over a sharded SpMM),
+whose forward and backward are gathers; `SimpleCorrector` also takes a
+(2, E) edge_index, aggregated by the segment sum `neighbor_mean`.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from eigenpinns_torch.models.mlp import MLP
-from eigenpinns_torch.sparse.ops import spmm
+from eigenpinns_torch.sparse.ops import neighbor_mean, spmm
 
 
 class SimpleCorrector(nn.Module):
@@ -36,13 +39,25 @@ class SimpleCorrector(nn.Module):
         self.mlp.reset_parameters(generator)
 
     def forward(self, x, graph, deterministic: bool = True):
-        h = torch.cat([x, spmm(graph, x)], dim=1)
-        return self.mlp(h, deterministic=deterministic)
+        """`graph`: a (2, E) edge_index (tensor or array) or a prebuilt
+        mean-aggregation operator."""
+        if isinstance(graph, (torch.Tensor, np.ndarray)):
+            agg = neighbor_mean(graph, x)
+        else:
+            agg = spmm(graph, x)
+        return self._head(x, agg, deterministic)
+
+    def _head(self, x, agg, deterministic):
+        return self.mlp(torch.cat([x, agg], dim=1),
+                        deterministic=deterministic)
 
 
 class SpectralCorrector(SimpleCorrector):
     """One pre-normalized GCN aggregation (A_norm @ x) + MLP; `graph` is
     the `gcn_normalized_adjacency` operator."""
+
+    def forward(self, x, graph, deterministic: bool = True):
+        return self._head(x, spmm(graph, x), deterministic)
 
 
 class AdaptiveCorrector(nn.Module):

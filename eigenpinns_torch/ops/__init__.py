@@ -10,8 +10,7 @@ under one import:
     from eigenpinns_torch.ops import spmm, banded_spmm, schrodinger_residual
 
 The JAX package's `banded_spmm_pallas` and `banded_spmm_reference` are
-`banded_spmm_cuda` and `banded_spmm_plain` here. `block_diag_ell` and
-`neighbor_mean` are not ported yet.
+`banded_spmm_cuda` and `banded_spmm_plain` here.
 """
 
 from eigenpinns_torch.operators import (  # noqa: F401
@@ -41,6 +40,7 @@ from eigenpinns_torch.sparse import (  # noqa: F401
     banded_spmm_cuda,
     banded_spmm_gram,
     banded_spmm_plain,
+    block_diag_ell,
     bsr_spmm,
     bsr_spmm_gram,
     gcn_normalized_adjacency,
@@ -48,7 +48,9 @@ from eigenpinns_torch.sparse import (  # noqa: F401
     hdot,
     m_gram,
     m_normalize_columns,
+    neighbor_mean,
     neighbor_mean_operator,
+    normalize_columns,
     rayleigh_quotients,
     residual,
     rolling_spmm,

@@ -16,8 +16,10 @@ when the caller asks for it, for several ranks that share one card
 (NCCL refuses two ranks on one device). Gloo moves only CPU tensors for
 all-gather and send/recv, so the collectives of `sharded.py` copy a CUDA
 tensor to the host and back on a gloo mesh. Nothing here chooses a
-backend or a device by what it finds: `spawn` takes both, and
-`make_mesh` raises without an initialized group.
+backend or a device by what it finds: `spawn` runs on the cards unless
+asked for the CPU (NCCL for one rank a card, gloo for the CPU or for
+ranks that share one card), raises when asked for a card that is not
+there, and `make_mesh` raises without an initialized group.
 """
 
 from __future__ import annotations
@@ -210,8 +212,8 @@ def _rank_main(rank, n_ranks, backend, device, store, timeout, fn, args,
             dist.destroy_process_group()
 
 
-def spawn(fn, n_ranks: int, backend: str = "gloo", device: str = "cpu",
-          args: tuple = (), timeout: float = 900.0,
+def spawn(fn, n_ranks: int, backend: str | None = None,
+          device: str = "cuda", args: tuple = (), timeout: float = 900.0,
           store_dir: str | None = None) -> list:
     """Run fn(*args) on `n_ranks` new processes joined in one
     `torch.distributed` group; returns the ranks' return values in rank
@@ -219,10 +221,21 @@ def spawn(fn, n_ranks: int, backend: str = "gloo", device: str = "cpu",
     args must pickle), meet through a `FileStore` in a fresh directory
     under `store_dir` (default: the temporary directory; no port is
     opened for the rendezvous), and use one torch thread each.
-    `device`: 'cpu', 'cuda' (rank r on cuda:r) or 'cuda:i' (every rank
-    on cuda:i; with gloo, the ranks that share one card). Raises with the
-    rank's traceback when a rank fails, and when the ranks take longer
-    than `timeout` seconds; every process is ended before it returns."""
+    `device`: 'cuda' (rank r on cuda:r, the default), 'cuda:i' (every
+    rank on cuda:i, the ranks that share one card) or 'cpu'; asking for
+    a card where torch sees none raises. `backend` defaults to NCCL for
+    'cuda' and to gloo for 'cpu' and 'cuda:i' (NCCL refuses two ranks on
+    one card). Raises with the rank's traceback when a rank fails, and
+    when the ranks take longer than `timeout` seconds; every process is
+    ended before it returns."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"spawn: device {device!r} asked for, but "
+                           f"torch.cuda.is_available() is false (pass "
+                           f"device='cpu' to run the ranks on the CPU)")
+    if backend is None:
+        backend = ("nccl" if dev.type == "cuda" and dev.index is None
+                   else "gloo")
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="epk_store_", dir=store_dir)
     results = ctx.Queue()

@@ -54,6 +54,8 @@ from eigenpinns_torch.solvers.smoothers import (
     cg_solve,
     coarse_grid_correction,
     jacobi_smooth,
+    m_orthonormalize_cholesky,
+    smooth_eigenfunctions,
 )
 from eigenpinns_torch.solvers.spectral_basis import (
     SpectralBasisResult,
@@ -75,7 +77,8 @@ __all__ = [
     "eigsh_smallest", "orthonormalize_gs", "solve_eigenvalue_mesh",
     "solve_eigenvalue_point_cloud", "eigh_generalized", "filtered_whiten",
     "rayleigh_ritz", "rayleigh_ritz_robust", "cg_solve",
-    "coarse_grid_correction", "jacobi_smooth",
+    "coarse_grid_correction", "jacobi_smooth", "smooth_eigenfunctions",
+    "m_orthonormalize_cholesky",
     "DeflationResult", "solve_deflation", "solve_deflation_adaptive",
     "BatchedResult", "train_joint_family", "UpscaleResult",
     "hierarchical_eigensolve", "TransferResult", "train_per_level",

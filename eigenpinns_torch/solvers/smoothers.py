@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from eigenpinns_torch.sparse.ops import spmm
+from eigenpinns_torch.sparse.ops import m_gram, spmm
 from eigenpinns_torch.solvers.rayleigh_ritz import rayleigh_ritz
 
 
@@ -26,14 +26,12 @@ def jacobi_smooth(M, K, U_rough: torch.Tensor, alpha: float = 0.05,
     return U
 
 
-def cg_solve(A, B_rhs: torch.Tensor, n_iters: int = 50,
-             ridge: float = 0.0) -> torch.Tensor:
-    """Blocked conjugate gradient for (A + ridge I) X = B_rhs, X (N, k)."""
-    def matvec(X):
-        return spmm(A, X) + ridge * X
-
-    X = torch.zeros_like(B_rhs)
-    R = B_rhs - matvec(X)
+def _block_cg(matvec, rhs: torch.Tensor, X: torch.Tensor,
+              n_iters: int) -> torch.Tensor:
+    """`n_iters` iterations of column-wise conjugate gradient on
+    matvec(X) = rhs from X, each column its own step lengths, with the
+    JAX package's clamps of 1e-30 on the denominators."""
+    R = rhs - matvec(X)
     P = R
     rs = (R * R).sum(0)
     for _ in range(n_iters):
@@ -46,6 +44,34 @@ def cg_solve(A, B_rhs: torch.Tensor, n_iters: int = 50,
         P = R + P * beta[None, :]
         rs = rs_new
     return X
+
+
+def cg_solve(A, B_rhs: torch.Tensor, n_iters: int = 50,
+             ridge: float = 0.0) -> torch.Tensor:
+    """Blocked conjugate gradient for (A + ridge I) X = B_rhs, X (N, k)."""
+    return _block_cg(lambda X: spmm(A, X) + ridge * X, B_rhs,
+                     torch.zeros_like(B_rhs), n_iters)
+
+
+def smooth_eigenfunctions(M, K, U: torch.Tensor, tau: float = 0.1,
+                          n_iters: int = 30) -> torch.Tensor:
+    """Implicit spectral smoothing: solve (M + tau K) U_new = M U by
+    `n_iters` blocked CG iterations from U (the notebook's
+    `smooth_eigenfunctions`, multigrid_gnn_refine_fixed.ipynb cell
+    4:556-576, solved there by a host spsolve). K is applied 1 + n_iters
+    times: once for the first residual, once an iteration."""
+    return _block_cg(lambda X: spmm(M, X) + tau * spmm(K, X), spmm(M, U),
+                     U, n_iters)
+
+
+def m_orthonormalize_cholesky(U: torch.Tensor, M) -> torch.Tensor:
+    """Cholesky M-orthonormalization: U L^-T with L L^T the symmetrized
+    fp32 Gram U^T M U, by a triangular solve (the notebook's
+    `m_orthonormalize`, cell 4:578-599; callers with suspect bases use
+    `filtered_whiten`)."""
+    G = m_gram(U, M)
+    L = torch.linalg.cholesky(0.5 * (G + G.T))
+    return torch.linalg.solve_triangular(L, U.T, upper=False).T
 
 
 def coarse_grid_correction(U_fine, K_fine, M_fine, K_coarse, P, Pt,

@@ -20,13 +20,16 @@ from eigenpinns_torch.sparse.formats import Diagonal, SparseELL, as_operator
 from eigenpinns_torch.sparse.occupancy import occupancy_mask, occupied_blocks
 from eigenpinns_torch.sparse.ops import (
     FunctionOperator,
+    block_diag_ell,
     gcn_normalized_adjacency,
     gram,
     hdot,
     m_gram,
     m_normalize_columns,
+    neighbor_mean,
     neighbor_mean_operator,
     node_reduce,
+    normalize_columns,
     rayleigh_quotients,
     residual,
     spmm,
@@ -61,6 +64,7 @@ __all__ = [
     "rolling_spmm_plain", "rolling_spmm_gram_plain",
     "gcn_normalized_adjacency", "gram", "hdot", "m_gram",
     "m_normalize_columns", "neighbor_mean_operator", "rayleigh_quotients",
+    "block_diag_ell", "neighbor_mean", "normalize_columns",
     "FunctionOperator", "node_reduce",
     "residual", "spmm", "spmm_gram", "spmv",
     "occupancy_mask", "occupied_blocks",

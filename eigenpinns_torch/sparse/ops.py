@@ -3,7 +3,8 @@
 Port of `eigenpinns_tpu/sparse/ops.py`. The ELL product is a gather of U
 rows by the padded column indices and a contraction over the width axis;
 its backward pass is a second gather on the stored transpose, so neither
-direction scatters (no `index_add_`). Every Gram / Rayleigh product runs
+direction scatters (`neighbor_mean`, the segment-sum form of the mean
+aggregation, is the module's one `index_add_`). Every Gram / Rayleigh product runs
 in full fp32: the package disables TF32 on import (see `__init__`), which
 is the torch form of the reference's `hdot` rule (ops.py:49-55).
 
@@ -168,9 +169,61 @@ def m_normalize_columns(U: torch.Tensor, M,
     return U / torch.sqrt(node_reduce(M, (U * Mu).sum(0)) + eps)[None, :]
 
 
+def normalize_columns(U: torch.Tensor, eps: float = 1e-12):
+    """Euclidean column normalization (src/utils.py:23-32); returns
+    (U / norms, norms)."""
+    norms = torch.linalg.norm(U, dim=0) + eps
+    return U / norms, norms
+
+
 def residual(U: torch.Tensor, K, M, lam: torch.Tensor) -> torch.Tensor:
     """Eigen-residual K U - M U diag(lam), shape (N, k)."""
     return spmm(K, U) - spmm(M, U) * lam[None, :]
+
+
+def _block_diag_layout(mats: list):
+    """(indices, values, n_cols) of the block-diagonal stack of SparseELL
+    blocks: widths padded to the widest, columns offset by the blocks
+    before, and every zero entry (padding included) pointed at its
+    block's first column, so that no block gathers outside its span."""
+    width = max(A.indices.shape[1] for A in mats)
+    idx_blocks, val_blocks = [], []
+    offset = 0
+    for A in mats:
+        pad = width - A.indices.shape[1]
+        idx = torch.nn.functional.pad(A.indices, (0, pad)) + offset
+        val = torch.nn.functional.pad(A.values, (0, pad))
+        idx_blocks.append(torch.where(val != 0, idx,
+                                      torch.full_like(idx, offset)))
+        val_blocks.append(val)
+        offset += A.n_cols
+    return torch.cat(idx_blocks), torch.cat(val_blocks), offset
+
+
+def block_diag_ell(ops: list) -> SparseELL:
+    """Stack per-level operators (Diagonal or SparseELL) into one
+    block-diagonal SparseELL, the analog of `utils.sparse_block_diag`
+    (src/utils.py:127-165): all levels share one SpMM over the
+    concatenated node axis. A Diagonal level enters as a width-1 ELL
+    block. The layout is the JAX package's entry for entry; when a level
+    carries a stored transpose, the stack carries the block-diagonal
+    stack of the levels' transposes (a symmetric level is its own)."""
+    mats = []
+    for A in ops:
+        if isinstance(A, Diagonal):
+            n = A.diag.shape[0]
+            A = SparseELL(torch.arange(n, device=A.diag.device)[:, None],
+                          A.diag[:, None], n)
+        elif not isinstance(A, SparseELL):
+            raise TypeError(f"block_diag_ell stacks Diagonal and SparseELL "
+                            f"operators, got {type(A)}")
+        mats.append(A)
+    transpose = None
+    if any(A.transpose_ell is not None for A in mats):
+        transpose = SparseELL(*_block_diag_layout(
+            [A.transpose_ell if A.transpose_ell is not None else A
+             for A in mats]))
+    return SparseELL(*_block_diag_layout(mats), transpose)
 
 
 def gcn_normalized_adjacency(edge_index, n_nodes: int, device="cuda",
@@ -187,6 +240,21 @@ def gcn_normalized_adjacency(edge_index, n_nodes: int, device="cuda",
     d = 1.0 / np.sqrt(np.clip(deg, 1e-12, None))
     A = sp.diags(d) @ A @ sp.diags(d)
     return SparseELL.from_scipy(A, dtype=dtype, device=device)
+
+
+def neighbor_mean(edge_index, x: torch.Tensor) -> torch.Tensor:
+    """Mean over in-neighbors: agg[i] = mean_{(i,j) in E} x[j], a segment
+    sum (`index_add_`) over the edges' rows divided by the in-degree
+    clamped at 1 (src/corrector_model.py:23-31). `edge_index` is (2, E),
+    a tensor or an array. Training loops prefer `neighbor_mean_operator`
+    + `spmm`, whose forward and backward are both gathers."""
+    e = torch.as_tensor(np.asarray(edge_index) if not isinstance(
+        edge_index, torch.Tensor) else edge_index, device=x.device)
+    row, col = e[0].long(), e[1].long()
+    n = x.shape[0]
+    agg = x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, row, x[col])
+    deg = x.new_zeros(n).index_add_(0, row, x.new_ones(row.shape[0]))
+    return agg / torch.clamp(deg, min=1.0)[:, None]
 
 
 def neighbor_mean_scipy(edge_index, n_nodes: int):

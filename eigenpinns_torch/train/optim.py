@@ -23,8 +23,13 @@ arithmetic step for step:
      steps without improvement the scale is multiplied by `factor`,
      floored at `min_scale`. Not torch's `ReduceLROnPlateau`.
 
+  * `adamw_cosine_restarts` (`AdamW`): optax `clip_by_global_norm` ->
+    `adamw` on `optax.join_schedules` over `cosine_decay_schedule`
+    pieces (SGDR warm restarts): Adam's normalized moments plus
+    wd * param on every parameter, times -schedule(t).
+
 All state stays on the parameters' device; `step` never reads a value
-back to the host. (`adamw_cosine_restarts` is not ported.)
+back to the host.
 
 Layer freezing (`freeze_mask`, `adam_frozen`) is the port of
 `optax.multi_transform({"train": optax.adam(lr), "frozen":
@@ -65,6 +70,13 @@ class Adam:
 
     def _adam_update(self, g: list) -> list:
         lr = self.schedule(self.count)
+        upd = self._adam_direction(g)
+        torch._foreach_mul_(upd, -lr)
+        return upd
+
+    def _adam_direction(self, g: list) -> list:
+        """optax's `scale_by_adam`: update the moments with g and return
+        mu_hat / (sqrt(nu_hat) + eps); counts one update."""
         self.count += 1
         torch._foreach_mul_(self.mu, B1)
         torch._foreach_add_(self.mu, g, alpha=1.0 - B1)
@@ -73,9 +85,7 @@ class Adam:
         mu_hat = torch._foreach_div(self.mu, self._bias_correction(B1))
         nu_hat = torch._foreach_div(self.nu, self._bias_correction(B2))
         den = torch._foreach_add(torch._foreach_sqrt(nu_hat), EPS)
-        upd = torch._foreach_div(mu_hat, den)
-        torch._foreach_mul_(upd, -lr)
-        return upd
+        return torch._foreach_div(mu_hat, den)
 
     def state_dict(self) -> dict:
         """The moments and the update count (a checkpoint's tree)."""
@@ -113,6 +123,57 @@ def exponential_decay(init_value: float, transition_steps: int,
                      * np.power(np.float32(decay_rate), p))
 
     return schedule
+
+
+def cosine_decay(init_value: float, decay_steps: int
+                 ) -> Callable[[int], float]:
+    """`optax.cosine_decay_schedule(init_value, decay_steps)` (alpha 0,
+    exponent 1) in its fp32 arithmetic: init * 0.5 (1 + cos(pi
+    min(t, T) / T))."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay needs positive decay_steps, got "
+                         f"{decay_steps}")
+    f32 = np.float32
+
+    def schedule(t: int) -> float:
+        c = f32(min(t, decay_steps))
+        cos = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * c
+                                            / f32(decay_steps)))
+        return float(f32(init_value) * cos)
+
+    return schedule
+
+
+def join_schedules(schedules: list, boundaries: list
+                   ) -> Callable[[int], float]:
+    """`optax.join_schedules`: schedules[i] from boundaries[i - 1] on,
+    seeing the steps since that boundary."""
+    def schedule(t: int) -> float:
+        value = schedules[0](t)
+        for b, piece in zip(boundaries, schedules[1:]):
+            if t >= b:
+                value = piece(t - b)
+        return value
+
+    return schedule
+
+
+def _cycle_boundaries(first: int, mult: int, n: int) -> list[int]:
+    out, acc, cycle = [], 0, first
+    for _ in range(n):
+        acc += cycle
+        out.append(acc)
+        cycle *= mult
+    return out
+
+
+def clip_by_global_norm(g: list, max_norm: float) -> list:
+    """optax's `clip_by_global_norm`: g unchanged when its global norm
+    is below max_norm, else (g / norm) * max_norm (not torch's
+    `clip_grad_norm_`, which adds 1e-6 to the norm)."""
+    norm = torch.sqrt(sum((x * x).sum() for x in g))
+    keep = norm < max_norm
+    return [torch.where(keep, x, (x / norm) * max_norm) for x in g]
 
 
 def freeze_mask(named_params, n_frozen: int) -> dict[str, str]:
@@ -175,9 +236,7 @@ class AdamPlateau(Adam):
         `value` (a 0-dim tensor) that produced them."""
         g = [p.grad for p in self.params]
         if self.clip > 0:
-            norm = torch.sqrt(sum((x * x).sum() for x in g))
-            keep = norm < self.clip
-            g = [torch.where(keep, x, (x / norm) * self.clip) for x in g]
+            g = clip_by_global_norm(g, self.clip)
         if self.wd:
             g = torch._foreach_add(g, self.params, alpha=self.wd)
         upd = self._adam_update(g)
@@ -210,3 +269,43 @@ class AdamPlateau(Adam):
             torch.where(hit, self.scale * self.factor, self.scale),
             min=self.min_scale)
         return self.scale
+
+
+class AdamW(Adam):
+    """`optax.chain(clip_by_global_norm(grad_clip), optax.adamw(schedule,
+    weight_decay))`: the clip only when `grad_clip` is truthy; then
+    Adam's direction plus weight_decay * param on every parameter (the
+    mask is None), times -schedule(t), t the updates made before."""
+
+    def __init__(self, params, schedule: Callable[[int], float],
+                 weight_decay: float = 1e-4, grad_clip: float = 1.0):
+        super().__init__(params, schedule)
+        self.wd, self.clip = weight_decay, grad_clip
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Apply one update from the parameters' `.grad`."""
+        g = [p.grad for p in self.params]
+        if self.clip:
+            g = clip_by_global_norm(g, self.clip)
+        lr = self.schedule(self.count)
+        upd = self._adam_direction(g)
+        torch._foreach_add_(upd, self.params, alpha=self.wd)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(self.params, upd)
+
+
+def adamw_cosine_restarts(params, peak_lr: float, first_cycle: int,
+                          weight_decay: float = 1e-4, grad_clip: float = 1.0,
+                          n_cycles: int = 8, t_mult: int = 2):
+    """AdamW with SGDR cosine warm restarts (the loss_with_rigid_body
+    stack, cell 0: CosineAnnealingWarmRestarts): cycle i lasts
+    first_cycle * t_mult^i steps and decays peak_lr to 0. Returns
+    (optimizer, schedule) like the JAX function."""
+    pieces, cycle = [], first_cycle
+    for _ in range(n_cycles):
+        pieces.append(cosine_decay(peak_lr, cycle))
+        cycle *= t_mult
+    schedule = join_schedules(
+        pieces, _cycle_boundaries(first_cycle, t_mult, n_cycles - 1))
+    return AdamW(params, schedule, weight_decay, grad_clip), schedule

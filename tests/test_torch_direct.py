@@ -232,9 +232,14 @@ def test_train_joint_seeded_init_and_unported_options(cloud):
     with pytest.raises(ValueError, match="mode"):
         train_joint(cloud["tK"], cloud["tM"], cloud["X"], mode="svd",
                     **dict(TRAIN, epochs=1))
-    with pytest.raises(NotImplementedError, match="batch_nodes"):
+    # batch_nodes is ported (tests/test_torch_minibatch.py); it refuses
+    # a strip-BSR K and whiten mode, as the JAX trainer does.
+    with pytest.raises(TypeError, match="Diagonal/SparseELL"):
         train_joint(cloud["tK"], cloud["tM"], cloud["X"],
                     **dict(TRAIN, epochs=1, batch_nodes=2))
+    with pytest.raises(ValueError, match="penalty"):
+        train_joint(cloud["tK"], cloud["tM"], cloud["X"],
+                    **dict(TRAIN, epochs=1, batch_nodes=2, mode="whiten"))
     # The timing_chunks probe (ported) reports a rate and puts the
     # trained state back: the same history and eigenvalues as without.
     probed = train_joint(cloud["tK"], cloud["tM"], cloud["X"],

@@ -372,8 +372,8 @@ def collectives(mesh8, operators, tmp_path_factory):
                              for p in tmodel.parameters()])
 
     store = str(tmp_path_factory.mktemp("store"))
-    out = P.spawn(_rank_collectives, 8, args=(cases,), store_dir=store,
-                  timeout=600)
+    out = P.spawn(_rank_collectives, 8, device="cpu", args=(cases,),
+                  store_dir=store, timeout=600)
     with _one_rank_group(store):
         one = _dp_step(P.make_mesh(device_type="cpu"), cases["dp"])
     return cases, ref, out, one
@@ -428,7 +428,22 @@ def test_dp_train_step_one_rank_eight_ranks_and_jax(collectives):
 
 def test_spawn_reports_a_failing_rank(tmp_path):
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
-        P.spawn(_fail_on_rank_one, 2, store_dir=str(tmp_path), timeout=120)
+        P.spawn(_fail_on_rank_one, 2, device="cpu", store_dir=str(tmp_path),
+                timeout=120)
+
+
+def test_spawn_defaults_to_the_card(monkeypatch, tmp_path):
+    """The default device is the card; without one spawn raises and
+    starts no rank."""
+    import inspect
+
+    assert inspect.signature(P.spawn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ("cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            P.spawn(_fail_on_rank_one, 2, device=device,
+                    store_dir=str(tmp_path))
+    assert not list(tmp_path.iterdir())
 
 
 def _fail_on_rank_one():

@@ -152,8 +152,8 @@ def runs(tmp_path_factory):
     h.save(str(tmp / "h"))
     inp = {"L": L, "M": M, "X": X, "init": init, "X0": X0, "X_sb": X_sb,
            "ckpt_dir": str(tmp / "ck"), "h_dir": str(tmp / "h")}
-    out = P.spawn(_rank_solvers, 8, args=(inp,), store_dir=str(tmp),
-                  timeout=900)
+    out = P.spawn(_rank_solvers, 8, device="cpu", args=(inp,),
+                  store_dir=str(tmp), timeout=900)
 
     ref = {"jax": j_sharded(L, M, X, n_devices=8, **TRAIN)}
     K_op, M_op = as_operator(L, device="cpu"), as_operator(M, device="cpu")
@@ -263,8 +263,8 @@ def test_multigrid_sharded_matches_single_device(runs):
 def test_sharded_fuse_request_warns(tmp_path):
     """An explicit fuse_level_ops=True on the sharded path warns (one
     rank: the warning is the JAX trainer's)."""
-    out = P.spawn(_rank_fuse_warning, 1, store_dir=str(tmp_path),
-                  timeout=300)
+    out = P.spawn(_rank_fuse_warning, 1, device="cpu",
+                  store_dir=str(tmp_path), timeout=300)
     assert out[0], "no warning"
 
 

@@ -124,6 +124,32 @@ def test_hierarchical_eigensolve_matches_jax():
     assert np.isfinite(tr.eigenvectors).all()
 
 
+# ROADMAP F27. On the JAX test's quick harness
+# (tests/test_upscale_transfer.py::test_hierarchical_eigensolve_quick:
+# n = 128, levels [48], 3 pairs, hidden (64, 64), 1200 epochs, lr 3e-3,
+# bar 0.15), the JAX package's own initialization clears the bar on 6 of
+# seeds 0..9 on the CPU (upscale_seeds_jax_reference.py: 0.1019, 0.0886,
+# 0.7528, 0.1531, 0.0542, 0.0519, 0.2545, 0.1619, 0.1331, 0.0576).
+UPSCALE_QUICK_JAX_CLEARS = 6
+
+
+@pytest.mark.slow
+def test_hierarchical_eigensolve_clears_the_bar_as_often_as_jax():
+    """The port's own initialization clears the JAX test's bar on at
+    least as many of seeds 0..9 as the JAX package's does."""
+    n, k = 128, 3
+    K, M = t_fixtures.generate_test_matrices(n, "laplacian")
+    exact = t_fixtures.laplacian_1d_eigenvalues(n, k)
+    errs = []
+    for seed in range(10):
+        res = hierarchical_eigensolve(K, M, k, levels=[48], hidden=(64, 64),
+                                      epochs_per_level=1200, lr=3e-3,
+                                      seed=seed, device="cpu")
+        errs.append(float((np.abs(np.sort(res.eigenvalues) - exact)
+                           / exact).max()))
+    assert sum(e < 0.15 for e in errs) >= UPSCALE_QUICK_JAX_CLEARS, errs
+
+
 # ---- train_per_level -------------------------------------------------------
 
 # k = 3: at k = 5 the level-1 Ritz pair 1.6917 / 1.7020 (0.6% apart)
