@@ -109,11 +109,19 @@ present or the package is not beside it. On the card it:
      on the same hierarchy to rel 1e-4: level 1 as the driver runs, every
      level with the anchoring Ritz vectors fixed); then the
      Dirichlet solve on
-     the 300k strip-BSR K: K2 and K3 at k = 1 against the plain version
-     (rel 1e-5, the same bits from a second launch) with torch.sparse.mm
-     and the bound, `solve_laplace_dirichlet_device` (boundary z > 0.8
+     the 300k strip-BSR K: K2 and K3 at k = 1, 2, 4 and 8, which take the
+     narrow path on its fp32 strips (one lane a row over the operator's
+     nonzeros, `BSRTile.narrow`), against the plain version (rel 1e-5),
+     the same bits as the column-block walk (col_block 32) and from a
+     second launch, each timed on the card (`device_ms`) beside the walk
+     and torch.sparse.mm, the k = 1 row also by launch with the bound (K2
+     at k = 1 on the card at or below the library);
+     `solve_laplace_dirichlet_device` (boundary z > 0.8
      at 1, z < -0.8 at 0, through the RCM permutation) counting K2's
-     launches from zero, within 1e-3 of the host's float64 solution
+     launches and the narrow ones from zero (every launch narrow; its ms
+     an iteration printed beside the walk's earlier 0.240), within 1e-3
+     of the
+     host's float64 solution
      (Jacobi-preconditioned CG in a worker since step 4: spsolve does not
      finish at 300k; the method is held against spsolve on the bunny
      stand-in, as is the card's CG there); every epoch cut is printed;
@@ -181,8 +189,12 @@ present or the package is not beside it. On the card it:
      launches in step 17's smoother and torchrun CLI, K4's rectangular
      form with its launches in that CLI, K2 and K4
      with their 1M rows and launches, K2 with its k = 1 row and launches
-     on the Dirichlet path and its launches and k = 64 row in CLI run B,
-     K3 with its launches in run B (0); and the bound:
+     on the Dirichlet path (and how many of them were narrow) and its
+     launches and k = 64 row in CLI run B, the narrow path as a kernel
+     of its own (its launches those of the Dirichlet CG), K3 with its
+     launches in run B (0), K5 with its cluster-core rows at k = 60;
+     every row timed by launch and on the card (`device_ms`), the
+     library too; and the bound:
      the larger of the bytes the product must move -- each nonzero's
      value and column index, the row pointers, U and W, the Gram for K5
      -- over 3.35 TB/s and its operations, 2 nnz k (+ 2 n k^2 for the
@@ -204,7 +216,11 @@ present or the package is not beside it. On the card it:
      RollingBanded, and holds K1 against its plain version on that
      build's fused FEM K_blk and M_blk at k = 10 (as step 2),
      and K2 on run B's fused K_blk at k = 64 and 67 in the three modes
-     (W rel 1e-5, 1e-4 in 'bf16', the same bits from a second launch);
+     (W rel 1e-5, 1e-4 in 'bf16', the same bits from a second launch and
+     from every grid of the walk: 8, 4 or 2 warps a block, 32 or 64
+     columns, each timed on the card; the grid the wrapper picks for a
+     small operator printed), kernel and torch.sparse.mm each timed by
+     launch and on the card, with the host's time to enqueue a launch;
      counts every kernel's launches from zero over each run (run A must
      launch K1, run B K2 and never K3); and checks each exported VTU
      (2562 points, fields v0..v{k-1}, in the input mesh's order: the
@@ -735,11 +751,18 @@ def device_ms(fn, n: int = 5, reps: int = 20) -> float:
     the host's launch path (tens of microseconds a call) is longer than
     the kernel, and `median_ms` then times the host. The wait is doubled
     until the host's enqueue loop fits inside it."""
+    return card_and_host_ms(fn, n, reps)[0]
+
+
+def card_and_host_ms(fn, n: int = 5, reps: int = 20) -> tuple:
+    """(`device_ms`, the host's time to enqueue one call in ms: the
+    median over the same samples of the enqueue loop's wall over `reps`,
+    taken while the card waits, so it is the host's launch path alone)."""
     fn()
     cycles = 4_000_000
     while True:
         torch.cuda.synchronize()
-        times, fits = [], True
+        times, hosts, fits = [], [], True
         for _ in range(n):
             wait, start, end = (torch.cuda.Event(enable_timing=True)
                                 for _ in range(3))
@@ -754,8 +777,9 @@ def device_ms(fn, n: int = 5, reps: int = 20) -> float:
             torch.cuda.synchronize()
             fits = fits and host_ms < wait.elapsed_time(start)
             times.append(start.elapsed_time(end) / reps)
+            hosts.append(host_ms / reps)
         if fits:
-            return float(np.median(times))
+            return float(np.median(times)), float(np.median(hosts))
         check(cycles < 10**9, "device_ms: the host never fits in the wait")
         cycles *= 2
 
@@ -1090,16 +1114,23 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
                 if k == DIRECT_K and prec == "bf16":
                     moved = least_bytes(K_sp.nnz, 2, K.n, k)
                     rows[name] = {"max_abs_err": float((W - Wp).abs().max()),
-                                  "ms": ms, "plain_ms": plain_ms,
+                                  "ms": ms, "device_ms": device_ms(
+                                      lambda: launch(A, U)),
+                                  "plain_ms": plain_ms,
                                   **bound(moved, {"bf16": 2 * K_sp.nnz * k})}
             torch.cuda.empty_cache()
     csr = torch_csr(K_sp, K.data.device)
     U = torch.randn((K.n, DIRECT_K), generator=gen, device="cuda")
     library_ms = median_ms(lambda: torch.sparse.mm(csr, U))
+    library_dev = device_ms(lambda: torch.sparse.mm(csr, U))
     print(f"[kernel] strip-BSR K k={DIRECT_K}: torch.sparse.mm "
-          f"{library_ms:.4f} ms", flush=True)
+          f"{library_ms:.4f} ms ({library_dev:.4f} on the card); K2, K3 "
+          f"'bf16' on the card "
+          + ", ".join(f"{r['device_ms']:.4f}" for r in rows.values()),
+          flush=True)
     for row in rows.values():
         row["library_ms"] = library_ms
+        row["library_device_ms"] = library_dev
     del csr
     # The SpMM + Gram probe of the bench's 300k phase (k = 128).
     U = torch.randn((K.n, 128), generator=gen, device="cuda")
@@ -1141,6 +1172,8 @@ def check_k2_1m(bsr, K, K_sp, seed):
                   f"1M K2 k={k} {prec} W: rel err {err:.3e}")
             if k == DIRECT_K and prec == "bf16":
                 row = {"max_abs_err": float((W - Wp).abs().max()), "ms": ms,
+                       "device_ms": device_ms(
+                           lambda: bsr.bsr_spmm_grouped_cuda(A, U)),
                        "plain_ms": plain_ms,
                        **bound(least_bytes(K_sp.nnz, 2, K.n, k),
                                {"bf16": 2 * K_sp.nnz * k})}
@@ -1149,9 +1182,12 @@ def check_k2_1m(bsr, K, K_sp, seed):
     csr = torch_csr(K_sp, K.data.device)
     U = torch.randn((K.n, DIRECT_K), generator=gen, device="cuda")
     row["library_ms"] = median_ms(lambda: torch.sparse.mm(csr, U))
+    row["library_device_ms"] = device_ms(lambda: torch.sparse.mm(csr, U))
     del csr
     print(f"[kernel] 1M strip-BSR K k={DIRECT_K}: torch.sparse.mm "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"{row['library_ms']:.4f} ms ({row['library_device_ms']:.4f} on "
+          f"the card; K2 {row['device_ms']:.4f}), bound "
+          f"{row['bound_ms']:.4f} ms "
           f"({row['bound_by']}), nnz {K_sp.nnz}", flush=True)
     return row
 
@@ -1581,6 +1617,25 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
                  lambda: banded.banded_spmm_gram_plain(core, U)),
              "gram_library": median_ms(
                  lambda: U.T @ torch.sparse.mm(csr, U))}
+        on_card = (name.startswith("cluster") and k == SPEC_K + 10
+                    or name == "hilbert"
+                    and core.band.dtype == torch.bfloat16)
+        if on_card:
+            t.update({
+                "spmm_device": device_ms(
+                    lambda: banded.banded_spmm_cuda(core, U)),
+                "spmm_library_device": device_ms(
+                    lambda: torch.sparse.mm(csr, U)),
+                "gram_device": device_ms(
+                    lambda: banded.banded_spmm_cuda(core, U,
+                                                    with_gram=True)),
+                "gram_library_device": device_ms(
+                    lambda: U.T @ torch.sparse.mm(csr, U))})
+            print(f"[kernel] {name} k={k} on the card: K4 "
+                  f"{t['spmm_device']:.4f} ms (torch.sparse.mm "
+                  f"{t['spmm_library_device']:.4f}), K5 "
+                  f"{t['gram_device']:.4f} (with U^T W "
+                  f"{t['gram_library_device']:.4f})", flush=True)
         nnz = int(csr.values().numel())
         del csr
         kind = "bf16" if core.band.dtype == torch.bfloat16 else "fp32"
@@ -1612,14 +1667,22 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         if name.startswith("cluster") and k == SPEC_K + 10:
             rows["banded_spmm"] = {
                 "max_abs_err": float((W - Wp).abs().max()), "ms": t["spmm"],
-                "plain_ms": t["spmm_plain"],
-                "library_ms": t["spmm_library"], **b4}
+                "device_ms": t["spmm_device"], "plain_ms": t["spmm_plain"],
+                "library_ms": t["spmm_library"],
+                "library_device_ms": t["spmm_library_device"], **b4}
+            rows["banded_spmm_gram_cluster"] = {
+                "max_abs_err": max(float((W2 - Wp).abs().max()),
+                                   float((G - Gp).abs().max())),
+                "ms": t["gram"], "device_ms": t["gram_device"],
+                "plain_ms": t["gram_plain"], "library_ms": t["gram_library"],
+                "library_device_ms": t["gram_library_device"], **b5}
         if name == "hilbert" and kind == "bf16":
             rows["banded_spmm_gram"] = {
                 "max_abs_err": max(float((W2 - Wp).abs().max()),
                                    float((G - Gp).abs().max())),
-                "ms": t["gram"], "plain_ms": t["gram_plain"],
-                "library_ms": t["gram_library"], **b5}
+                "ms": t["gram"], "device_ms": t["gram_device"],
+                "plain_ms": t["gram_plain"], "library_ms": t["gram_library"],
+                "library_device_ms": t["gram_library_device"], **b5}
         del U, gW, W, W2, G, Wp, Gp
         torch.cuda.empty_cache()
     # K2 on the strip-BSR K beside K4 at the same k, fp32.
@@ -2291,13 +2354,15 @@ def dirichlet_problem(X: np.ndarray):
 
 
 def dirichlet_phase(bsr, K, K_sp, perm, X, reference, mesh, device):
-    """K2 and K3 at k = 1 against the plain version on the 300k strip-BSR
-    K, then `solve_laplace_dirichlet_device` on it (K2 at k = 1 each
-    iteration), counting K2's launches from zero; max abs err against the
-    host's float64 solution <= DIRICHLET_BAR. Before it, on the bunny
-    stand-in, the host reference method and the card's CG against
-    spsolve (`solve_laplace_dirichlet`). Returns (K2's launches, the
-    k = 1 row of measurements)."""
+    """K2 and K3 at k = 1, 2, 4 and 8 on the 300k strip-BSR K, by the
+    narrow path (fp32 strips), against the plain version and the
+    column-block walk, then `solve_laplace_dirichlet_device` on it (K2 at
+    k = 1 each iteration), counting K2's launches and the narrow ones from
+    zero; max abs err against the host's float64 solution <=
+    DIRICHLET_BAR. Before it, on the bunny stand-in, the host reference
+    method and the card's CG against spsolve (`solve_laplace_dirichlet`).
+    Returns (K2's launches, the narrow ones, the k = 1 row of K2, the
+    narrow kernel's row)."""
     from eigenpinns_torch.geometry import point_cloud_laplacian
     from eigenpinns_torch.solvers import (
         solve_laplace_dirichlet,
@@ -2305,37 +2370,84 @@ def dirichlet_phase(bsr, K, K_sp, perm, X, reference, mesh, device):
     )
     from eigenpinns_torch.sparse import BSRTile
 
-    # K2 and K3 at k = 1.
+    # K2 and K3 at k <= 8: the narrow path, which must give the bits of
+    # the column-block walk (col_block 32) and of a second launch.
     K3 = dataclasses.replace(K, gcid=None, lcid=None, gid=None)
-    U = torch.randn((K.n, 1), device=device,
-                    generator=torch.Generator(device).manual_seed(11))
-    row = None
-    for name, op, launch in (("bsr_spmm_grouped", K,
-                              bsr.bsr_spmm_grouped_cuda),
-                             ("bsr_spmm", K3, bsr.bsr_spmm_burst_cuda)):
-        W = launch(op, U)
-        Wp = bsr.bsr_spmm_plain(op, U)
-        torch.cuda.synchronize()
-        err = rel_err(W, Wp)
-        check(torch.equal(launch(op, U), W), f"{name} k=1: two launches "
-              "differ")
-        ms = median_ms(lambda: launch(op, U))
-        plain_ms = median_ms(lambda: bsr.bsr_spmm_plain(op, U))
-        print(f"[kernel] {name} {tuple(op.data.shape)} k=1 highest: "
-              f"rel_err_W={err:.3e} kernel_ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f}", flush=True)
-        check(err <= BSR_TOL["highest"], f"{name} k=1 W: rel err {err:.3e}")
-        if row is None:
-            row = {"max_abs_err": float((W - Wp).abs().max()), "ms": ms,
-                   "plain_ms": plain_ms,
-                   **bound(least_bytes(K_sp.nnz, 4, K.n, 1),
-                           {"fp32": 2 * K_sp.nnz})}
+    gen = torch.Generator(device).manual_seed(11)
     csr = torch_csr(K_sp, device)
-    row["library_ms"] = median_ms(lambda: torch.sparse.mm(csr, U))
-    del csr
-    print(f"[kernel] strip-BSR K k=1: torch.sparse.mm {row['library_ms']:.4f}"
-          f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+    t = K.narrow
+    print(f"[kernel] narrow table of the 300k K: {t.nnz} nonzeros in "
+          f"{t.val.numel()} entries ({t.val.numel() / t.nnz:.3f} with the "
+          f"padding of {t.n_slices} slices of {bsr.SLICE} rows), "
+          f"{bsr.bsr_spmm_hbm_bytes(K, 1) / 1e6:.2f} MB moved at k = 1",
           flush=True)
+    row = narrow_row = None
+    by_k = {}
+    for k in (1, 2, 4, 8):
+        U = torch.randn((K.n, k), device=device, generator=gen)
+        for name, op, launch in (("bsr_spmm_grouped", K,
+                                  bsr.bsr_spmm_grouped_cuda),
+                                 ("bsr_spmm", K3, bsr.bsr_spmm_burst_cuda)):
+            before = bsr.bsr_kernel_launches["narrow"]
+            W = launch(op, U)
+            Wp = bsr.bsr_spmm_plain(op, U)
+            torch.cuda.synchronize()
+            err = rel_err(W, Wp)
+            check(bsr.bsr_kernel_launches["narrow"] == before + 1,
+                  f"{name} k={k}: the narrow path was not taken")
+            check(torch.equal(launch(op, U), W), f"{name} k={k}: two "
+                  "launches differ")
+            check(torch.equal(launch(op, U, col_block=32), W),
+                  f"{name} k={k}: the narrow path differs from the "
+                  "column-block walk")
+            t_n = card_and_host_ms(lambda: launch(op, U))
+            t_w = device_ms(lambda: launch(op, U, col_block=32))
+            print(f"[kernel] {name} {tuple(op.data.shape)} k={k} highest: "
+                  f"rel_err_W={err:.3e}, the walk's bits; narrow "
+                  f"{t_n[0]:.4f} ms on the card (host {t_n[1] * 1e3:.1f} "
+                  f"us a launch), column-block walk {t_w:.4f}", flush=True)
+            check(err <= BSR_TOL["highest"],
+                  f"{name} k={k} W: rel err {err:.3e}")
+            if name == "bsr_spmm_grouped":
+                lib = device_ms(lambda: torch.sparse.mm(csr, U))
+                by_k[k] = {"device_ms": t_n[0], "walk_device_ms": t_w,
+                           "library_device_ms": lib}
+            if k == 1 and name == "bsr_spmm_grouped":
+                b = bound(least_bytes(K_sp.nnz, 4, K.n, 1),
+                          {"fp32": 2 * K_sp.nnz})
+                row = {"max_abs_err": float((W - Wp).abs().max()),
+                       "ms": median_ms(lambda: launch(op, U)),
+                       "device_ms": t_n[0], "host_ms": t_n[1],
+                       "walk_ms": median_ms(
+                           lambda: launch(op, U, col_block=32)),
+                       "walk_device_ms": t_w,
+                       "plain_ms": median_ms(
+                           lambda: bsr.bsr_spmm_plain(op, U)),
+                       "library_ms": median_ms(
+                           lambda: torch.sparse.mm(csr, U)),
+                       "library_device_ms": lib, **b}
+                narrow_row = {key: row[key] for key in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "library_ms", "library_device_ms", "bound_ms",
+                    "bound_by")}
+                narrow_row["max_abs_err_vs_narrow_plain"] = float(
+                    (W - bsr.narrow_spmm_plain(op, U)).abs().max())
+    del csr
+    row["by_k"] = by_k
+    print(f"[kernel] strip-BSR K k=1: narrow {row['device_ms']:.4f} ms on "
+          f"the card ({row['ms']:.4f} by launch), column-block walk "
+          f"{row['walk_device_ms']:.4f} ({row['walk_ms']:.4f}; earlier "
+          f"0.2159 by launch), torch.sparse.mm "
+          f"{row['library_device_ms']:.4f} ({row['library_ms']:.4f}), "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); on the "
+          f"card by k (narrow, walk, library): "
+          + ", ".join(f"{k}: {v['device_ms']:.4f} / "
+                      f"{v['walk_device_ms']:.4f} / "
+                      f"{v['library_device_ms']:.4f}"
+                      for k, v in by_k.items()), flush=True)
+    check(row["device_ms"] <= row["library_device_ms"],
+          f"K2 at k = 1 {row['device_ms']:.4f} ms on the card, above "
+          f"torch.sparse.mm's {row['library_device_ms']:.4f}")
 
     # The reference method and the card's CG against spsolve, small.
     Xs = np.asarray(mesh.verts)
@@ -2362,12 +2474,14 @@ def dirichlet_phase(bsr, K, K_sp, perm, X, reference, mesh, device):
     mask_t = torch.as_tensor(mask[perm], device=device)
     vals_t = torch.as_tensor(vals[perm], dtype=torch.float32, device=device)
     bsr.bsr_kernel_launches["grouped"] = 0
+    bsr.bsr_kernel_launches["narrow"] = 0
     t0 = time.time()
     u = solve_laplace_dirichlet_device(K, mask_t, vals_t,
                                        cg_iters=DIRICHLET_ITERS)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = bsr.bsr_kernel_launches["grouped"]
+    narrow = bsr.bsr_kernel_launches["narrow"]
     u_ref = reference.result()[perm]
     errs = {DIRICHLET_ITERS: float(np.abs(u.cpu().numpy() - u_ref).max())}
     # The error at fewer iterations, to show what the bar needs.
@@ -2377,14 +2491,18 @@ def dirichlet_phase(bsr, K, K_sp, perm, X, reference, mesh, device):
         errs[iters] = float(np.abs(u_k.cpu().numpy() - u_ref).max())
     print(f"[dirichlet] {K.n} points, {int(mask.sum())} boundary: "
           f"{DIRICHLET_ITERS} CG iterations in {wall:.3f} s "
-          f"({wall / DIRICHLET_ITERS * 1e3:.4f} ms an iteration), K2 "
-          f"launches {launches}; max abs err vs the host's float64 solution "
-          f"by cg_iters {dict(sorted(errs.items()))}", flush=True)
+          f"({wall / DIRICHLET_ITERS * 1e3:.4f} ms an iteration; 0.240 "
+          f"earlier, on the column-block walk), K2 launches {launches}, "
+          f"{narrow} of them narrow; max abs err vs the host's float64 "
+          f"solution by cg_iters {dict(sorted(errs.items()))}", flush=True)
     check(launches > 0, "the Dirichlet solve launched K2 0 times")
+    check(narrow == launches, f"{launches - narrow} of the Dirichlet "
+          "solve's K2 launches missed the narrow path")
     check(errs[DIRICHLET_ITERS] <= DIRICHLET_BAR,
           f"Dirichlet max abs err {errs[DIRICHLET_ITERS]:.3e} > "
           f"{DIRICHLET_BAR}")
-    return launches, row
+    row["cg_ms_per_iteration"] = wall / DIRICHLET_ITERS * 1e3
+    return launches, narrow, row, narrow_row
 
 
 # ---- the CLI (step 14) ---------------------------------------------------
@@ -2393,38 +2511,65 @@ def check_k2_cli(bsr, K, K_sp, seed):
     """K2 vs the plain version on run B's fused K_blk (strip-BSR of the
     four point-cloud levels) at k = 64 (the loss) and 67 (the polish
     block) in the three modes: W to BSR_TOL, the same bits from a second
-    launch; with torch.sparse.mm and the bound; returns the k = 64 'high'
-    row (the loss's mode)."""
+    launch and from every grid of the walk (8, 4 or 2 warps a block, both
+    column blocks); with torch.sparse.mm and the bound, each timed by
+    launch and on the card, and the host's time to enqueue a launch;
+    returns the k = 64 'high' row (the loss's mode)."""
     gen = torch.Generator("cuda").manual_seed(seed)
     k_loss = CLI_RUNS_K["B"]
+    csr = torch_csr(K_sp, K.data.device)
     row = None
     for k in (k_loss, k_loss + 3):
         U = torch.randn((K.n, k), generator=gen, device="cuda")
         for prec in ("highest", "high", "bf16"):
             A = K.with_precision(prec)
+            cb, warps = bsr.walk_grid(A, k)
             W = bsr.bsr_spmm_grouped_cuda(A, U)
             Wp = bsr.bsr_spmm_plain(A, U)
             torch.cuda.synchronize()
             err = rel_err(W, Wp)
             check(torch.equal(bsr.bsr_spmm_grouped_cuda(A, U), W),
                   f"CLI K_blk K2 k={k} {prec}: two launches differ")
+            grids = {}
+            for w in (8, 4, 2):
+                for c in (32, 64):
+                    f = (lambda w=w, c=c: bsr.bsr_spmm_grouped_cuda(
+                        A, U, col_block=c, warps=w))
+                    check(torch.equal(f(), W), f"CLI K_blk K2 k={k} {prec}:"
+                          f" the grid of {w} warps, col_block {c} differs")
+                    grids[f"{w}x{c}"] = device_ms(f)
             ms = median_ms(lambda: bsr.bsr_spmm_grouped_cuda(A, U))
+            on_card, host = card_and_host_ms(
+                lambda: bsr.bsr_spmm_grouped_cuda(A, U))
             plain_ms = median_ms(lambda: bsr.bsr_spmm_plain(A, U))
             print(f"[kernel] bsr_spmm_grouped CLI K_blk "
                   f"{tuple(A.data.shape)} k={k} {prec}: rel_err_W={err:.3e}"
-                  f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+                  f" kernel_ms={ms:.4f} by launch, {on_card:.4f} on the "
+                  f"card (host {host * 1e3:.1f} us a launch; grid "
+                  f"({-(-k // cb)}, {K.n_row_tiles * 8 // warps}) of "
+                  f"{warps} warps, col_block {cb}; on the card by warps x "
+                  f"col_block, the same bits: "
+                  + ", ".join(f"{g} {t:.4f}" for g, t in grids.items())
+                  + f") plain_ms={plain_ms:.4f}", flush=True)
             check(err <= BSR_TOL[prec],
                   f"CLI K_blk K2 k={k} {prec} W: rel err {err:.3e}")
             if k == k_loss and prec == "high":
                 row = {"max_abs_err": float((W - Wp).abs().max()), "ms": ms,
-                       "plain_ms": plain_ms,
+                       "device_ms": on_card, "host_ms": host,
+                       "plain_ms": plain_ms, "grid_warps": warps,
+                       "col_block": cb, "device_ms_by_grid": grids,
                        **bound(least_bytes(K_sp.nnz, 4, K.n, k),
                                {"fp32": 2 * K_sp.nnz * k})}
-    csr = torch_csr(K_sp, K.data.device)
     U = torch.randn((K.n, k_loss), generator=gen, device="cuda")
     row["library_ms"] = median_ms(lambda: torch.sparse.mm(csr, U))
+    row["library_device_ms"], row["library_host_ms"] = card_and_host_ms(
+        lambda: torch.sparse.mm(csr, U))
     print(f"[kernel] CLI K_blk k={k_loss}: torch.sparse.mm "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"{row['library_ms']:.4f} ms by launch, "
+          f"{row['library_device_ms']:.4f} on the card (host "
+          f"{row['library_host_ms'] * 1e3:.1f} us a launch); K2 "
+          f"{row['ms']:.4f} / {row['device_ms']:.4f} (0.0595 by launch "
+          f"earlier, on the 8-warp grid); bound {row['bound_ms']:.5f} ms "
           f"({row['bound_by']}), nnz {K_sp.nnz}", flush=True)
     return row
 
@@ -3192,14 +3337,18 @@ def shard_block_row(banded, A, U: torch.Tensor, label: str) -> dict:
     csr = band_csr(A)
     nnz = int(csr.values().numel())
     t = {"ms": median_ms(lambda: banded.banded_spmm_cuda(A, U)),
+         "device_ms": device_ms(lambda: banded.banded_spmm_cuda(A, U)),
          "plain_ms": median_ms(lambda: banded.banded_spmm_plain(A, U)),
-         "library_ms": median_ms(lambda: torch.sparse.mm(csr, U))}
+         "library_ms": median_ms(lambda: torch.sparse.mm(csr, U)),
+         "library_device_ms": device_ms(lambda: torch.sparse.mm(csr, U))}
     b = bound(least_bytes(nnz, A.band.element_size(), A.n, k,
                           n_cols=U.shape[0]), {"fp32": 2 * nnz * k})
     print(f"[shard] {label} {A.n} x {A.n_cols} band "
           f"{tuple(A.band.shape)} k={k}: rel err vs plain {err:.3e}; K4 "
-          f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, torch.sparse.mm "
-          f"{t['library_ms']:.4f}, bound {b['bound_ms']:.4f} "
+          f"{t['ms']:.4f} ms ({t['device_ms']:.4f} on the card; plain "
+          f"{t['plain_ms']:.4f}, torch.sparse.mm {t['library_ms']:.4f}, "
+          f"{t['library_device_ms']:.4f} on the card; bound "
+          f"{b['bound_ms']:.4f} "
           f"{b['bound_by']}); nnz {nnz}, occupied 16 x 16 sub-blocks "
           f"{occupied_share(A.occupancy)}", flush=True)
     check(err <= BANDED_TOL["W"], f"{label}: K4 rel err {err:.3e}")
@@ -4166,8 +4315,8 @@ def smoke(oracles: list) -> int:
     pde_run_counts = finish_pde_runs(pde_workers)
     phases.done("step 15's trainings (E1, E2, E3, S1, S2; started with "
                 "the deflation phase)")
-    k2_dirichlet, row_k1 = dirichlet_phase(bsr, K, L[perm][:, perm], perm,
-                                           X, dirichlet_ref, mesh, device)
+    k2_dirichlet, narrow_dirichlet, row_k1, row_narrow = dirichlet_phase(
+        bsr, K, L[perm][:, perm], perm, X, dirichlet_ref, mesh, device)
     phases.done("Dirichlet phase")
 
     # 7. The direct slice, counting launches from zero.
@@ -4242,8 +4391,13 @@ def smoke(oracles: list) -> int:
          "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
          "launches": k2_launches, **bsr_rows["bsr_spmm_grouped"],
          "launches_1m": k2_xl, "row_1m": row_1m,
-         "launches_dirichlet": k2_dirichlet, "row_k1": row_k1,
+         "launches_dirichlet": k2_dirichlet,
+         "launches_dirichlet_narrow": narrow_dirichlet, "row_k1": row_k1,
          "launches_cli_b": k2_cli, "row_cli_k64": row_cli},
+        {"name": "bsr_spmm_narrow", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
+         "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
+         "launches": narrow_dirichlet, **row_narrow},
         {"name": "bsr_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:672",
@@ -4258,7 +4412,9 @@ def smoke(oracles: list) -> int:
         {"name": "banded_spmm_gram", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/banded.py:382",
-         "launches": k5_launches, **banded_rows["banded_spmm_gram"]},
+         "launches": k5_launches, **banded_rows["banded_spmm_gram"],
+         "row_cluster_k60": banded_rows["banded_spmm_gram_cluster"],
+         "row_1m_cluster_k60": band_rows_1m["banded_spmm_gram_cluster"]},
         {"name": "banded_spmm_rect", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/banded.py:455",

@@ -62,5 +62,16 @@ def default_col_block(k: int, dtype: torch.dtype) -> int:
     per lane: one pass over the sub-blocks serves 64 columns, and each
     shared-memory load of the data feeds twice the FFMA). bf16 data: 32
     always (the tensor-core path keeps a 16 x 32 block in 16 registers a
-    lane; at 64 its registers double and fewer warps hide the loads)."""
+    lane; at 64 its registers double and fewer warps hide the loads).
+
+    The strip-BSR kernels start from it but do not always take it
+    (`sparse/bsr.py`): on fp32 strips at k <= 8 they take the narrow
+    path, one lane a row over the operator's nonzeros, and no column
+    block (at k = 1 on the 300k K 0.0088 ms on the card, against 0.2018
+    for the walk); on an operator whose row tiles x column blocks give
+    fewer than two blocks an SM (CLI run B's K_blk: 35 row tiles) they
+    take 32 columns and blocks of 4 or 2 warps (at k = 64 in fp32 0.0162
+    ms, against 0.0203 at 64 columns on 8-warp blocks). The same bits
+    either way; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py's Dirichlet
+    and CLI phases."""
     return 64 if dtype == torch.float32 and k > 32 else 32

@@ -140,8 +140,10 @@ def test_bsr_cuda_kernels_match_plain(precision, k):
     Wg = tbsr.bsr_spmm_grouped_cuda(op, U)
     Wb = tbsr.bsr_spmm_burst_cuda(burst, U)
     torch.cuda.synchronize()
+    narrow = k <= tbsr.NARROW_MAX_K and precision != "bf16"
     assert tbsr.bsr_kernel_launches == {
-        "grouped": before["grouped"] + 1, "burst": before["burst"] + 1}
+        "grouped": before["grouped"] + 1, "burst": before["burst"] + 1,
+        "narrow": before["narrow"] + 2 * narrow}
     assert _rel(Wg.cpu(), Wp.cpu()) < tol
     assert _rel(Wb.cpu(), Wp.cpu()) < tol
     # One summation order whatever the kernel and its column block.
@@ -155,6 +157,98 @@ def test_bsr_cuda_kernels_match_plain(precision, k):
     (tbsr.bsr_spmm(op, Ut) * g).sum().backward()
     ref = tbsr.bsr_spmm_plain(op.transpose_bsr, g)
     assert _rel(Ut.grad.cpu(), ref.cpu()) < tol
+
+
+def _cloud_bsr(n_points, seed=3):
+    """The RCM strip-BSR K of an n-point cloud Laplacian on the card."""
+    X = np.random.default_rng(seed).normal(size=(n_points, 3))
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    return tbsr.BSRTile.from_scipy(
+        point_cloud_laplacian(X, n_neighbors=15)[0], device="cuda")[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("case", ["cloud", "asym800"])
+def test_bsr_cuda_narrow_path_matches_the_walk(case, k, precision):
+    """The narrow path (fp32 strips, k <= NARROW_MAX_K): both wrappers
+    take it by default (one narrow launch counted each), W within rel
+    1e-5 of the plain version, the same bits as the column-block walk
+    (col_block 32 and 64) and from a second launch."""
+    _need_card()
+    op = (_cloud_bsr(6000) if case == "cloud" else
+          tbsr.BSRTile.from_scipy(_asym800(), device="cuda")[0])
+    op = op.with_precision(precision)
+    burst = dataclasses.replace(op, gcid=None, lcid=None, gid=None)
+    U = torch.from_numpy(np.random.default_rng(k).normal(
+        size=(op.n, k)).astype(np.float32)).cuda()
+    before = tbsr.bsr_kernel_launches["narrow"]
+    Wg = tbsr.bsr_spmm_grouped_cuda(op, U)
+    Wb = tbsr.bsr_spmm_burst_cuda(burst, U)
+    torch.cuda.synchronize()
+    assert tbsr.bsr_kernel_launches["narrow"] == before + 2
+    assert _rel(Wg.cpu(), tbsr.bsr_spmm_plain(op, U).cpu()) < 1e-5
+    assert torch.equal(Wb, Wg)
+    assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U), Wg)
+    for cb in (32, 64):
+        assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U, col_block=cb),
+                           Wg)
+        assert torch.equal(tbsr.bsr_spmm_burst_cuda(burst, U, col_block=cb),
+                           Wg)
+    assert tbsr.bsr_kernel_launches["narrow"] == before + 3
+    with pytest.raises(ValueError, match="narrow table"):
+        tbsr.bsr_spmm_grouped_cuda(dataclasses.replace(op, narrow=None), U)
+
+
+@pytest.mark.cuda
+def test_bsr_cuda_narrow_path_gradient():
+    """The gradient through the dispatcher at k = 1 (the Dirichlet CG's
+    width): A^T from the stored transpose's own narrow table, vs the
+    plain version (rel 1e-5), the same bits as the walk on the
+    transpose."""
+    _need_card()
+    op, _ = tbsr.BSRTile.from_scipy(_asym800(), device="cuda")
+    gen = torch.Generator("cuda").manual_seed(1)
+    U = torch.randn((op.n, 1), generator=gen, device="cuda")
+    g = torch.randn((op.n, 1), generator=gen, device="cuda")
+    before = tbsr.bsr_kernel_launches["narrow"]
+    Ut = U.clone().requires_grad_(True)
+    (tbsr.bsr_spmm(op, Ut) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert tbsr.bsr_kernel_launches["narrow"] == before + 2
+    At = op.transpose_bsr
+    assert _rel(Ut.grad.cpu(), tbsr.bsr_spmm_plain(At, g).cpu()) < 1e-5
+    assert torch.equal(Ut.grad,
+                       tbsr.bsr_spmm_grouped_cuda(At, g, col_block=32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high", "bf16"])
+def test_bsr_cuda_small_operator_grid(precision):
+    """An operator of 35 row tiles at k = 64 (CLI run B's K_blk has as
+    many): the walk's default grid takes fewer stripes a block than 8
+    on a card of 132 SMs, and every grid (8, 4 or 2 warps a block, both
+    column blocks) gives the 8-warp grid's bits, within rel 1e-5 of the
+    plain version (1e-4 in 'bf16')."""
+    _need_card()
+    op = _cloud_bsr(4480).with_precision(precision)
+    assert op.n_row_tiles == 35
+    U = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(op.n, 64)).astype(np.float32)).cuda()
+    if torch.cuda.get_device_properties(0).multi_processor_count >= 72:
+        assert tbsr.walk_grid(op, 64) == (32, 2)
+    W8 = tbsr.bsr_spmm_grouped_cuda(op, U, warps=8)
+    tol = 1e-4 if precision == "bf16" else 1e-5
+    assert _rel(W8.cpu(), tbsr.bsr_spmm_plain(op, U).cpu()) < tol
+    assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U), W8)
+    burst = dataclasses.replace(op, gcid=None, lcid=None, gid=None)
+    for warps in (8, 4, 2):
+        for col_block in (32, 64):
+            assert torch.equal(tbsr.bsr_spmm_grouped_cuda(
+                op, U, col_block=col_block, warps=warps), W8)
+            assert torch.equal(tbsr.bsr_spmm_burst_cuda(
+                burst, U, col_block=col_block, warps=warps), W8)
 
 
 def _wide_strip_matrix(n_rt=2100, per_row=64):
