@@ -19,11 +19,10 @@ present or the package is not beside it. On the card it:
      farthest-point sampling, local triangulations, intrinsic-Delaunay
      flips) with the host's C++ compiler, printing each job's wall; then
      starts the 1M host stage: `make_cloud(1_000_000)`, its native
-     point-cloud Laplacian (15 neighbors) and the 50-mode eigsh oracle
-     in a worker process on one thread (as is the 300k oracle), which
-     runs behind every 300k phase. The Laplacian runs while the card
-     waits: behind the host-bound multigrid path it would slow that
-     path, and the 1M phases would wait for the oracle instead. Every
+     point-cloud Laplacian (15 neighbors) and the 50-mode eigsh oracle,
+     all in one worker process on one thread (as is the 300k oracle),
+     which runs behind every 300k phase on a core of its own, so that
+     the card never waits for it; the 1M phases collect it. Every
      point-cloud Laplacian of the script passes use_native=True, so a
      missing native library fails the run;
   2. holds K1 against its plain torch version on the card, at the
@@ -34,7 +33,12 @@ present or the package is not beside it. On the card it:
      G, 1e-4 for the gradient), and in 'bf16' against the plain product
      of the same bf16-rounded operator (rel 2e-3); W must be the same
      bit for bit from a second launch, from the other column block and
-     with the Gram, G from a second launch; it prints each band's
+     with the Gram, G from a second launch, and on every grid of both
+     band routes (`band_routes`: the staged route on 8-, 4- and 2-warp
+     blocks and the column-block walk; a `[route]` line gives the
+     default route and grid, the U bytes a launch reads on it and on
+     the walk, and both routes' times on the card, as for every band
+     operator below); it prints each band's
      occupied 16 x 16 sub-blocks, times the kernel and its plain version
      (median of 20 samples of 5 back-to-back launches) and
      torch.sparse.mm of the same operator as a CSR tensor (the library
@@ -708,6 +712,42 @@ class HostOracle(HostJob):
         return super().result()[1]
 
 
+def xl_host_stage(n: int, k: int):
+    """The 1M host stage, the work of a one-thread worker: the cloud, its
+    native point-cloud Laplacian (15 neighbors) and eigsh's k smallest
+    eigenvalues. Returns (X, L, the lumped M's diagonal, the
+    eigenvalues, the cloud and Laplacian's seconds, eigsh's seconds)."""
+    from eigenpinns_torch.geometry import point_cloud_laplacian
+    from eigenpinns_torch.utils.fixtures import make_cloud
+
+    t0 = time.time()
+    X = make_cloud(n)
+    L, M = point_cloud_laplacian(X, n_neighbors=15, use_native=True)
+    t_lap = time.time() - t0
+    t0 = time.time()
+    vals = eigsh_values(L, M, k)
+    return X, L, np.asarray(M.diagonal()), vals, t_lap, time.time() - t0
+
+
+class XLHostStage(HostJob):
+    """`xl_host_stage` as a HostJob: `data()` gives (X, L, M's diagonal),
+    `result()` the eigenvalues (the oracle's interface)."""
+
+    def __init__(self, n: int, k: int):
+        super().__init__(f"{n}-point host stage (cloud, native Laplacian, "
+                         f"{k}-mode eigsh oracle)", xl_host_stage, n, k)
+
+    def data(self) -> tuple:
+        X, L, m, _, t_lap, t_eig = super().result()
+        print(f"[host] {X.shape[0]} points in the worker: cloud and native "
+              f"Laplacian (15 neighbors) {t_lap:.2f} s, nnz {L.nnz}; eigsh "
+              f"{t_eig:.2f} s", flush=True)
+        return X, L, m
+
+    def result(self) -> np.ndarray:
+        return super().result()[3]
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -945,6 +985,63 @@ def describe_band(name: str, op) -> None:
           f"{stripe_counts(op.occupancy, op.n)}", flush=True)
 
 
+def band_routes(name, launch, band, occupancy, U, W, on_card=False,
+                gram_W=None):
+    """The band kernels' route and grid for a product of width k on this
+    band (`band_grid`), the U bytes a launch reads there and on the walk
+    (`band_u_bytes`), and W the same bits on every grid: the staged
+    route on 8-, 4- and 2-warp blocks (an fp32 band, k <= 64) and the
+    column-block walk. `launch(U, **grid)` runs the wrapper. With
+    `on_card`, the default grid's and the walk's times on the card
+    (`device_ms`; with `gram_W` given, K5's too). Returns (printed
+    summary, {key: ms})."""
+    from eigenpinns_torch.sparse.banded import band_u_bytes
+    from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
+
+    k = U.shape[1]
+    n_tiles = band.shape[0] // 128
+    route, cb, warps = band_grid(n_tiles, k, band.dtype, sm_count(U.device))
+    grids = [dict(route="walk")]
+    staged = dict(route="staged", col_block=max(cb, 32 * -(-k // 32)))
+    if band.dtype == torch.float32 and k <= 64:
+        grids += [dict(staged, warps=w) for w in (8, 4, 2)]
+    for grid in grids:
+        check(torch.equal(launch(U, **grid), W),
+              f"{name} k={k}: W differs on the grid {grid}")
+    u_gb = band_u_bytes(occupancy, k, route, warps) / 1e9
+    walk_gb = band_u_bytes(occupancy, k, "walk") / 1e9
+    blocks = n_tiles * max(-(-k // cb), 8 // warps)
+    text = (f"{route} route, col_block {cb}, {warps} warps a block "
+            f"({blocks} units), U read a launch {u_gb * 1e3:.3f} MB (walk "
+            f"{walk_gb * 1e3:.3f}); W the same bits on {len(grids)} grids")
+    times = {"band_route": route, "warps": warps, "u_gb": u_gb,
+             "walk_u_gb": walk_gb}
+    if on_card:
+        times["device_ms"] = device_ms(lambda: launch(U))
+        times["walk_device_ms"] = device_ms(lambda: launch(U, route="walk"))
+        text += (f"; on the card {times['device_ms']:.4f} ms, the walk "
+                 f"{times['walk_device_ms']:.4f}")
+        if gram_W is not None:
+            times["gram_device_ms"] = device_ms(
+                lambda: launch(U, with_gram=True))
+            times["gram_walk_device_ms"] = device_ms(
+                lambda: launch(U, with_gram=True, route="walk"))
+            text += (f"; with the Gram {times['gram_device_ms']:.4f}, the "
+                     f"walk {times['gram_walk_device_ms']:.4f}")
+            if len(grids) > 1:
+                times["gram_staged_device_ms"] = device_ms(
+                    lambda: launch(U, with_gram=True, **staged))
+                text += f", staged {times['gram_staged_device_ms']:.4f}"
+    if gram_W is not None:
+        gram_grids = [dict(), dict(route="walk")] + (
+            [staged] if len(grids) > 1 else [])
+        check(all(torch.equal(launch(U, with_gram=True, **grid)[0], W)
+                  for grid in gram_grids),
+              f"{name} k={k}: W with the Gram differs between routes")
+    print(f"[route] {name} k={k}: {text}", flush=True)
+    return text, times
+
+
 def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
                  plain_samples=(20, 5)):
     """K1 vs plain version on one operator (`A_sp`, its scipy matrix, is
@@ -979,6 +1076,12 @@ def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
             f"{name} k={k} {prec}: G differs between two launches")
         errs["G_other"] = rel_err(G2, Gp)
         del W2, G2
+        _, route_t = band_routes(
+            f"{name} {prec}",
+            lambda V, **grid: rolling.rolling_spmm_cuda(A, V, **grid),
+            A.band, A.occupancy, U, W,
+            on_card=prec == row_prec or A.band.dtype == torch.float32,
+            gram_W=W)
         # Gradient through the fused Gram: kernel autograd vs torch
         # autograd through the plain version; in 'bf16', where the kernel
         # rounds the cotangent to bf16, vs dU = A^T (gW + U gG) + W gG^T
@@ -1020,10 +1123,8 @@ def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
             gram_library_ms = median_ms(
                 lambda: U.T @ torch.sparse.mm(csr, U))
             on_card = {
-                "device_ms": device_ms(
-                    lambda: rolling.rolling_spmm_cuda(A, U)),
-                "with_gram_device_ms": device_ms(
-                    lambda: rolling.rolling_spmm_cuda(A, U, with_gram=True)),
+                **route_t,
+                "with_gram_device_ms": route_t["gram_device_ms"],
                 "library_device_ms": device_ms(
                     lambda: torch.sparse.mm(csr, U))}
             del csr
@@ -1044,8 +1145,11 @@ def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; with "
                   f"the Gram {b_gram['bound_ms']:.4f}), nnz {nnz}; queued "
                   f"behind a busy-wait (no host in the way): kernel "
-                  f"{on_card['device_ms']:.4f} ms, with the Gram "
-                  f"{on_card['with_gram_device_ms']:.4f}, torch.sparse.mm "
+                  f"{on_card['device_ms']:.4f} ms ({route_t['band_route']} "
+                  f"route, {route_t['warps']} warps; the walk "
+                  f"{on_card['walk_device_ms']:.4f}), with the Gram "
+                  f"{on_card['with_gram_device_ms']:.4f} (the walk "
+                  f"{on_card['gram_walk_device_ms']:.4f}), torch.sparse.mm "
                   f"{on_card['library_device_ms']:.4f}", flush=True)
         del W, G, Wp, Gp
         torch.cuda.empty_cache()
@@ -1601,6 +1705,9 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         check(torch.equal(
             banded.banded_spmm_cuda(core, U, with_gram=True)[1], G),
             f"{name} k={k}: G differs between two launches")
+        _, route_t = band_routes(
+            name, lambda V, **grid: banded.banded_spmm_cuda(core, V, **grid),
+            core.band, core.occupancy, U, W, on_card=True, gram_W=W)
         csr = band_csr(core)
         t = {"spmm": median_ms(lambda: banded.banded_spmm_cuda(core, U)),
              "spmm_other": median_ms(
@@ -1622,20 +1729,19 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
                     and core.band.dtype == torch.bfloat16)
         if on_card:
             t.update({
-                "spmm_device": device_ms(
-                    lambda: banded.banded_spmm_cuda(core, U)),
+                "spmm_device": route_t["device_ms"],
                 "spmm_library_device": device_ms(
                     lambda: torch.sparse.mm(csr, U)),
-                "gram_device": device_ms(
-                    lambda: banded.banded_spmm_cuda(core, U,
-                                                    with_gram=True)),
+                "gram_device": route_t["gram_device_ms"],
                 "gram_library_device": device_ms(
                     lambda: U.T @ torch.sparse.mm(csr, U))})
             print(f"[kernel] {name} k={k} on the card: K4 "
                   f"{t['spmm_device']:.4f} ms (torch.sparse.mm "
-                  f"{t['spmm_library_device']:.4f}), K5 "
+                  f"{t['spmm_library_device']:.4f}; the walk "
+                  f"{route_t['walk_device_ms']:.4f}), K5 "
                   f"{t['gram_device']:.4f} (with U^T W "
-                  f"{t['gram_library_device']:.4f})", flush=True)
+                  f"{t['gram_library_device']:.4f}; the walk "
+                  f"{route_t['gram_walk_device_ms']:.4f})", flush=True)
         nnz = int(csr.values().numel())
         del csr
         kind = "bf16" if core.band.dtype == torch.bfloat16 else "fp32"
@@ -1643,7 +1749,9 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         b4 = bound(least_bytes(nnz, vb, core.n, k), {kind: 2 * nnz * k})
         b5 = bound(least_bytes(nnz, vb, core.n, k, gram=True),
                    {kind: 2 * nnz * k, "fp32": 2 * core.n * k * k})
-        moved_gb = banded.banded_spmm_hbm_bytes(core, k) / 1e9
+        moved_gb = banded.banded_spmm_hbm_bytes(
+            core, k, route=route_t["band_route"],
+            warps=route_t["warps"]) / 1e9
         print(f"[kernel] {name} {tuple(core.band.shape)} {kind} k={k}: "
               f"occupied 16 x 16 sub-blocks {occupied_share(core.occupancy)};"
               " "
@@ -1669,13 +1777,18 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
                 "max_abs_err": float((W - Wp).abs().max()), "ms": t["spmm"],
                 "device_ms": t["spmm_device"], "plain_ms": t["spmm_plain"],
                 "library_ms": t["spmm_library"],
-                "library_device_ms": t["spmm_library_device"], **b4}
+                "library_device_ms": t["spmm_library_device"], **b4,
+                "band_route": route_t["band_route"],
+                "warps": route_t["warps"], "u_gb": route_t["u_gb"],
+                "walk_u_gb": route_t["walk_u_gb"],
+                "walk_device_ms": route_t["walk_device_ms"]}
             rows["banded_spmm_gram_cluster"] = {
                 "max_abs_err": max(float((W2 - Wp).abs().max()),
                                    float((G - Gp).abs().max())),
                 "ms": t["gram"], "device_ms": t["gram_device"],
                 "plain_ms": t["gram_plain"], "library_ms": t["gram_library"],
-                "library_device_ms": t["gram_library_device"], **b5}
+                "library_device_ms": t["gram_library_device"], **b5,
+                "walk_device_ms": route_t["gram_walk_device_ms"]}
         if name == "hilbert" and kind == "bf16":
             rows["banded_spmm_gram"] = {
                 "max_abs_err": max(float((W2 - Wp).abs().max()),
@@ -3334,10 +3447,13 @@ def shard_block_row(banded, A, U: torch.Tensor, label: str) -> dict:
     W = banded.banded_spmm_cuda(A, U)
     Wp = banded.banded_spmm_plain(A, U)
     err = rel_err(W, Wp)
+    _, route_t = band_routes(
+        label, lambda V, **grid: banded.banded_spmm_cuda(A, V, **grid),
+        A.band, A.occupancy, U, W, on_card=True)
     csr = band_csr(A)
     nnz = int(csr.values().numel())
     t = {"ms": median_ms(lambda: banded.banded_spmm_cuda(A, U)),
-         "device_ms": device_ms(lambda: banded.banded_spmm_cuda(A, U)),
+         **route_t,
          "plain_ms": median_ms(lambda: banded.banded_spmm_plain(A, U)),
          "library_ms": median_ms(lambda: torch.sparse.mm(csr, U)),
          "library_device_ms": device_ms(lambda: torch.sparse.mm(csr, U))}
@@ -4127,22 +4243,11 @@ def smoke(oracles: list) -> int:
         for name, t in build_s.items()), flush=True)
     phases.done("build of bsr_spmm.cu, banded_spmm.cu, geometry_kernels.cpp")
 
-    # 1b. The 1M host stage, first: the cloud, its native Laplacian and
-    # the 50-mode eigsh oracle, in a worker process that runs behind
-    # every 300k phase (the 1M phases come last).
-    t0 = time.time()
-    X_xl = make_cloud(XL_N)
-    t_cloud = time.time() - t0
-    t0 = time.time()
-    L_xl, M_xl = point_cloud_laplacian(X_xl, n_neighbors=15, use_native=True)
-    m_xl = np.asarray(M_xl.diagonal())
-    print(f"[host] {XL_N} points: cloud in {t_cloud:.2f} s, native "
-          f"Laplacian (15 neighbors) in {time.time() - t0:.2f} s, nnz "
-          f"{L_xl.nnz}", flush=True)
-    oracle_xl = HostOracle("1M", L_xl, M_xl, SPEC_K)
+    # 1b. The 1M host stage: the cloud, its native Laplacian and the
+    # 50-mode eigsh oracle, in one one-thread worker process that runs
+    # behind every 300k phase (the 1M phases come last and collect it).
+    oracle_xl = XLHostStage(XL_N, SPEC_K)
     oracles.append(oracle_xl)
-    del M_xl
-    phases.done("1M host stage")
 
     # 2. K1 vs plain at the multigrid path's shapes. The operators
     # come from a host-side (CPU) build of the same hierarchy, which
@@ -4351,6 +4456,8 @@ def smoke(oracles: list) -> int:
     phases.done("family slice")
 
     # 11-12. The 1M phases, after every 300k phase.
+    X_xl, L_xl, m_xl = oracle_xl.data()
+    phases.done("1M host stage (waited for the worker)")
     k2_xl, row_1m, k4_xl, band_rows_1m = xl_phases(
         bsr, banded, X_xl, L_xl, m_xl, oracle_xl, device, phases)
 

@@ -39,6 +39,14 @@
 // 4 or 8 FFMA (a warp-uniform branch). Adding an exact zero changes no
 // sum, so the product is the same bit for bit with or without the skip.
 //
+// The band kernels (banded_spmm.cu) take this walk for a bf16 band and
+// for a product wider than one column block. An fp32 band whose product
+// fits one column block takes their staged route instead: the same
+// entries summed in the same order with the same zero-group skip, but
+// each piece's U groups copied once into shared memory for all the
+// stripes of a block, and several sub-blocks of a stripe in flight by
+// cp.async, so W has this walk's bits either way.
+//
 // bf16 data (U rounded to bf16, fp32 accumulation). Tensor cores:
 // mma.sync.m16n8k16 takes the 16 x 16 sub-block as its A operand and 8
 // columns of the 16 rounded U rows as B. Both fragments are loaded
@@ -88,6 +96,17 @@ struct Layout<__nv_bfloat16, kCols> {  // the mma.m16n8 C fragment, 8-column
   }
   static __device__ __forceinline__ int col(int i, int lane) {
     return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+  }
+};
+
+// The band kernels' staged route, fp32: lane l owns the kCols adjacent
+// columns kCols l .. kCols l + kCols - 1, so its U values of a row are
+// one vector load from shared memory.
+template <int kCols>
+struct PairLayout {
+  static __device__ __forceinline__ int row(int i, int) { return i / kCols; }
+  static __device__ __forceinline__ int col(int i, int lane) {
+    return kCols * lane + i % kCols;
   }
 };
 
@@ -334,12 +353,11 @@ __device__ __forceinline__ void stripe_product(
 }
 
 // W[row0 + row(i), col0 + col(i)] = acc[i] for the rows and columns that
-// exist.
-template <typename DataT, int kCols>
+// exist, in the accumulators' layout L.
+template <typename DataT, int kCols, typename L = Layout<DataT, kCols>>
 __device__ __forceinline__ void store_stripe(float* __restrict__ W, int row0,
                                              int n, int k, int col0,
                                              const float (&acc)[kSub * kCols]) {
-  using L = Layout<DataT, kCols>;
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < kSub * kCols; ++i) {
@@ -377,32 +395,37 @@ constexpr int kGramFloats = kT * (kGramPanel + kGramLd<kCols>);
 // column. Shared memory per block: 32.5 KB at 32 columns, 48 KB at 64,
 // whatever k (k = 128 is four panels), so it never limits the blocks
 // per SM below the launch bounds' two or three. Must be called by the
-// whole block.
-template <typename DataT, int kCols>
+// whole block of kBlockThreads threads; warps 0..7 hold the tile's
+// stripes, and a warp past them (the staged kernel's copy warp) only
+// helps stage U. L is the accumulators' layout.
+template <typename DataT, int kCols, int kBlockThreads = kThreads,
+          typename L = Layout<DataT, kCols>>
 __device__ __forceinline__ void tile_gram(
     const float (&acc)[kSub * kCols], const float* __restrict__ U, int row0,
     int n, int k, int col0, float* __restrict__ smem,
     float* __restrict__ out) {
-  using L = Layout<DataT, kCols>;
   constexpr int kLd = kGramLd<kCols>;
   float(*us)[kGramPanel] = reinterpret_cast<float(*)[kGramPanel]>(smem);
   float(*ws)[kLd] = reinterpret_cast<float(*)[kLd]>(smem + kT * kGramPanel);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool stripe_warp = warp < kT / kSub;
   __syncthreads();  // every warp is done with the scratch
+  if (stripe_warp) {
 #pragma unroll
-  for (int i = 0; i < kSub * kCols; ++i) {
-    const int row = warp * kSub + L::row(i, lane);
-    ws[row][L::col(i, lane)] = row0 + row < n ? acc[i] : 0.f;
+    for (int i = 0; i < kSub * kCols; ++i) {
+      const int row = warp * kSub + L::row(i, lane);
+      ws[row][L::col(i, lane)] = row0 + row < n ? acc[i] : 0.f;
+    }
   }
   for (int p0 = 0; p0 < k; p0 += kGramPanel) {
     if (p0 > 0) __syncthreads();  // the last panel has been used
-    for (int e = tid; e < kT * kGramPanel; e += kThreads) {
+    for (int e = tid; e < kT * kGramPanel; e += kBlockThreads) {
       const int r = e / kGramPanel, i = p0 + e % kGramPanel;
       us[r][e % kGramPanel] =
           row0 + r < n && i < k ? __ldg(U + (size_t)(row0 + r) * k + i) : 0.f;
     }
     __syncthreads();
-    if (p0 + 4 * warp >= k) continue;  // warp-uniform
+    if (!stripe_warp || p0 + 4 * warp >= k) continue;  // warp-uniform
     float g[kCols][4];
 #pragma unroll
     for (int c = 0; c < kCols; ++c)

@@ -46,9 +46,11 @@ import numpy as np
 import torch
 
 from eigenpinns_torch.sparse.occupancy import (
+    band_grid,
     default_col_block,
     occupancy_mask,
     occupied_blocks,
+    sm_count,
 )
 
 # Launches of each CUDA kernel (one per wrapper call that reaches it):
@@ -228,7 +230,7 @@ def build_kernel() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.epk_banded_spmm.restype = i
     lib.epk_banded_spmm.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i,
-                                    i, i, p]
+                                    i, i, i, i, p]
     lib.epk_banded_error_string.restype = ctypes.c_char_p
     lib.epk_banded_error_string.argtypes = [i]
     return lib
@@ -236,14 +238,16 @@ def build_kernel() -> ctypes.CDLL:
 
 def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
                        pre: int, occ: torch.Tensor | None, U: torch.Tensor,
-                       n: int, with_gram: bool, col_block: int | None):
+                       n: int, with_gram: bool, col_block: int | None,
+                       warps: int | None = None, route: str | None = None):
     """One launch of csrc/banded_spmm.cu, W (n, k) = A U: a full-window
     band (`starts` given; U of any length >= 1, rows past its end read
     as zero) or a rolling band (`starts` None, windows `pre` rows above
-    their tile; U has n rows). The Gram takes U with n rows. Checks what
-    both layouts share (the band, its occupancy table, U, `col_block`),
-    allocates the outputs and raises when the launch fails. Returns (W,
-    G); G is None without `with_gram`."""
+    their tile; U has n rows). The Gram takes U with n rows. The route
+    and grid come from `band_grid` (`col_block`, `warps` and `route`
+    force them). Checks what both layouts share (the band, its occupancy
+    table, U, the grid), allocates the outputs and raises when the
+    launch fails. Returns (W, G); G is None without `with_gram`."""
     if occ is None:
         raise ValueError("the band kernels need the band's occupancy "
                          "table (from_scipy makes it; "
@@ -274,12 +278,12 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
         raise ValueError("the band must be contiguous and 16-byte aligned, "
                          "U contiguous")
     k = U.shape[1]
-    if col_block is None:
-        col_block = default_col_block(k, band.dtype)
-    if col_block not in (32, 64):
-        raise ValueError(f"col_block must be 32 or 64, got {col_block}")
-    # One block per (tile, column block), on the grid's x axis.
-    if (n_pad // 128) * -(-k // col_block) >= 2**31:
+    route, col_block, warps = band_grid(
+        n_pad // 128, k, band.dtype, sm_count(U.device), with_gram,
+        col_block, warps, route)
+    # One block per (tile, column block) or per (tile, warps stripes), on
+    # the grid's x axis.
+    if (n_pad // 128) * max(-(-k // col_block), 8 // warps) >= 2**31:
         raise ValueError(f"{n_pad // 128} tiles x k = {k} exceed the grid")
     W = torch.empty((n, k), dtype=torch.float32, device=U.device)
     partial = G = None
@@ -295,7 +299,7 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
         U.data_ptr(), W.data_ptr(),
         None if partial is None else partial.data_ptr(),
         None if G is None else G.data_ptr(), n, U.shape[0], n_pad, B, k,
-        col_block, stream)
+        col_block, warps, int(route == "staged"), stream)
     if err != 0:
         raise RuntimeError("banded_spmm kernel launch failed: "
                            + lib.epk_banded_error_string(err).decode())
@@ -303,13 +307,15 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
 
 
 def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
-                     col_block: int | None = None):
+                     col_block: int | None = None, warps: int | None = None,
+                     route: str | None = None):
     """Launch csrc/banded_spmm.cu: W = A U (K4), and with `with_gram` also
     G = U^T A U (K5). K4 takes a rectangular block too, with U of any
     length >= 1 (rows past U's end read as zero); K5 takes a square
-    operator only. `col_block` (32 or 64 output columns per block)
-    defaults to `default_col_block(k, band.dtype)`. Raises on anything
-    the kernels do not take."""
+    operator only. `col_block` (32 or 64 output columns per block),
+    `warps` and `route` default to `band_grid`'s choice and give the
+    same bits whatever they are. Raises on anything the kernels do not
+    take."""
     band, starts = A.band, A.starts
     n_pad = band.shape[0]
     if A.tile != 128:
@@ -323,24 +329,93 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
         raise ValueError("starts must be contiguous int32 (n_pad / 128,) "
                          "on the band's device")
     W, G = launch_band_kernel(band, starts, 0, A.occupancy, U, A.n,
-                              with_gram, col_block)
+                              with_gram, col_block, warps, route)
     banded_kernel_launches["spmm_gram" if with_gram else
                            "spmm" if A.n == A.n_cols else "spmm_rect"] += 1
     return (W, G) if with_gram else W
 
 
-def banded_spmm_hbm_bytes(A: BandedELL, k: int, with_gram: bool = False) -> int:
+def stage_unions(occupancy: torch.Tensor, warps: int) -> torch.Tensor:
+    """The staged route's union bytes: (n_tiles * 8 / warps, P) uint8,
+    row b the block b of the launch (tile b // (8 / warps), stripes
+    warps * (b % (8 / warps)) onward), column p the OR of the block's
+    stripe bytes of piece p of its tile. Bit j set: the block stages U
+    group j of the piece (16 rows), for all its stripes at once."""
+    T, P = occupancy.shape
+    b = occupancy.contiguous().view(torch.uint8).view(T, P, 8 // warps,
+                                                       warps)
+    u = b[..., 0].clone()
+    for i in range(1, warps):
+        u |= b[..., i]
+    return u.permute(0, 2, 1).reshape(T * (8 // warps), P)
+
+
+def stage_group_rows(n_tiles: int, B: int, starts: torch.Tensor | None = None,
+                     pre: int = 0) -> torch.Tensor:
+    """(n_tiles, B / 128, 8) int64: the first U row of group j (16 rows)
+    of piece p of tile t: starts[t] + 128 p + 16 j for a full-window
+    band; for a rolling band (`starts` None) the rotated window's row,
+    128 t - pre + ((128 p - 128 t) mod B) + 16 j."""
+    P = B // 128
+    t = torch.arange(n_tiles, dtype=torch.int64)[:, None, None]
+    p = torch.arange(P, dtype=torch.int64)[None, :, None]
+    j = torch.arange(8, dtype=torch.int64)[None, None, :]
+    if starts is None:
+        base = 128 * t - pre + torch.remainder(128 * p - 128 * t, B)
+    else:
+        base = starts.cpu().long()[:, None, None] + 128 * p
+    return base + 16 * j
+
+
+# Classes of a staged U group (`stage_group_classes`).
+STAGE_BULK, STAGE_UNALIGNED, STAGE_EDGE = 0, 1, 2
+
+
+def stage_group_classes(rows: torch.Tensor, n_u: int, k: int,
+                        u_offset: int = 0) -> torch.Tensor:
+    """How the staged route copies each group of `stage_group_rows`:
+    STAGE_BULK, one cp.async.bulk of 64 k bytes (all 16 rows in [0,
+    n_u) and a 16-byte aligned start); STAGE_UNALIGNED, the lanes'
+    4-byte copies (whole, but row * k + u_offset is not a multiple of 4
+    floats: odd k, or an arbitrary window start); STAGE_EDGE, the lanes'
+    copies with the rows outside [0, n_u) zero-filled. `u_offset`: U's
+    address in floats, mod 4 (0 for a fresh allocation)."""
+    whole = (rows >= 0) & (rows + 16 <= n_u)
+    aligned = torch.remainder(rows * k + u_offset, 4) == 0
+    out = torch.full(rows.shape, STAGE_EDGE, dtype=torch.int8)
+    out[whole & aligned] = STAGE_BULK
+    out[whole & ~aligned] = STAGE_UNALIGNED
+    return out
+
+
+def band_u_bytes(occupancy: torch.Tensor, k: int, route: str,
+                 warps: int = 8) -> int:
+    """Bytes of U one launch of the band kernels reads, 16 rows of k
+    fp32 a group: on the walk, a group for every occupied sub-block
+    (each stripe fetches its own, and the column blocks split the
+    columns); on the staged route, a group for every set bit of
+    `stage_unions` (zero-filled rows outside U count as read)."""
+    if route == "walk":
+        groups = occupied_blocks(occupancy)
+    else:
+        groups = occupied_blocks(
+            stage_unions(occupancy, warps).to(torch.int64))
+    return int(groups) * 16 * k * 4
+
+
+def banded_spmm_hbm_bytes(A: BandedELL, k: int, with_gram: bool = False,
+                          route: str = "walk", warps: int = 8) -> int:
     """Bytes the kernels move for one (n, k) fp32 product. For every
-    occupied 16 x 16 sub-block of the band: its 256 band values and the
-    16 x k fp32 U rows it multiplies. Then the occupancy table and
-    starts read once and W written once; with the Gram, the tile's own U
-    rows read once more, the per-tile partials written and read, and G
-    written. A sub-block and its U rows count once per product: the
+    occupied 16 x 16 sub-block of the band: its 256 band values; the U
+    groups `band_u_bytes` counts for the route. Then the occupancy
+    table and starts read once and W written once; with the Gram, the
+    tile's own U rows read once more, the per-tile partials written and
+    read, and G written. A sub-block counts once per product: the
     column blocks of a row tile are launched next to each other and
-    share them through L2. This is the kernels' traffic, not the least
+    share it through L2. This is the kernels' traffic, not the least
     the product needs: that counts only the band's nonzeros."""
-    sub_b = 16 * 16 * A.band.element_size() + 16 * k * 4
-    out = occupied_blocks(A.occupancy) * sub_b
+    out = occupied_blocks(A.occupancy) * 16 * 16 * A.band.element_size()
+    out += band_u_bytes(A.occupancy, k, route, warps)
     out += A.occupancy.numel() * 8 + A.starts.numel() * 4 + A.n * k * 4
     if with_gram:
         out += A.n * k * 4 + (2 * A.starts.numel() + 1) * k * k * 4

@@ -49,6 +49,7 @@ from eigenpinns_torch.sparse.occupancy import (
     occupancy_mask,
     occupied_blocks,
 )
+from eigenpinns_torch.sparse.occupancy import sm_count as _sm_count
 
 PRECISIONS = ("highest", "high", "bf16")
 
@@ -475,11 +476,6 @@ def build_kernel() -> ctypes.CDLL:
     lib.epk_bsr_error_string.restype = ctypes.c_char_p
     lib.epk_bsr_error_string.argtypes = [i]
     return lib
-
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def walk_grid(A: BSRTile, k: int, col_block: int | None = None) -> tuple:

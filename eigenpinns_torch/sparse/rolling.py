@@ -186,13 +186,14 @@ def rolling_spmm_gram_plain(A: RollingBanded, U: torch.Tensor):
 # ---- CUDA kernel wrapper -------------------------------------------------
 
 def rolling_spmm_cuda(A: RollingBanded, U: torch.Tensor,
-                      with_gram: bool = False, col_block: int | None = None):
+                      with_gram: bool = False, col_block: int | None = None,
+                      warps: int | None = None, route: str | None = None):
     """Launch the rolling band kernel of csrc/banded_spmm.cu: W = A U, and
     G = U^T A U when `with_gram`. `col_block` (32 or 64 output columns
-    per block) defaults to `default_col_block(k, band.dtype)`. Raises on
-    anything the kernel does not take: a tile other than 128 (the walk
-    needs the rotation to move whole 128-column pieces), no occupancy
-    table, CPU tensors."""
+    per block), `warps` and `route` default to `band_grid`'s choice and
+    give the same bits whatever they are. Raises on anything the kernel
+    does not take: a tile other than 128 (the walk needs the rotation to
+    move whole 128-column pieces), no occupancy table, CPU tensors."""
     global rolling_kernel_launches, rolling_gram_launches
     band = A.band
     if A.tile != 128 or A.pre % 128 or A.win + 128 != band.shape[1]:
@@ -205,7 +206,7 @@ def rolling_spmm_cuda(A: RollingBanded, U: torch.Tensor,
         raise ValueError(f"'{A.mxu_precision}' needs a {want} band, got "
                          f"{band.dtype}")
     W, G = launch_band_kernel(band, None, A.pre, A.occupancy, U, A.n,
-                              with_gram, col_block)
+                              with_gram, col_block, warps, route)
     rolling_kernel_launches += 1
     rolling_gram_launches += int(with_gram)
     return (W, G) if with_gram else W

@@ -403,3 +403,151 @@ def test_banded_cuda_rectangular_shard_blocks(shard_blocks, which, dtype, k):
         assert torch.equal(tbanded.banded_spmm_cuda(A, U, col_block=cb), W)
     with pytest.raises(ValueError, match="square"):
         tbanded.banded_spmm_cuda(A, U, with_gram=True)
+
+
+# ---- the band kernels' staged route ------------------------------------
+
+def _staged_grids(k):
+    """Every (col_block, warps) of the staged route at width k."""
+    return [(cb, w) for cb in (32, 64) if k <= cb for w in (8, 4, 2)]
+
+
+def _check_routes(launch, op, U, tol=1e-5):
+    """W from the walk against the plain version (rel `tol`), then every
+    grid of the staged route and a second launch the same bits."""
+    k = U.shape[1]
+    Ww = launch(op, U, route="walk")
+    plain = (tsparse.rolling_spmm_plain if launch is tsparse.rolling_spmm_cuda
+             else tbanded.banded_spmm_plain)
+    torch.cuda.synchronize()
+    assert _rel(Ww.cpu(), plain(op, U).cpu()) < tol
+    assert torch.equal(launch(op, U), Ww)
+    for cb, w in _staged_grids(k):
+        W = launch(op, U, col_block=cb, warps=w, route="staged")
+        torch.cuda.synchronize()
+        assert torch.equal(W, Ww), (cb, w)
+        assert torch.equal(launch(op, U, col_block=cb, warps=w,
+                                  route="staged"), W)
+    return Ww
+
+
+def _rolling_cloud_op(n=500):
+    X = np.random.default_rng(7).normal(size=(n, 3))
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    A = point_cloud_laplacian(X, n_neighbors=12)[0]
+    return tsparse.RollingBanded.from_scipy(A, device="cuda")[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 10, 20, 60, 67, 128])
+@pytest.mark.parametrize("case", ["rolling", "cloud", "asym800"])
+def test_band_staged_route_matches_the_walk(case, k):
+    """The staged route (fp32 band, k <= col_block) on every grid (8, 4
+    and 2 warps a block, both column blocks) gives the walk's W bit for
+    bit, and the walk is within rel 1e-5 of the plain version: a rolling
+    band whose windows start above row 0 ('high', as the multigrid loss
+    runs it), a split core whose clamped windows reach past n, and a
+    nonsymmetric band and its stored transpose. Odd k puts the groups of
+    an arbitrary window start off 16-byte alignment; k = 67 and 128 take
+    the walk whatever the grid."""
+    _need_card()
+    if case == "rolling":
+        ops, launch = ([_rolling_cloud_op().with_precision("high")],
+                       tsparse.rolling_spmm_cuda)
+        assert ops[0].pre > 0
+    else:
+        op = _banded_op(case, torch.float32)
+        ops, launch = [op], tbanded.banded_spmm_cuda
+        if op.transpose_banded is not None:
+            ops.append(op.transpose_banded)
+    for op in ops:
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n, k)).astype(np.float32)).cuda()
+        _check_routes(launch, op, U)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 20, 60])
+@pytest.mark.parametrize("which", ["block", "transpose"])
+def test_band_staged_route_on_shard_blocks(shard_blocks, which, k):
+    """A shard's rectangular block (U rows past its halo window's end
+    zero-filled) and its transpose: every staged grid gives the walk's
+    bits."""
+    _need_card()
+    A = shard_blocks[torch.float32].block(1, "cuda")
+    if which == "transpose":
+        A = A.transpose_banded
+    U = torch.from_numpy(np.random.default_rng(k).normal(
+        size=(A.n_cols, k)).astype(np.float32)).cuda()
+    _check_routes(tbanded.banded_spmm_cuda, A, U)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 60])
+def test_band_staged_route_with_every_sub_block_of_a_piece(k):
+    """A band whose first tiles hold a dense 256 x 256 corner: pieces
+    with all 64 sub-blocks occupied stage all 8 groups (the ring's slot
+    full) and every stripe lists 8 entries of the piece; W is the walk's
+    and the dense product's (rel 1e-5)."""
+    _need_card()
+    r = np.random.default_rng(2)
+    n = 1500
+    A = sp.random(n, n, density=0.004, random_state=3, format="lil")
+    A[:256, :256] = r.normal(size=(256, 256))
+    A = (sp.csr_matrix(A) + sp.diags(np.full(n, 3.0))).tocsr()
+    op, _ = tbanded.BandedELL.from_scipy(A, reorder=False, device="cuda",
+                                         with_transpose=False)
+    occ = op.occupancy.cpu().numpy().view(np.uint64)
+    assert (occ == np.uint64(2**64 - 1)).sum() >= 4
+    U = torch.from_numpy(r.normal(size=(n, k)).astype(np.float32)).cuda()
+    W = _check_routes(tbanded.banded_spmm_cuda, op, U)
+    D = torch.as_tensor(A.toarray(), dtype=torch.float32, device="cuda")
+    assert _rel(W.cpu(), (D @ U).cpu()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 39, 60])
+def test_band_staged_route_gram_is_reproducible(k):
+    """K5 and K1 with the Gram on the staged route (8-warp blocks, one a
+    tile; these small operators take the walk by default): W is the
+    product's bits, G the same from launch to launch and within rel
+    2e-5 of the plain version's; the walk's G likewise."""
+    _need_card()
+    for launch, op in ((tbanded.banded_spmm_cuda,
+                        _banded_op("cloud", torch.float32)),
+                       (tsparse.rolling_spmm_cuda, _rolling_cloud_op())):
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n, k)).astype(np.float32)).cuda()
+        W = launch(op, U)
+        W1, G1 = launch(op, U, with_gram=True, route="staged")
+        W2, G2 = launch(op, U, with_gram=True, route="staged")
+        Wk, Gk = launch(op, U, with_gram=True, route="walk")
+        Wd, Gd = launch(op, U, with_gram=True)
+        torch.cuda.synchronize()
+        assert torch.equal(W1, W) and torch.equal(W2, W)
+        assert torch.equal(Wk, W) and torch.equal(Wd, W)
+        assert torch.equal(G1, G2) and torch.equal(Gd, Gk)
+        Gp = (U.T @ W).cpu()
+        assert _rel(G1.cpu(), Gp) < 2e-5 and _rel(Gk.cpu(), Gp) < 2e-5
+        with pytest.raises(ValueError):
+            launch(op, U, with_gram=True, warps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 60])
+def test_band_staged_route_walks_many_tiles_a_block(k):
+    """A band of 1600 tiles, more than the card holds blocks at once: the
+    staged route's blocks each walk several tiles, the ring's slots and
+    barriers carried from one to the next; W is the walk's bits and
+    within rel 1e-5 of the plain version."""
+    _need_card()
+    r = np.random.default_rng(4)
+    n = 128 * 1600
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.clip(rows + r.integers(-300, 300, rows.size), 0, n - 1)
+    A = sp.coo_matrix((r.normal(size=rows.size), (rows, cols)),
+                      shape=(n, n)).tocsr()
+    op, _ = tbanded.BandedELL.from_scipy(A, reorder=False, device="cuda",
+                                         with_transpose=False)
+    U = torch.from_numpy(r.normal(size=(n, k)).astype(np.float32)).cuda()
+    _check_routes(tbanded.banded_spmm_cuda, op, U)
