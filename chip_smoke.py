@@ -34,11 +34,12 @@ present or the package is not beside it. On the card it:
      of the same bf16-rounded operator (rel 2e-3); W must be the same
      bit for bit from a second launch, from the other column block and
      with the Gram, G from a second launch, and on every grid of both
-     band routes (`band_routes`: the staged route on 8-, 4- and 2-warp
-     blocks and the column-block walk; a `[route]` line gives the
-     default route and grid, the U bytes a launch reads on it and on
-     the walk, and both routes' times on the card, as for every band
-     operator below); it prints each band's
+     band routes (`band_routes`: the row-wise route over the band's
+     nonzero table, the staged route on 8-, 4- and 2-warp blocks and the
+     column-block walk; a `[route]` line gives the default route and
+     grid, the bytes a launch reads on it and the U bytes on the walk,
+     and the routes' times on the card, as for every band operator
+     below); it prints each band's
      occupied 16 x 16 sub-blocks, times the kernel and its plain version
      (median of 20 samples of 5 back-to-back launches) and
      torch.sparse.mm of the same operator as a CSR tensor (the library
@@ -58,12 +59,19 @@ present or the package is not beside it. On the card it:
      the numpy triangulation's on a quiet host);
   5. holds the occupancy-driven K2 (the 300k K) and K3 (the same K
      without its group tables, sharing the strips and the occupancy
-     table) against the plain version at k = 20 (training), 28 (the
-     polish block), 60 and 128 (the SpMM probe) in 'highest', 'high'
-     and 'bf16': W to rel 1e-5 (1e-4 in 'bf16', where the plain version
-     rounds U the same way), the gradient through `bsr_spmm` to rel
-     1e-4, W the same bit for bit from a second launch and from the
-     other column block (32 or 64 output columns per block); prints the
+     table) against the plain version at k = 20 (training), 28 and 84
+     (the polish's K X and K S), 60 and 128 (the SpMM probe) in
+     'highest', 'high' and 'bf16': W to rel 1e-5 (1e-4 in 'bf16', where
+     the plain version rounds U the same way), the gradient through
+     `bsr_spmm` to rel 1e-4, W the same bit for bit from a second launch
+     and from the other column block (32 or 64 output columns per block;
+     an explicit column block forces the walk, so on fp32 strips this
+     holds the row-wise route to the walk); then `[rows]` lines
+     (`k2_route_rows`): K2 'highest' at k = 20, 28, 60, 84 and 128 on
+     its default route (the row-wise route over `BSRTile.narrow`), the
+     walk it took before (`walk_grid`'s grid), the row-wise route forced
+     and torch.sparse.mm, each on the card with the bound, W the same
+     bits on every route, the plain version at k = 28 and 84; prints the
      occupied share of the tiles' 16 x 16 sub-blocks; times both
      kernels (both column blocks at k = 60 and 128), torch.sparse.mm,
      and `bsr_spmm_gram` at k = 128 in 'highest' and 'bf16' with the
@@ -85,7 +93,10 @@ present or the package is not beside it. On the card it:
      core's occupied share of 16 x 16 sub-blocks, times them (K4 with
      both column blocks), their plain
      version and torch.sparse.mm of the core (+ U^T W for K5), and K2
-     at k = 20 and 60 beside them;
+     at k = 20 and 60 beside them; then K4 on the fp32 Hilbert core at
+     the fused-Gram polish's widths, k = 28 (staged) and 84 (the walk),
+     beside the row-wise route over a table of its band
+     (`nonzeros.band_table`; no path routes it) and torch.sparse.mm;
   6b. runs the solver family at the widths of the JAX package's examples
      and notebooks, on the stand-ins, while the 300k oracle works:
      `solve_deflation` and `solve_deflation_adaptive` on the bunny
@@ -133,8 +144,10 @@ present or the package is not beside it. On the card it:
      with the bench's configuration (20 modes, 3x256 MLP in bf16, bf16
      loss operator, 300 epochs in chunks of 50), then the k + 8 guarded
      LOBPCG polish (800 iterations, tol 1e-6) on the 'highest' operator,
-     counting K2's launches from zero; it checks the polished eigenvalues
-     against the oracle's first 20 (max rel err of modes 1..19 <= 1e-3);
+     counting K2's launches from zero (every launch of the polish on the
+     row-wise route, none of the bf16 training's); it checks the polished
+     eigenvalues against the oracle's first 20 (max rel err of modes
+     1..19 <= 1e-3);
      then the same training on K3 (no group tables), counting K3's
      launches from zero, which must repeat K2's loss history; then the
      rolling-band slice, the bench's 300k training phase at its own
@@ -142,12 +155,16 @@ present or the package is not beside it. On the card it:
      (max_bandwidth 8192; its pre, B, size and occupied share are
      printed), K1 against its plain version on it at k = 20 (training),
      28 and 84 (the polish's K X and K S) in all three modes, with
-     torch.sparse.mm of the same matrix beside it; `train_joint` with
+     torch.sparse.mm of the same matrix beside it, and in 'highest' at
+     k = 28 and 84 by `band_route_rows` (the row-wise route over
+     `RollingBanded.narrow` against the staged route and the walk it
+     took before, the same bits); `train_joint` with
      the same configuration (K1 with the fused Gram on a bf16 copy of
      the band; timed, then once more under torch.profiler, which must
      repeat the loss history), then the guarded polish on the
-     fp32 band, counting K1's launches from zero for each; the polished
-     modes 1..19 must be within 1e-3 of the oracle;
+     fp32 band, counting K1's launches from zero for each (every launch
+     of the polish on the row-wise route, none of the training's); the
+     polished modes 1..19 must be within 1e-3 of the oracle;
   8. runs the spectral-basis slice: `spectral_basis` on the 300k cloud
      with the configuration of scripts/run_1m_50modes_split.py (k = 50,
      SplitBanded window 1024, blocks of 16 + 4 guard, 120 iterations, tol
@@ -173,6 +190,8 @@ present or the package is not beside it. On the card it:
      strip-BSR K of the 1M Laplacian (its build time, size and peak
      device memory printed), K2 against its plain version on it at k = 20
      and 28 in 'highest' and 'bf16' with torch.sparse.mm and the bound,
+     `k2_route_rows` at k = 20, 28, 60, 84 and 128 (the plain version at
+     84),
      `train_joint` at 150 epochs in chunks of 50 and the 800-iteration
      k + 8 guarded polish on the 'highest' K, counting K2's launches from
      zero; the polished modes 1..19 must be within 1.71e-3 of the 1M
@@ -197,6 +216,11 @@ present or the package is not beside it. On the card it:
      launches and k = 64 row in CLI run B, the narrow path as a kernel
      of its own (its launches those of the Dirichlet CG), K3 with its
      launches in run B (0), K5 with its cluster-core rows at k = 60;
+     the row-wise route as kernels of their own (`bsr_spmm_rows`, its
+     1M k = 84 row and 300k row, its launches in the 300k and 1M
+     polishes; `rolling_spmm_rows`, the 300k band's k = 84 row and its
+     launches in the rolling polish), K2, K1 and K4 with their
+     `[rows]` rows at the polish's widths;
      every row timed by launch and on the card (`device_ms`), the
      library too; and the bound:
      the larger of the bytes the product must move -- each nonzero's
@@ -222,9 +246,10 @@ present or the package is not beside it. On the card it:
      and K2 on run B's fused K_blk at k = 64 and 67 in the three modes
      (W rel 1e-5, 1e-4 in 'bf16', the same bits from a second launch and
      from every grid of the walk: 8, 4 or 2 warps a block, 32 or 64
-     columns, each timed on the card; the grid the wrapper picks for a
-     small operator printed), kernel and torch.sparse.mm each timed by
-     launch and on the card, with the host's time to enqueue a launch;
+     columns, each timed on the card; the route and the walk's grid the
+     wrapper picks for a small operator printed), kernel and
+     torch.sparse.mm each timed by launch and on the card, with the
+     host's time to enqueue a launch, and `k2_route_rows` at k = 64;
      counts every kernel's launches from zero over each run (run A must
      launch K1, run B K2 and never K3); and checks each exported VTU
      (2562 points, fields v0..v{k-1}, in the input mesh's order: the
@@ -986,34 +1011,47 @@ def describe_band(name: str, op) -> None:
 
 
 def band_routes(name, launch, band, occupancy, U, W, on_card=False,
-                gram_W=None):
+                gram_W=None, table=None):
     """The band kernels' route and grid for a product of width k on this
-    band (`band_grid`), the U bytes a launch reads there and on the walk
-    (`band_u_bytes`), and W the same bits on every grid: the staged
-    route on 8-, 4- and 2-warp blocks (an fp32 band, k <= 64) and the
-    column-block walk. `launch(U, **grid)` runs the wrapper. With
-    `on_card`, the default grid's and the walk's times on the card
-    (`device_ms`; with `gram_W` given, K5's too). Returns (printed
-    summary, {key: ms})."""
+    band (`band_grid`; `table`, the band's nonzero table, makes the
+    row-wise route available), the U bytes a launch reads there and on
+    the walk (`band_u_bytes`; on the row-wise route the table and each
+    nonzero's U row), and W the same bits on every grid: the row-wise
+    route, the staged route on 8-, 4- and 2-warp blocks (an fp32 band,
+    k <= 64) and the column-block walk. `launch(U, **grid)` runs the
+    wrapper. With `on_card`, the default grid's, the staged route's
+    (where it can run) and the walk's times on the card (`device_ms`;
+    with `gram_W` given, K5's too). Returns (printed summary, {key:
+    ms})."""
     from eigenpinns_torch.sparse.banded import band_u_bytes
     from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
 
     k = U.shape[1]
     n_tiles = band.shape[0] // 128
-    route, cb, warps = band_grid(n_tiles, k, band.dtype, sm_count(U.device))
+    route, cb, warps = band_grid(n_tiles, k, band.dtype, sm_count(U.device),
+                                 rows=table is not None)
     grids = [dict(route="walk")]
     staged = dict(route="staged", col_block=max(cb, 32 * -(-k // 32)))
-    if band.dtype == torch.float32 and k <= 64:
+    can_stage = band.dtype == torch.float32 and k <= 64
+    if can_stage:
         grids += [dict(staged, warps=w) for w in (8, 4, 2)]
+    if table is not None:
+        grids.append(dict(route="rows"))
     for grid in grids:
         check(torch.equal(launch(U, **grid), W),
               f"{name} k={k}: W differs on the grid {grid}")
-    u_gb = band_u_bytes(occupancy, k, route, warps) / 1e9
+    if route == "rows":
+        u_gb = (table.val.numel() * 8 + table.nnz * k * 4) / 1e9
+    else:
+        u_gb = band_u_bytes(occupancy, k, route, warps) / 1e9
     walk_gb = band_u_bytes(occupancy, k, "walk") / 1e9
     blocks = n_tiles * max(-(-k // cb), 8 // warps)
-    text = (f"{route} route, col_block {cb}, {warps} warps a block "
-            f"({blocks} units), U read a launch {u_gb * 1e3:.3f} MB (walk "
-            f"{walk_gb * 1e3:.3f}); W the same bits on {len(grids)} grids")
+    text = (f"{route} route"
+            + ("" if route == "rows" else
+               f", col_block {cb}, {warps} warps a block ({blocks} units)")
+            + f", {'table and U' if route == 'rows' else 'U'} read a launch "
+            f"{u_gb * 1e3:.3f} MB (walk's U {walk_gb * 1e3:.3f}); W the "
+            f"same bits on {len(grids)} grids")
     times = {"band_route": route, "warps": warps, "u_gb": u_gb,
              "walk_u_gb": walk_gb}
     if on_card:
@@ -1021,6 +1059,10 @@ def band_routes(name, launch, band, occupancy, U, W, on_card=False,
         times["walk_device_ms"] = device_ms(lambda: launch(U, route="walk"))
         text += (f"; on the card {times['device_ms']:.4f} ms, the walk "
                  f"{times['walk_device_ms']:.4f}")
+        if can_stage and route != "staged":
+            times["staged_device_ms"] = device_ms(
+                lambda: launch(U, route="staged"))
+            text += f", staged {times['staged_device_ms']:.4f}"
         if gram_W is not None:
             times["gram_device_ms"] = device_ms(
                 lambda: launch(U, with_gram=True))
@@ -1028,13 +1070,13 @@ def band_routes(name, launch, band, occupancy, U, W, on_card=False,
                 lambda: launch(U, with_gram=True, route="walk"))
             text += (f"; with the Gram {times['gram_device_ms']:.4f}, the "
                      f"walk {times['gram_walk_device_ms']:.4f}")
-            if len(grids) > 1:
+            if can_stage:
                 times["gram_staged_device_ms"] = device_ms(
                     lambda: launch(U, with_gram=True, **staged))
                 text += f", staged {times['gram_staged_device_ms']:.4f}"
     if gram_W is not None:
         gram_grids = [dict(), dict(route="walk")] + (
-            [staged] if len(grids) > 1 else [])
+            [staged] if can_stage else [])
         check(all(torch.equal(launch(U, with_gram=True, **grid)[0], W)
                   for grid in gram_grids),
               f"{name} k={k}: W with the Gram differs between routes")
@@ -1081,7 +1123,7 @@ def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
             lambda V, **grid: rolling.rolling_spmm_cuda(A, V, **grid),
             A.band, A.occupancy, U, W,
             on_card=prec == row_prec or A.band.dtype == torch.float32,
-            gram_W=W)
+            gram_W=W, table=A.narrow)
         # Gradient through the fused Gram: kernel autograd vs torch
         # autograd through the plain version; in 'bf16', where the kernel
         # rounds the cotangent to bf16, vs dU = A^T (gW + U gG) + W gG^T
@@ -1169,7 +1211,8 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
           f"tiles {occupied_share(K.occupancy, K.n_slots)}; of every slot, "
           f"pad slots included, {occupied_share(K.occupancy)}", flush=True)
     rows = {}
-    for k in (DIRECT_K, DIRECT_K + POLISH_GUARD, SPEC_K + 10, 128):
+    for k in (DIRECT_K, DIRECT_K + POLISH_GUARD, SPEC_K + 10,
+              3 * (DIRECT_K + POLISH_GUARD), 128):
         U = torch.randn((K.n, k), generator=gen, device="cuda")
         G = torch.randn((K.n, k), generator=gen, device="cuda")
         for prec in ("highest", "high", "bf16"):
@@ -1247,6 +1290,116 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
               f"sub-blocks, their U rows, tables, W), "
               f"{moved / ms / 1e6:.1f} GB/s", flush=True)
     return rows
+
+
+def route_row(label, U, launch, parent, csr, nnz, n_cols, rows=None,
+              plain=None):
+    """One fp32 product of width k = U.shape[1] on its default route
+    (`launch()`) against the route the kernel took before the row-wise
+    route existed (`parent()`, forced) and torch.sparse.mm of the same
+    operator as fp32 CSR (`csr`): W the same bits on both routes, from a
+    second launch and from the row-wise route forced (`rows()`, where
+    the default is another route); rel err against the plain version's
+    W (`plain()`) where given. Each timed on the card (`device_ms`, few
+    samples) and by launch (`median_ms`), beside the least-bytes bound.
+    Returns the row."""
+    k = U.shape[1]
+    W = launch()
+    check(torch.equal(launch(), W) and torch.equal(parent(), W),
+          f"{label} k={k}: W differs between two launches or from the "
+          "parent's route")
+    if rows is not None:
+        check(torch.equal(rows(), W),
+              f"{label} k={k}: W differs on the row-wise route")
+    row = {"k": k, "ms": median_ms(launch, 5, 5),
+           "device_ms": device_ms(launch, 3, 10),
+           "parent_device_ms": device_ms(parent, 3, 10),
+           "library_ms": median_ms(lambda: torch.sparse.mm(csr, U), 5, 5),
+           "library_device_ms": device_ms(
+               lambda: torch.sparse.mm(csr, U), 3, 10),
+           **bound(least_bytes(nnz, 4, U.shape[0], k, n_cols=n_cols),
+                   {"fp32": 2 * nnz * k})}
+    if rows is not None:
+        row["rows_device_ms"] = device_ms(rows, 3, 10)
+    if plain is not None:
+        t0 = time.time()
+        Wp = plain()
+        torch.cuda.synchronize()
+        row["plain_ms"] = (time.time() - t0) * 1e3
+        row["rel_err"] = rel_err(W, Wp)
+        row["max_abs_err"] = float((W - Wp).abs().max())
+        check(row["rel_err"] <= BSR_TOL["highest"],
+              f"{label} k={k}: rel err {row['rel_err']:.3e}")
+        del Wp
+    print(f"[rows] {label} k={k}: on the card {row['device_ms']:.4f} ms "
+          f"(by launch {row['ms']:.4f}), the parent's route "
+          f"{row['parent_device_ms']:.4f}"
+          + (f", the row-wise route {row['rows_device_ms']:.4f}"
+             if rows is not None else "")
+          + f"; torch.sparse.mm {row['library_device_ms']:.4f} (by launch "
+          f"{row['library_ms']:.4f}); bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}), nnz {nnz}"
+          + (f"; rel err {row['rel_err']:.3e}, plain {row['plain_ms']:.1f}"
+             " ms (one call)" if plain is not None else "")
+          + "; W the same bits on every route", flush=True)
+    return row
+
+
+def k2_route_rows(bsr, label, K, K_sp, ks, seed, plain_ks=()):
+    """K2 'highest' on the strip-BSR K at each width of `ks` by
+    `route_row`: the default route (`strip_route`: the row-wise route on
+    fp32 strips from k = 9 to ROWS_MAX_K) against the column-block walk
+    on `walk_grid`'s grid (the parent's route), the row-wise route forced
+    and torch.sparse.mm of `K_sp` (K's scipy matrix in its own order);
+    the plain version at the widths of `plain_ks`. Returns {k: row}."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    A = K.with_precision("highest")
+    csr = torch_csr(K_sp, K.data.device)
+    out = {}
+    for k in ks:
+        U = torch.randn((K.n, k), generator=gen, device="cuda")
+        out[k] = route_row(
+            f"K2 {label} ({bsr.strip_route(A.data.dtype, k)} route)", U,
+            lambda: bsr.bsr_spmm_grouped_cuda(A, U),
+            lambda: bsr.bsr_spmm_grouped_cuda(A, U, route="walk"),
+            csr, K_sp.nnz, K.n_cols,
+            rows=lambda: bsr.bsr_spmm_grouped_cuda(A, U, route="rows"),
+            plain=((lambda: bsr.bsr_spmm_plain(A, U)) if k in plain_ks
+                   else None))
+        out[k]["strip_route"] = bsr.strip_route(A.data.dtype, k)
+        del U
+        torch.cuda.empty_cache()
+    del csr
+    return out
+
+
+def band_route_rows(label, launch, band, starts, pre, occupancy, table, n,
+                    csr, nnz, ks, seed, plain=None):
+    """A band kernel ('highest') at each width of `ks` by `route_row`: the
+    default route of `launch(U, **grid)` against the route it took
+    before the row-wise route existed (`band_grid` without the table:
+    the staged route up to 64 columns, the walk past them), and the
+    row-wise route over `table` (the band's nonzero table) forced; the
+    plain version `plain(U)` where given. Returns {k: row}."""
+    from eigenpinns_torch.sparse.banded import launch_band_kernel
+    from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    out = {}
+    for k in ks:
+        U = torch.randn((n, k), generator=gen, device="cuda")
+        parent = band_grid(band.shape[0] // 128, k, band.dtype,
+                           sm_count(U.device))[0]
+        out[k] = route_row(
+            f"{label}", U, lambda: launch(U),
+            lambda: launch(U, route=parent), csr, nnz, n,
+            rows=lambda: launch_band_kernel(
+                band, starts, pre, occupancy, U, n, False, None,
+                route="rows", table=table)[0],
+            plain=None if plain is None else lambda: plain(U))
+        out[k]["parent_route"] = parent
+        del U
+    return out
 
 
 def check_k2_1m(bsr, K, K_sp, seed):
@@ -1353,11 +1506,24 @@ def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
         profile_polish(label, K, M, X0, profile_iters)
     check(launches["grouped"] > 0, f"{label}: train_joint launched K2 0 "
           "times")
+    # The bf16 training walks, but for its last product, the Rayleigh
+    # quotients on the fp32 K at k = 20; every fp32 product of the polish
+    # (K X at k = 28, K S at k = 84) takes the row-wise route.
+    polish_k2 = launches["grouped"] - train_launches["grouped"]
+    check(train_launches["rows"] == 1 and polish_k2 > 0
+          and launches["rows"] - train_launches["rows"] == polish_k2,
+          f"{label}: K2's row-wise launches {launches['rows']} for the "
+          f"polish's {polish_k2} (training {train_launches['rows']})")
+    print(f"[{label}] K2's launches by precision and width: training "
+          f"{train_launches['grouped'] - 1} in bf16 at k = {k} (the walk) "
+          f"+ 1 fp32 at k = {k}, polish {polish_k2} fp32 at k = {k + 8} "
+          f"and {3 * (k + 8)}; on the row-wise route {launches['rows']}",
+          flush=True)
     check(bool(np.isfinite(loss).all() and np.isfinite(res.eigenvectors).all()
                and np.isfinite(lam_pol).all()), f"non-finite {label} results")
     check(polished.max() <= bar,
           f"{label} polished max rel err {polished.max():.3e} > {bar}")
-    return launches["grouped"], loss
+    return launches, loss
 
 
 def profile_polish(label, K, M, X0, iters):
@@ -1427,8 +1593,10 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
     applies the band again without the Gram; run once timed and once
     more under the profiler), then the guarded LOBPCG polish on the fp32
     band (K1 without the Gram). Returns K1's launches in the timed
-    training and in the polish and the k = 20 'bf16' row of
-    measurements."""
+    training, its counts in the polish (all, with the Gram, on the
+    row-wise route), the k = 20 'bf16' row of measurements and the
+    polish's products in 'highest' ({k: `route_row`} at k = 28 and
+    84)."""
     from eigenpinns_torch.solvers import lobpcg, train_joint
     from eigenpinns_torch.sparse import Diagonal, RollingBanded
 
@@ -1447,10 +1615,21 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
                          row_prec="bf16", plain_samples=(5, 2))
         if k == DIRECT_K:
             row = r
+    # The polish's products in 'highest' (the band as built: fp32, with
+    # its nonzero table) on the row-wise route, against the route K1 took
+    # before (the staged route at k = 28, the walk at 84) and
+    # torch.sparse.mm.
+    rows_84 = band_route_rows(
+        "K1 300k rolling band",
+        lambda V, **grid: rolling.rolling_spmm_cuda(K, V, **grid), K.band,
+        None, K.pre, K.occupancy, K.narrow, K.n, torch_csr(Lp, device),
+        Lp.nnz, (polish_k, 3 * polish_k), seed=9,
+        plain=lambda V: rolling.rolling_spmm_plain(K, V))
 
     def counts():
         return {"all": rolling.rolling_kernel_launches,
-                "with_gram": rolling.rolling_gram_launches}
+                "with_gram": rolling.rolling_gram_launches,
+                "rows": rolling.rolling_rows_launches}
 
     # Training twice: timed on its own, then under the profiler (whose
     # cost on a slow host halves the rate); the second run must repeat
@@ -1458,6 +1637,7 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
+    rolling.rolling_rows_launches = 0
     t0 = time.time()
     res = train_joint(K, M, X[perm], device=device, **DIRECT_CFG)
     torch.cuda.synchronize()
@@ -1474,6 +1654,7 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
     del again
     rates = sorted(n / t for n, t in res.chunk_times[1:])
     rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
+    rolling.rolling_rows_launches = 0
     t0 = time.time()
     guards = torch.as_tensor(np.random.default_rng(3).normal(
         size=(K.n, POLISH_GUARD)).astype(np.float32), device=device)
@@ -1511,12 +1692,19 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
           "train_joint's backward pass launched K1 0 times")
     check(polish_launches["all"] > 0 and polish_launches["with_gram"] == 0,
           f"the polish's K1 launches: {polish_launches}")
+    # The bf16 training takes the walk but for its last product, the
+    # Rayleigh quotients on the fp32 band at k = 20; every product of the
+    # polish (K X at k = 28, K S at k = 84) the row-wise route.
+    check(train_launches["rows"] == 1 and polish_launches["rows"] > 0
+          and polish_launches["rows"] == polish_launches["all"],
+          f"K1's row-wise launches: training {train_launches}, polish "
+          f"{polish_launches}")
     check(bool(np.isfinite(loss).all() and np.isfinite(lam_pol).all()),
           "non-finite rolling-band results")
     check(polished.max() <= MAX_REL_ERR,
           f"rolling polished max rel err {polished.max():.3e} > "
           f"{MAX_REL_ERR}")
-    return train_launches["all"], polish_launches["all"], row
+    return train_launches["all"], polish_launches, row, rows_84
 
 
 def check_adversarial(bsr, banded, rolling, device, seed):
@@ -2025,9 +2213,18 @@ def xl_phases(bsr, banded, X, L, m_diag, oracle, device, phases):
           f"of the build {torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
           f" GiB", flush=True)
     row_1m = check_k2_1m(bsr, K, L[perm][:, perm], seed=8)
-    k2_xl, _ = direct_slice(bsr, K, M, X[perm], oracle, label="xl",
-                            cfg=XL_CFG, bar=XL_BAR,
-                            profile_iters=PROFILE_POLISH_ITERS)
+    # The polish's products (k = 28, 84) and the widths around them on
+    # the row-wise route, against the walk and torch.sparse.mm.
+    row_1m["rows"] = k2_route_rows(
+        bsr, "1M", K, L[perm][:, perm], (DIRECT_K, DIRECT_K + POLISH_GUARD,
+                                         SPEC_K + 10,
+                                         3 * (DIRECT_K + POLISH_GUARD), 128),
+        seed=18, plain_ks=(3 * (DIRECT_K + POLISH_GUARD),))
+    k2_xl_launches, _ = direct_slice(bsr, K, M, X[perm], oracle,
+                                     label="xl", cfg=XL_CFG, bar=XL_BAR,
+                                     profile_iters=PROFILE_POLISH_ITERS)
+    k2_xl = k2_xl_launches["grouped"]
+    row_1m["launches_rows"] = k2_xl_launches["rows"]
     del K, M
     torch.cuda.empty_cache()
     phases.done("1M direct phase")
@@ -2637,6 +2834,7 @@ def check_k2_cli(bsr, K, K_sp, seed):
         for prec in ("highest", "high", "bf16"):
             A = K.with_precision(prec)
             cb, warps = bsr.walk_grid(A, k)
+            route = bsr.strip_route(A.data.dtype, k)
             W = bsr.bsr_spmm_grouped_cuda(A, U)
             Wp = bsr.bsr_spmm_plain(A, U)
             torch.cuda.synchronize()
@@ -2658,9 +2856,10 @@ def check_k2_cli(bsr, K, K_sp, seed):
             print(f"[kernel] bsr_spmm_grouped CLI K_blk "
                   f"{tuple(A.data.shape)} k={k} {prec}: rel_err_W={err:.3e}"
                   f" kernel_ms={ms:.4f} by launch, {on_card:.4f} on the "
-                  f"card (host {host * 1e3:.1f} us a launch; grid "
-                  f"({-(-k // cb)}, {K.n_row_tiles * 8 // warps}) of "
-                  f"{warps} warps, col_block {cb}; on the card by warps x "
+                  f"card (host {host * 1e3:.1f} us a launch; {route} "
+                  f"route; the walk's grid ({-(-k // cb)}, "
+                  f"{K.n_row_tiles * 8 // warps}) of {warps} warps, "
+                  f"col_block {cb}; the walk on the card by warps x "
                   f"col_block, the same bits: "
                   + ", ".join(f"{g} {t:.4f}" for g, t in grids.items())
                   + f") plain_ms={plain_ms:.4f}", flush=True)
@@ -2669,8 +2868,9 @@ def check_k2_cli(bsr, K, K_sp, seed):
             if k == k_loss and prec == "high":
                 row = {"max_abs_err": float((W - Wp).abs().max()), "ms": ms,
                        "device_ms": on_card, "host_ms": host,
-                       "plain_ms": plain_ms, "grid_warps": warps,
-                       "col_block": cb, "device_ms_by_grid": grids,
+                       "plain_ms": plain_ms, "strip_route": route,
+                       "grid_warps": warps, "col_block": cb,
+                       "device_ms_by_grid": grids,
                        **bound(least_bytes(K_sp.nnz, 4, K.n, k),
                                {"fp32": 2 * K_sp.nnz * k})}
     U = torch.randn((K.n, k_loss), generator=gen, device="cuda")
@@ -2681,8 +2881,8 @@ def check_k2_cli(bsr, K, K_sp, seed):
           f"{row['library_ms']:.4f} ms by launch, "
           f"{row['library_device_ms']:.4f} on the card (host "
           f"{row['library_host_ms'] * 1e3:.1f} us a launch); K2 "
-          f"{row['ms']:.4f} / {row['device_ms']:.4f} (0.0595 by launch "
-          f"earlier, on the 8-warp grid); bound {row['bound_ms']:.5f} ms "
+          f"{row['ms']:.4f} / {row['device_ms']:.4f} ({row['strip_route']}"
+          f" route); bound {row['bound_ms']:.5f} ms "
           f"({row['bound_by']}), nnz {K_sp.nnz}", flush=True)
     return row
 
@@ -2784,6 +2984,8 @@ def cli_phase(rolling, bsr, banded, device, phases):
               f" occupied 16 x 16 sub-blocks of the real tiles "
               f"{occupied_share(K_blk.occupancy, K_blk.n_slots)}", flush=True)
         row_b = check_k2_cli(bsr, K_blk, K_sp, seed=13)
+        row_b["rows"] = k2_route_rows(bsr, "CLI K_blk", K_blk, K_sp,
+                                      (CLI_RUNS_K["B"],), seed=14)
         del K_blk, h_b
         phases.done("CLI: K2 checks on run B's K_blk")
 
@@ -4214,6 +4416,7 @@ def smoke(oracles: list) -> int:
         SplitBanded,
     )
     from eigenpinns_torch.sparse import banded, bsr, rolling
+    from eigenpinns_torch.sparse.nonzeros import band_table
     from eigenpinns_torch.utils.cuda_build import build_logs
     from eigenpinns_torch.utils.fixtures import make_cloud, perturbed_icosphere
 
@@ -4276,7 +4479,8 @@ def smoke(oracles: list) -> int:
         weight_residual=1000.0, weight_orthogonal=10.0, log_every=0,
         early_stop_patience=10**9, plateau_patience=2000, polish_iters=100)
     torch.cuda.reset_peak_memory_stats(device)
-    rolling.rolling_kernel_launches = 0
+    rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
+    rolling.rolling_rows_launches = 0
     t0 = time.time()
     h = build_hierarchy(mesh, LEVELS, n_modes=N_MODES,
                         operator_format="auto", device=device)
@@ -4313,7 +4517,9 @@ def smoke(oracles: list) -> int:
           f": max {mg_res.max():.3e} median {np.median(mg_res):.3e}), "
           f"train() total {total_s:.3f} s", flush=True)
     print(f"[slice] loss {loss[0]:.6g} -> {loss[-1]:.6g}; kernel launches "
-          f"{launches}; peak device memory {peak_mb:.1f} MiB", flush=True)
+          f"{launches} ({rolling.rolling_gram_launches} with the Gram, "
+          f"{rolling.rolling_rows_launches} on the row-wise route); peak "
+          f"device memory {peak_mb:.1f} MiB", flush=True)
     print(f"[slice] finest-level Rayleigh-Ritz before the polish "
           f"{np.array2string(result.level_eigenvalues[-1], precision=6)}",
           flush=True)
@@ -4362,6 +4568,11 @@ def smoke(oracles: list) -> int:
 
     # 5. K2 and K3 vs plain at the slice's shapes.
     bsr_rows = check_bsr_kernels(bsr, K, L[perm][:, perm], seed=2)
+    bsr_rows["rows_300k"] = k2_route_rows(
+        bsr, "300k", K, L[perm][:, perm],
+        (DIRECT_K, DIRECT_K + POLISH_GUARD, SPEC_K + 10,
+         3 * (DIRECT_K + POLISH_GUARD), 128), seed=21,
+        plain_ks=(DIRECT_K + POLISH_GUARD, 3 * (DIRECT_K + POLISH_GUARD)))
     check_adversarial(bsr, banded, rolling, device, seed=6)
     torch.cuda.empty_cache()
     phases.done("K2/K3 checks")
@@ -4398,7 +4609,18 @@ def smoke(oracles: list) -> int:
          ("hilbert", K_hf.core, DIRECT_K + POLISH_GUARD),
          ("hilbert", K_h.core, DIRECT_K)],
         K, seed=4)
-    del K_c
+    # K4 at the fused-Gram polish's widths on the fp32 Hilbert core (its
+    # staged route at k = 28, the walk at k = 84) beside the row-wise
+    # route over a table of its band, which no path routes yet.
+    csr_h = band_csr(K_hf.core)
+    banded_rows["hilbert_rows"] = band_route_rows(
+        "K4 Hilbert core fp32",
+        lambda V, **grid: banded.banded_spmm_cuda(K_hf.core, V, **grid),
+        K_hf.core.band, K_hf.core.starts, 0, K_hf.core.occupancy,
+        band_table(K_hf.core.band, K_hf.core.occupancy, K_hf.core.starts),
+        K_hf.core.n, csr_h, int(csr_h.values().numel()),
+        (DIRECT_K + POLISH_GUARD, 3 * (DIRECT_K + POLISH_GUARD)), seed=22)
+    del K_c, csr_h
     torch.cuda.empty_cache()
     phases.done("split builds and K4/K5 checks")
 
@@ -4426,7 +4648,8 @@ def smoke(oracles: list) -> int:
 
     # 7. The direct slice, counting launches from zero.
     Xp = X[perm]
-    k2_launches, ref_loss = direct_slice(bsr, K, M, Xp, oracle)
+    k2_direct, ref_loss = direct_slice(bsr, K, M, Xp, oracle)
+    k2_launches = k2_direct["grouped"]
     phases.done("direct slice")
     k3_launches = burst_slice(bsr, K, M, Xp, ref_loss)
     del K, M
@@ -4434,8 +4657,9 @@ def smoke(oracles: list) -> int:
     phases.done("burst slice")
 
     # 7b. The rolling-band slice: K1 with the fused Gram at 300k.
-    k1_train, k1_polish, row_300k = rolling_slice(rolling, L, m_diag, X,
-                                                  oracle, device)
+    k1_train, k1_polished, row_300k, k1_rows = rolling_slice(
+        rolling, L, m_diag, X, oracle, device)
+    k1_polish = k1_polished["all"]
     torch.cuda.empty_cache()
     phases.done("rolling-band slice")
 
@@ -4487,7 +4711,9 @@ def smoke(oracles: list) -> int:
          "launches": launches, **row,
          "launches_300k": k1_train + k1_polish,
          "launches_300k_training": k1_train,
-         "launches_300k_polish": k1_polish, "row_300k": row_300k,
+         "launches_300k_polish": k1_polish,
+         "launches_300k_polish_rows": k1_polished["rows"],
+         "row_300k": row_300k, "rows_300k_highest": k1_rows,
          "launches_transfer": k1_transfer, "launches_cli_a": k1_cli,
          "row_cli_fem_K_blk": rows_fem["K"],
          "row_cli_fem_M_blk": rows_fem["M"],
@@ -4497,6 +4723,8 @@ def smoke(oracles: list) -> int:
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
          "launches": k2_launches, **bsr_rows["bsr_spmm_grouped"],
+         "launches_rows": k2_direct["rows"],
+         "rows_300k_highest": bsr_rows["rows_300k"],
          "launches_1m": k2_xl, "row_1m": row_1m,
          "launches_dirichlet": k2_dirichlet,
          "launches_dirichlet_narrow": narrow_dirichlet, "row_k1": row_k1,
@@ -4505,6 +4733,19 @@ def smoke(oracles: list) -> int:
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
          "launches": narrow_dirichlet, **row_narrow},
+        {"name": "bsr_spmm_rows", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
+         "launches": k2_direct["rows"],
+         **row_1m["rows"][3 * (DIRECT_K + POLISH_GUARD)],
+         "launches_1m": row_1m["launches_rows"],
+         "row_300k_k84": bsr_rows["rows_300k"][
+             3 * (DIRECT_K + POLISH_GUARD)]},
+        {"name": "rolling_spmm_rows", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/rolling.py:344",
+         "launches": k1_polished["rows"],
+         **k1_rows[3 * (DIRECT_K + POLISH_GUARD)]},
         {"name": "bsr_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:672",
@@ -4515,6 +4756,7 @@ def smoke(oracles: list) -> int:
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/banded.py:455",
          "launches": k4_launches, **banded_rows["banded_spmm"],
+         "rows_hilbert_highest": banded_rows["hilbert_rows"],
          "launches_1m": k4_xl, "row_1m": band_rows_1m["banded_spmm"]},
         {"name": "banded_spmm_gram", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",

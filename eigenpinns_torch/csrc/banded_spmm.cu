@@ -14,8 +14,16 @@
 //   band_staged_kernel without starts
 //       <-  eigenpinns_tpu/sparse/rolling.py::_rolling_kernel_call (K1,
 //           public there as rolling_spmm_pallas / rolling_spmm_gram_pallas)
-// The two kernels are two routes to the same sums (below); the wrapper
-// picks one by shape (sparse/occupancy.py::band_grid).
+//   nz::rows_kernel (nonzero_spmm.cuh) over the band's nonzero table
+//       <-  _rolling_kernel_call, on an fp32 rolling band past one
+//           column block (k = 84, the polish's K S)
+// The three kernels are three routes to the same sums (below); the
+// wrapper picks one by shape (sparse/occupancy.py::band_grid). The
+// row-wise route reads a sliced ELL of the band's nonzeros
+// (sparse/nonzeros.py::band_table: each row in window order, then
+// sub-block column, then column, the walk's order), ceil(k / 4) lanes a
+// row, so that W keeps the walk's bits; it is the strip-BSR kernels'
+// route of the same name, one kernel for both formats.
 //
 // Layouts (built on the host, unchanged). Both bands are (n_pad, B)
 // row-major, B a multiple of 128, with one 64-bit occupancy word per
@@ -110,11 +118,14 @@
 // chip_smoke.py measures every case against torch.sparse.mm of the same
 // operator and prints each launch's route, grid and U bytes.
 //
-// Left open: a compact copy of the occupied sub-blocks (each read of 1
-// KB serves ~48 B of nonzeros, and those reads now bound the staged
-// route), the masked columns at k = 20 in fp32 (12 of a warp's 32
-// lanes), the staged route past 64 columns (k = 84 and 128 take the
-// walk), and K5's epilogue, which now sets its pace (K5 takes about
+// Since the row-wise route (an fp32 rolling band with its table, k = 9
+// to 128, no Gram: 0.1812 ms at k = 84 on the 300k band, where the walk
+// takes 0.4646, and 0.0750 at k = 28 where the staged route takes
+// 0.1498) these two routes run K1 only with the Gram or on a bf16 band.
+// Left open: K4 on the row-wise route (the split cores carry no table
+// yet: 0.1817 ms against the walk's 0.3431 on the fp32 Hilbert core at
+// k = 84), the masked columns at k = 20 in fp32 (12 of a warp's 32
+// lanes), and K5's epilogue, which now sets its pace (K5 takes about
 // twice K4 on the cluster cores at k = 60). TMA descriptors and wgmma do
 // not fit this work: the sub-blocks are tiny, irregularly placed, and
 // wgmma wants 64-row tiles. On the walk, blocks of 32 columns run three
@@ -132,6 +143,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "nonzero_spmm.cuh"
 #include "occupancy_spmm.cuh"
 
 namespace {
@@ -773,6 +785,17 @@ int epk_banded_spmm(const void* band, int band_is_bf16, const int* starts,
   gram_reduce_kernel<<<(kk + kRedX - 1) / kRedX, dim3(kRedX, kRedY), 0, s>>>(
       partial, G, n_pad / kT, kk);
   return (int)cudaGetLastError();
+}
+
+// W = A U by the row-wise route over a band's nonzero table (val (L,)
+// fp32, idx (L,) int32 U rows, slice_start int64; nonzero_spmm.cuh): U
+// (n_u, k) and W (n, k) fp32, 1 <= k <= 256, U rows at or past n_u read
+// as zero. Returns cudaGetLastError() after the launch.
+int epk_banded_spmm_rows(const float* val, const int* idx,
+                         const long long* slice_start, const float* U,
+                         float* W, int n, int n_u, int k, void* stream) {
+  return (int)nz::launch_rows(val, idx, slice_start, U, W, n, n_u, k,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* epk_banded_error_string(int err) {

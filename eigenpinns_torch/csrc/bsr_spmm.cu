@@ -1,15 +1,18 @@
 // Strip-BSR SpMM W = A U for Hopper, sm_90a: a grouped and a burst kernel
 // that read and multiply only the occupied 16 x 16 sub-blocks of the
-// tiles, and the narrow path that both take on fp32 strips at k <= 8.
+// tiles, and the two routes over the operator's nonzeros that both take
+// on fp32 strips: the narrow path at k <= 8 and the row-wise route above
+// it (both in nonzero_spmm.cuh, shared with the band kernels).
 //
 // Replaces the Pallas TPU kernels of eigenpinns_tpu/sparse/bsr.py:
 //   bsr_spmm_kernel<..., kGrouped = true>   <-  bsr_spmm_pallas_grouped
 //       (column tiles through the group tables)
 //   bsr_spmm_kernel<..., kGrouped = false>  <-  bsr_spmm_pallas
 //       (column tiles through cid)
-//   bsr_narrow_kernel                       <-  either, on fp32 strips at
-//       k <= 8 (the wrapper counts the launch as the kernel's it was
-//       called for)
+//   nz::narrow_kernel, nz::rows_kernel      <-  either, on fp32 strips
+//       (the narrow path at k <= 8, the row-wise route from k = 9 to
+//       bsr.ROWS_MAX_K; the wrapper counts the launch as the kernel's it
+//       was called for)
 //
 // Layout (built on the host by BSRTile.from_scipy, unchanged): data is
 // (S*128, C*128) row-major; chunk s holds C tiles of 128 x 128 of row
@@ -71,6 +74,19 @@
 // (times on the card, NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py's
 // Dirichlet phase): so k <= 8.
 //
+// The row-wise route (fp32 strips, 8 < k <= bsr.ROWS_MAX_K; the
+// polish's products at k = 28 and 84). The same table, ceil(k / 4)
+// lanes a row, each owning 4 adjacent columns and loading its row's U
+// values of an entry as one 16-byte vector; the FFMA chain of each output
+// is the narrow kernel's, so W keeps the walk's bits. The walk reads
+// every occupied sub-block (1 KB for ~11 nonzeros) once per column block
+// (k = 84 runs two of 64 columns); the row-wise route reads ~12 bytes a
+// nonzero of table once, and each nonzero's U row (4 k bytes, mostly
+// from L2 and L1). On the 1M K at k = 84: 0.5878 ms on the card, where
+// the walk takes 1.5427 and torch.sparse.mm 0.7481; it beats the walk at
+// every k from 12 to 128 on the 300k and 1M K and on CLI run B's K_blk
+// (NVIDIA H100 80GB HBM3, 700 W, polish_products.py): so k <= 128.
+//
 // Small operators (CLI run B's K_blk, 35 row tiles, k = 64). The walk's
 // grid is (column blocks, row tiles) of 8-warp blocks: 35 blocks at 64
 // columns, on 132 SMs. When row tiles x column blocks give fewer than two
@@ -86,9 +102,9 @@
 //
 // Left open: the walk's masked lanes at 8 < k < 32 in fp32; a U row
 // shared by the stripes of a tile is fetched once per stripe; the
-// grouped kernel's second lookup (cid holds the same column tiles); a
-// warp per row over the narrow table at wide k, which would read ~8
-// bytes a nonzero there too. TMA descriptors and wgmma do not fit this
+// grouped kernel's second lookup (cid holds the same column tiles); the
+// walk in 'bf16' (mma.sync with fragments from global memory). TMA
+// descriptors and wgmma do not fit this
 // work: the sub-blocks are tiny and irregularly placed, and wgmma wants
 // 64-row tiles. Blocks of 32 columns run three to an SM (fewer
 // registers), blocks of 64 two; 4- and 2-warp blocks keep the registers
@@ -99,6 +115,7 @@
 // strips and rounds U to bf16 before the product (tensor cores, fp32
 // accumulation), as both Pallas kernels do.
 
+#include "nonzero_spmm.cuh"
 #include "occupancy_spmm.cuh"
 
 namespace {
@@ -210,91 +227,6 @@ cudaError_t launch(const void* data, const int* cols, const int* lcid,
 #undef EPK_BSR_ARGS
 }
 
-// ---- the narrow path: fp32 strips, k <= 8 --------------------------------
-
-constexpr int kSlice = 32;        // rows of a slice: one a lane
-constexpr int kNarrowWarps = 8;   // slices of a block
-constexpr int kNarrowBatch = 8;   // entries of a lane in flight
-
-// W = A U from the operator's nonzeros as a sliced ELL (BSRTile.narrow):
-// slice i holds rows [32 i, 32 i + 32); its entries sit in
-// [slice_start[i], slice_start[i + 1]), entry e of row 32 i + l at
-// slice_start[i] + 32 e + l, so a warp's 32 lanes read 32 neighbouring
-// values and U-row indices. Each row lists its nonzeros in the order in
-// which the column-block walk sums them; padding has index -1 and is
-// skipped. One warp a slice, one lane a row with kK fp32 accumulators
-// (k <= kK): the FFMA chain of each output is the walk's, so W has the
-// walk's bits. The next batch of entries is loaded while the U values of
-// the present one are on their way.
-template <int kK>
-__global__ void __launch_bounds__(kSlice * kNarrowWarps)
-bsr_narrow_kernel(const float* __restrict__ val, const int* __restrict__ idx,
-                  const long long* __restrict__ slice_start, int n_slices,
-                  const float* __restrict__ U, float* __restrict__ W, int n,
-                  int k) {
-  const int lane = threadIdx.x & 31;
-  const int slice = blockIdx.x * kNarrowWarps + (threadIdx.x >> 5);
-  if (slice >= n_slices) return;
-  const long long e0 = slice_start[slice];
-  const int width = (int)((slice_start[slice + 1] - e0) / kSlice);
-  const float* vp = val + e0 + lane;
-  const int* ip = idx + e0 + lane;
-
-  float v_next[kNarrowBatch];
-  int i_next[kNarrowBatch];
-  auto fetch = [&](int eb) {  // entries eb .. eb + 7 (warp-uniform bounds)
-#pragma unroll
-    for (int b = 0; b < kNarrowBatch; ++b) {
-      const bool in = eb + b < width;
-      v_next[b] = in ? __ldg(vp + (size_t)(eb + b) * kSlice) : 0.f;
-      i_next[b] = in ? __ldg(ip + (size_t)(eb + b) * kSlice) : -1;
-    }
-  };
-
-  float acc[kK];
-#pragma unroll
-  for (int c = 0; c < kK; ++c) acc[c] = 0.f;
-  if (width > 0) fetch(0);
-  for (int eb = 0; eb < width; eb += kNarrowBatch) {
-    float v[kNarrowBatch], u[kNarrowBatch][kK];
-    int ix[kNarrowBatch];
-#pragma unroll
-    for (int b = 0; b < kNarrowBatch; ++b) {
-      v[b] = v_next[b];
-      ix[b] = i_next[b];
-#pragma unroll
-      for (int c = 0; c < kK; ++c)
-        u[b][c] = ix[b] >= 0 && c < k
-                      ? __ldg(U + (size_t)ix[b] * k + c) : 0.f;
-    }
-    if (eb + kNarrowBatch < width) fetch(eb + kNarrowBatch);
-#pragma unroll
-    for (int b = 0; b < kNarrowBatch; ++b) {
-      if (ix[b] >= 0) {
-#pragma unroll
-        for (int c = 0; c < kK; ++c) acc[c] = fmaf(v[b], u[b][c], acc[c]);
-      }
-    }
-  }
-  const int row = slice * kSlice + lane;
-  if (row < n) {
-#pragma unroll
-    for (int c = 0; c < kK; ++c)
-      if (c < k) W[(size_t)row * k + c] = acc[c];
-  }
-}
-
-template <int kK>
-cudaError_t launch_narrow(const float* val, const int* idx,
-                          const long long* slice_start, int n_slices,
-                          const float* U, float* W, int n, int k,
-                          cudaStream_t s) {
-  const int grid = (n_slices + kNarrowWarps - 1) / kNarrowWarps;
-  bsr_narrow_kernel<kK><<<grid, kSlice * kNarrowWarps, 0, s>>>(
-      val, idx, slice_start, n_slices, U, W, n, k);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -323,24 +255,25 @@ int epk_bsr_spmm(const void* data, int data_is_bf16, const int* cols,
 }
 
 // W = A U by the narrow path: val (L,) fp32 and idx (L,) int32 the sliced
-// ELL, slice_start (n_slices + 1,) int64, U (n_cols, k) and W (n, k) fp32,
-// 1 <= k <= 8. Returns cudaGetLastError() after the launch.
+// ELL (nonzero_spmm.cuh), slice_start (n_slices + 1,) int64, U (n_cols,
+// k) and W (n, k) fp32, 1 <= k <= 8. Returns cudaGetLastError() after the
+// launch.
 int epk_bsr_spmm_narrow(const float* val, const int* idx,
                         const long long* slice_start, int n_slices,
                         const float* U, float* W, int n, int k,
                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 1)
-    return (int)launch_narrow<1>(val, idx, slice_start, n_slices, U, W, n, k,
-                                 s);
-  if (k == 2)
-    return (int)launch_narrow<2>(val, idx, slice_start, n_slices, U, W, n, k,
-                                 s);
-  if (k <= 4)
-    return (int)launch_narrow<4>(val, idx, slice_start, n_slices, U, W, n, k,
-                                 s);
-  return (int)launch_narrow<8>(val, idx, slice_start, n_slices, U, W, n, k,
-                               s);
+  return (int)nz::launch_narrow(val, idx, slice_start, n_slices, U, W, n, k,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// W = A U by the row-wise route over the same table: U (n_cols, k) and
+// W (n, k) fp32, 1 <= k <= 256. Returns cudaGetLastError() after the
+// launch.
+int epk_bsr_spmm_rows(const float* val, const int* idx,
+                      const long long* slice_start, const float* U, float* W,
+                      int n, int n_cols, int k, void* stream) {
+  return (int)nz::launch_rows(val, idx, slice_start, U, W, n, n_cols, k,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* epk_bsr_error_string(int err) {

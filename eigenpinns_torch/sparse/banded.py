@@ -45,6 +45,11 @@ import functools
 import numpy as np
 import torch
 
+from eigenpinns_torch.sparse.nonzeros import (
+    NarrowTable,
+    check_table,
+    launch_rows,
+)
 from eigenpinns_torch.sparse.occupancy import (
     band_grid,
     default_col_block,
@@ -231,6 +236,8 @@ def build_kernel() -> ctypes.CDLL:
     lib.epk_banded_spmm.restype = i
     lib.epk_banded_spmm.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i,
                                     i, i, i, i, p]
+    lib.epk_banded_spmm_rows.restype = i
+    lib.epk_banded_spmm_rows.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.epk_banded_error_string.restype = ctypes.c_char_p
     lib.epk_banded_error_string.argtypes = [i]
     return lib
@@ -239,15 +246,18 @@ def build_kernel() -> ctypes.CDLL:
 def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
                        pre: int, occ: torch.Tensor | None, U: torch.Tensor,
                        n: int, with_gram: bool, col_block: int | None,
-                       warps: int | None = None, route: str | None = None):
+                       warps: int | None = None, route: str | None = None,
+                       table: NarrowTable | None = None):
     """One launch of csrc/banded_spmm.cu, W (n, k) = A U: a full-window
     band (`starts` given; U of any length >= 1, rows past its end read
     as zero) or a rolling band (`starts` None, windows `pre` rows above
     their tile; U has n rows). The Gram takes U with n rows. The route
     and grid come from `band_grid` (`col_block`, `warps` and `route`
-    force them). Checks what both layouts share (the band, its occupancy
-    table, U, the grid), allocates the outputs and raises when the
-    launch fails. Returns (W, G); G is None without `with_gram`."""
+    force them); `table`, the band's nonzero table (fp32 bands), makes
+    the row-wise route available. Checks what both layouts share (the
+    band, its occupancy table, U, the grid), allocates the outputs and
+    raises when the launch fails. Returns (W, G, route); G is None
+    without `with_gram`."""
     if occ is None:
         raise ValueError("the band kernels need the band's occupancy "
                          "table (from_scipy makes it; "
@@ -280,7 +290,17 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
     k = U.shape[1]
     route, col_block, warps = band_grid(
         n_pad // 128, k, band.dtype, sm_count(U.device), with_gram,
-        col_block, warps, route)
+        col_block, warps, route, rows=table is not None)
+    if route == "rows":
+        check_table(table, n, band.device)
+        lib = build_kernel()
+        W, err = launch_rows(
+            lib.epk_banded_spmm_rows, table, U, n,
+            torch._C._cuda_getCurrentRawStream(U.device.index))
+        if err != 0:
+            raise RuntimeError("banded_spmm row-wise launch failed: "
+                               + lib.epk_banded_error_string(err).decode())
+        return W, None, route
     # One block per (tile, column block) or per (tile, warps stripes), on
     # the grid's x axis.
     if (n_pad // 128) * max(-(-k // col_block), 8 // warps) >= 2**31:
@@ -303,7 +323,7 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
     if err != 0:
         raise RuntimeError("banded_spmm kernel launch failed: "
                            + lib.epk_banded_error_string(err).decode())
-    return W, G
+    return W, G, route
 
 
 def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
@@ -328,7 +348,7 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
             or starts.device != band.device or not starts.is_contiguous()):
         raise ValueError("starts must be contiguous int32 (n_pad / 128,) "
                          "on the band's device")
-    W, G = launch_band_kernel(band, starts, 0, A.occupancy, U, A.n,
+    W, G, _ = launch_band_kernel(band, starts, 0, A.occupancy, U, A.n,
                               with_gram, col_block, warps, route)
     banded_kernel_launches["spmm_gram" if with_gram else
                            "spmm" if A.n == A.n_cols else "spmm_rect"] += 1

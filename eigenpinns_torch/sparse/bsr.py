@@ -22,10 +22,12 @@ tables, the burst one (port of `bsr_spmm_pallas`, which reads them
 through `cid`) otherwise. Both walk the operator's occupancy table
 (`occupancy`, one 64-bit word per slot: `sparse/occupancy.py`) and read
 and multiply only the 16 x 16 sub-blocks of each tile that hold a
-nonzero; a pad slot's word is 0. On fp32 strips at k <= NARROW_MAX_K
-both take the narrow path instead: one lane a row, over the operator's
-nonzeros as a sliced ELL (`NarrowTable`, built from the strips), summed
-in the walk's order, so W has the walk's bits. CPU tensors take
+nonzero; a pad slot's word is 0. On fp32 strips both take a route over
+the operator's nonzeros as a sliced ELL instead (`NarrowTable`, built
+from the strips: `sparse/nonzeros.py`), summed in the walk's order, so W
+has the walk's bits: the narrow path (one lane a row) at k <=
+NARROW_MAX_K, the row-wise route (ceil(k / 4) lanes a row) up to
+ROWS_MAX_K (`strip_route`). CPU tensors take
 `bsr_spmm_plain`, the plain torch version of the same function. A CUDA
 tensor always reaches a kernel or raises.
 
@@ -44,6 +46,15 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from eigenpinns_torch.sparse.nonzeros import (
+    ROWS_KERNEL_MAX_K,
+    SLICE,
+    NarrowTable,
+    check_table,
+    launch_rows,
+    piece_table,
+    table_spmm_plain,
+)
 from eigenpinns_torch.sparse.occupancy import (
     default_col_block,
     occupancy_mask,
@@ -54,101 +65,33 @@ from eigenpinns_torch.sparse.occupancy import sm_count as _sm_count
 PRECISIONS = ("highest", "high", "bf16")
 
 # Launches of each CUDA kernel (one per wrapper call that reaches it);
-# "narrow" counts those of them that took the narrow path.
-bsr_kernel_launches = {"grouped": 0, "burst": 0, "narrow": 0}
+# "narrow" and "rows" count those of them that took the narrow path and
+# the row-wise route.
+bsr_kernel_launches = {"grouped": 0, "burst": 0, "narrow": 0, "rows": 0}
 
-# Widest product the narrow path takes (fp32 strips, col_block=None).
+# Routes of a launch on fp32 strips with col_block=None (`strip_route`):
+# the narrow path up to NARROW_MAX_K, the row-wise route from there to
+# ROWS_MAX_K, the column-block walk past it.
 NARROW_MAX_K = 8
-SLICE = 32        # rows of a slice of the narrow table: one a lane
-
-
-@dataclasses.dataclass(frozen=True)
-class NarrowTable:
-    """The nonzeros of fp32 strips as a sliced ELL, for the narrow path.
-
-    Slice i holds rows [32 i, 32 i + 32); its entries are
-    [slice_start[i], slice_start[i + 1]), 32 times the slice's widest
-    row, and entry e of row 32 i + l sits at slice_start[i] + 32 e + l,
-    so the 32 lanes of a warp read neighbouring addresses. Each row lists
-    its nonzeros in the order in which the column-block walk sums them:
-    slot, then the sub-block's column group, then the column inside it.
-    Padding has value 0 and index -1.
-
-    val: (L,) float32, the strips' values bit for bit
-    idx: (L,) int32, the U row each value multiplies (-1: padding)
-    slice_start: (n_slices + 1,) int64
-    """
-
-    val: torch.Tensor
-    idx: torch.Tensor
-    slice_start: torch.Tensor
-
-    @property
-    def n_slices(self) -> int:
-        return self.slice_start.numel() - 1
-
-    @property
-    def nnz(self) -> int:
-        return int((self.idx >= 0).sum())
-
-
-# Occupied sub-blocks gathered at a time while a table is built (64 MB of
-# fp32 values).
-_GATHER = 1 << 16
+ROWS_MAX_K = 128
+STRIP_ROUTES = ("narrow", "rows", "walk")
 
 
 def narrow_table(data: torch.Tensor, occupancy: torch.Tensor,
                  rowid: torch.Tensor, cid: torch.Tensor,
                  n_row_tiles: int) -> NarrowTable:
     """The `NarrowTable` of fp32 strips, built on their device from the
-    strips and the occupancy table: the occupied 16 x 16 sub-blocks are
-    gathered, their nonzeros listed and sorted into the walk's order
-    within each row."""
+    strips and the occupancy table: slot j of chunk s is piece s C + j,
+    rows of row tile rowid[s], U rows from 128 cid[s, j]; each row lists
+    its nonzeros by chunk, slot, sub-block column and column, the walk's
+    order (`nonzeros.piece_table`)."""
     if data.dtype != torch.float32:
         raise ValueError(f"the narrow table lists fp32 strips, got "
                          f"{data.dtype}")
-    S, C = cid.shape
-    T, sub = 128, 16
-    device = data.device
-    n_slices = n_row_tiles * T // SLICE
-    span = C * T                                   # strip columns
-    if n_slices * SLICE * S * span >= 2**63:
-        raise ValueError("the strips are too large for the table's sort key")
-    shifts = torch.arange(64, device=device)
-    q, b = torch.nonzero((occupancy.reshape(-1, 1) >> shifts) & 1,
-                         as_tuple=True)
-    s, j = q // C, q % C
-    blocks = data.view(S, T // sub, sub, C * T // sub, sub)
-    rows, cols, vals, keys = [], [], [], []
-    for lo in range(0, q.numel(), _GATHER):
-        sl = slice(lo, lo + _GATHER)
-        s_, j_, i_, c_ = s[sl], j[sl], b[sl] // 8, b[sl] % 8
-        tiles = blocks[s_, i_, :, j_ * 8 + c_, :]    # (m, 16, 16)
-        m, rr, cc = torch.nonzero(tiles, as_tuple=True)
-        s_, j_, i_, c_ = s_[m], j_[m], i_[m], c_[m]
-        row = rowid[s_].long() * T + i_ * sub + rr
-        rows.append(row)
-        cols.append(cid[s_, j_].long() * T + c_ * sub + cc)
-        vals.append(tiles[m, rr, cc])
-        # Within a row: chunk, then strip column (slot, sub-block, column).
-        keys.append((row * S + s_) * span + j_ * T + c_ * sub + cc)
-    cat = (lambda xs, dt: torch.cat(xs) if xs
-           else torch.zeros(0, dtype=dt, device=device))
-    order = torch.argsort(cat(keys, torch.int64))
-    row = cat(rows, torch.int64)[order]
-    counts = torch.bincount(row, minlength=n_slices * SLICE)
-    width = counts.view(n_slices, SLICE).amax(dim=1)
-    slice_start = torch.zeros(n_slices + 1, dtype=torch.int64, device=device)
-    slice_start[1:] = torch.cumsum(width * SLICE, 0)
-    first = torch.cumsum(counts, 0) - counts       # each row's first entry
-    rank = torch.arange(row.numel(), device=device) - first[row]
-    dest = slice_start[row // SLICE] + rank * SLICE + row % SLICE
-    L = int(slice_start[-1])
-    val = torch.zeros(L, dtype=torch.float32, device=device)
-    idx = torch.full((L,), -1, dtype=torch.int32, device=device)
-    val[dest] = cat(vals, torch.float32)[order]
-    idx[dest] = cat(cols, torch.int64)[order].int()
-    return NarrowTable(val, idx, slice_start)
+    C = cid.shape[1]
+    return piece_table(data, occupancy,
+                       rowid.long().repeat_interleave(C),
+                       cid.long().reshape(-1) * 128, n_row_tiles * 128)
 
 
 def _narrow_of(data, occupancy, rowid, cid, n_row_tiles):
@@ -441,21 +384,10 @@ def bsr_spmm_plain(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
 
 
 def narrow_spmm_plain(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
-    """A @ U in fp32 read from the operator's narrow table (the narrow
-    kernel's layout), summed by `index_add_` in no fixed order."""
-    t = A.narrow
-    k = U.shape[1]
-    width = (t.slice_start[1:] - t.slice_start[:-1]) // SLICE
-    slice_of = torch.repeat_interleave(
-        torch.arange(t.n_slices, device=U.device), width * SLICE)
-    e = torch.arange(t.val.numel(), device=U.device)
-    row = slice_of * SLICE + (e - t.slice_start[slice_of]) % SLICE
-    live = t.idx >= 0
-    out = torch.zeros((t.n_slices * SLICE, k), dtype=torch.float32,
-                      device=U.device)
-    out.index_add_(0, row[live],
-                   t.val[live, None] * U.float()[t.idx[live].long()])
-    return out[: A.n].to(U.dtype)
+    """A @ U in fp32 read from the operator's narrow table (the layout of
+    the narrow path and the row-wise route), summed by `index_add_` in no
+    fixed order."""
+    return table_spmm_plain(A.narrow, U, A.n)
 
 
 # ---- CUDA kernel wrappers ------------------------------------------------
@@ -473,6 +405,8 @@ def build_kernel() -> ctypes.CDLL:
                                  i, i, i, i, p]
     lib.epk_bsr_spmm_narrow.restype = i
     lib.epk_bsr_spmm_narrow.argtypes = [p, p, p, i, p, p, i, i, p]
+    lib.epk_bsr_spmm_rows.restype = i
+    lib.epk_bsr_spmm_rows.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.epk_bsr_error_string.restype = ctypes.c_char_p
     lib.epk_bsr_error_string.argtypes = [i]
     return lib
@@ -493,6 +427,36 @@ def walk_grid(A: BSRTile, k: int, col_block: int | None = None) -> tuple:
     blocks = A.n_row_tiles * -(-k // col_block)
     warps = 8 if blocks >= want else 4 if 2 * blocks >= want else 2
     return col_block, warps
+
+
+def strip_route(dtype: torch.dtype, k: int, col_block: int | None = None,
+                route: str | None = None) -> str:
+    """The route of a strip-BSR launch of width k on strips of `dtype`:
+    on fp32 strips with `col_block` None, the narrow path (one lane a
+    row) for k <= NARROW_MAX_K and the row-wise route (ceil(k / 4) lanes
+    a row) up to ROWS_MAX_K, both over the operator's narrow table; the
+    column-block walk otherwise. Every route gives the same bits. An
+    explicit `col_block` forces the walk; `route` forces one, and raises
+    where the kernels cannot take it (the table's routes need fp32
+    strips, the narrow path k <= NARROW_MAX_K)."""
+    if route is None:
+        if col_block is not None or dtype != torch.float32:
+            return "walk"
+        return ("narrow" if k <= NARROW_MAX_K
+                else "rows" if k <= ROWS_MAX_K else "walk")
+    if route not in STRIP_ROUTES:
+        raise ValueError(f"route must be one of {STRIP_ROUTES}, got "
+                         f"{route!r}")
+    if route != "walk" and (dtype != torch.float32 or col_block is not None):
+        raise ValueError(f"the {route} route reads the narrow table of fp32 "
+                         f"strips and takes no col_block (got {dtype}, "
+                         f"col_block {col_block})")
+    if (route == "narrow" and k > NARROW_MAX_K
+            or route == "rows" and k > ROWS_KERNEL_MAX_K):
+        raise ValueError(f"the {route} route takes k <= "
+                         f"{NARROW_MAX_K if route == 'narrow' else ROWS_KERNEL_MAX_K}"
+                         f", got {k}")
+    return route
 
 
 def _check_operator(A: BSRTile) -> None:
@@ -523,22 +487,13 @@ def _check_operator(A: BSRTile) -> None:
            or not t.is_contiguous() for t in tables):
         raise ValueError("layout tables must be contiguous int32 on the "
                          "strips' device")
-    t = A.narrow
-    if t is not None and not (
-            t.val.dtype == torch.float32 and t.idx.dtype == torch.int32
-            and t.slice_start.dtype == torch.int64
-            and t.val.shape == t.idx.shape
-            and t.n_slices * SLICE >= A.n
-            and all(x.device == data.device and x.is_contiguous()
-                    for x in (t.val, t.idx, t.slice_start))):
-        raise ValueError("the narrow table must hold contiguous float32 "
-                         "values, int32 U rows and int64 slice starts for "
-                         "every row, on the strips' device")
+    if A.narrow is not None:
+        check_table(A.narrow, A.n, data.device)
 
 
 def _launch(A: BSRTile, U: torch.Tensor, grouped: bool,
-            col_block: int | None = None,
-            warps: int | None = None) -> torch.Tensor:
+            col_block: int | None = None, warps: int | None = None,
+            route: str | None = None) -> torch.Tensor:
     if A.occupancy is None:
         raise ValueError("the BSR kernels need the operator's occupancy "
                          "table (BSRTile.from_scipy builds it; "
@@ -548,11 +503,10 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool,
         raise ValueError(f"U must be float32 ({A.n_cols}, k >= 1), got "
                          f"{U.dtype} {tuple(U.shape)}")
     k = U.shape[1]
-    narrow = (col_block is None and k <= NARROW_MAX_K
-              and A.data.dtype == torch.float32)
-    if narrow and A.narrow is None:
-        raise ValueError("the narrow path (fp32 strips, k <= "
-                         f"{NARROW_MAX_K}) needs the operator's narrow "
+    route = strip_route(A.data.dtype, k, col_block, route)
+    if route != "walk" and A.narrow is None:
+        raise ValueError(f"the {route} route (fp32 strips, k <= "
+                         f"{ROWS_MAX_K}) needs the operator's narrow "
                          "table (BSRTile.from_scipy and with_precision "
                          "build it; narrow_table(...) for a hand-made "
                          "operator)")
@@ -565,17 +519,20 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool,
     if U.device != A.data.device:
         raise ValueError("the BSR kernels need U and the strips on one CUDA "
                          f"device (got {U.device}, {A.data.device})")
-    W = torch.empty((A.n, k), dtype=torch.float32, device=U.device)
     lib = build_kernel()
     # The raw handle of the current stream: building a torch Stream
     # object for it is a measurable share of a launch's host path.
     stream = torch._C._cuda_getCurrentRawStream(U.device.index)
-    if narrow:
-        t = A.narrow
+    t = A.narrow
+    if route == "rows":
+        W, err = launch_rows(lib.epk_bsr_spmm_rows, t, U, A.n, stream)
+    else:
+        W = torch.empty((A.n, k), dtype=torch.float32, device=U.device)
+    if route == "narrow":
         err = lib.epk_bsr_spmm_narrow(
             t.val.data_ptr(), t.idx.data_ptr(), t.slice_start.data_ptr(),
             t.n_slices, U.data_ptr(), W.data_ptr(), A.n, k, stream)
-    else:
+    elif route == "walk":
         if col_block not in (None, 32, 64):
             raise ValueError(f"col_block must be 32 or 64, got {col_block}")
         col_block, grid = walk_grid(A, k, col_block)
@@ -595,30 +552,37 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool,
         raise RuntimeError("bsr_spmm kernel launch failed: "
                            + lib.epk_bsr_error_string(err).decode())
     bsr_kernel_launches["grouped" if grouped else "burst"] += 1
-    bsr_kernel_launches["narrow"] += narrow
+    if route != "walk":
+        bsr_kernel_launches[route] += 1
     return W
 
 
 def bsr_spmm_grouped_cuda(A: BSRTile, U: torch.Tensor,
                           col_block: int | None = None,
-                          warps: int | None = None) -> torch.Tensor:
+                          warps: int | None = None,
+                          route: str | None = None) -> torch.Tensor:
     """Launch the grouped kernel (port of `bsr_spmm_pallas_grouped`):
     column tiles through `gcid`/`lcid`/`gid`, occupied sub-blocks only.
-    With `col_block` None, fp32 strips and k <= NARROW_MAX_K take the
-    narrow path (the same bits); otherwise `col_block` (32 or 64 output
-    columns per block) and `warps` (stripes per block: 8, 4 or 2) default
-    to `walk_grid`'s; every choice gives the same bits."""
-    return _launch(A, U, grouped=True, col_block=col_block, warps=warps)
+    With `col_block` None, fp32 strips take the narrow path (k <=
+    NARROW_MAX_K) or the row-wise route (k <= ROWS_MAX_K) over the
+    operator's narrow table (`strip_route`; the same bits); otherwise
+    `col_block` (32 or 64 output columns per block) and `warps` (stripes
+    per block: 8, 4 or 2) default to `walk_grid`'s; every choice gives
+    the same bits. `route` forces a route."""
+    return _launch(A, U, grouped=True, col_block=col_block, warps=warps,
+                   route=route)
 
 
 def bsr_spmm_burst_cuda(A: BSRTile, U: torch.Tensor,
                         col_block: int | None = None,
-                        warps: int | None = None) -> torch.Tensor:
+                        warps: int | None = None,
+                        route: str | None = None) -> torch.Tensor:
     """Launch the burst kernel (port of `bsr_spmm_pallas`): column tiles
     through `cid`, occupied sub-blocks only (a pad slot costs the read of
-    its empty occupancy word); the narrow path, `col_block` and `warps`
-    as in `bsr_spmm_grouped_cuda`."""
-    return _launch(A, U, grouped=False, col_block=col_block, warps=warps)
+    its empty occupancy word); the routes, `col_block`, `warps` and
+    `route` as in `bsr_spmm_grouped_cuda`."""
+    return _launch(A, U, grouped=False, col_block=col_block, warps=warps,
+                   route=route)
 
 
 def _impl(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
@@ -635,10 +599,10 @@ def _impl(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
 
 def bsr_spmm_hbm_bytes(A: BSRTile, k: int) -> int:
     """Bytes one `bsr_spmm(A, U)` with an (n_cols, k) fp32 U moves through
-    the kernel `_impl` dispatches. The narrow path (fp32 strips, k <=
-    NARROW_MAX_K): every entry of the narrow table, padding included (a
-    4-byte value and a 4-byte U row), the slice starts, each nonzero's U
-    row (k fp32) and W written once. The column-block walk: for every
+    the kernel `_impl` dispatches. The narrow path and the row-wise route
+    (fp32 strips, k <= ROWS_MAX_K): every entry of the narrow table,
+    padding included (a 4-byte value and a 4-byte U row), the slice
+    starts, each nonzero's U row (k fp32) and W written once. The column-block walk: for every
     occupied 16 x 16 sub-block, its 256 strip values and the 16 x k fp32
     U rows it multiplies; for every slot, pad slots too, its 8-byte
     occupancy word and its 4-byte column entry (`cid`, or `lcid` with the
@@ -646,7 +610,7 @@ def bsr_spmm_hbm_bytes(A: BSRTile, k: int) -> int:
     W written once. A sub-block and its U rows count once per product:
     the column blocks of a row tile are launched next to each other and
     share them through L2. No lane padding: the kernels mask k."""
-    if A.data.dtype == torch.float32 and k <= NARROW_MAX_K:
+    if strip_route(A.data.dtype, k) != "walk":
         t = A.narrow
         return int(t.val.numel() * 8 + t.slice_start.numel() * 8
                    + t.nnz * k * 4 + A.n * k * 4)

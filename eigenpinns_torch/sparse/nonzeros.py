@@ -1,0 +1,201 @@
+"""The nonzeros of a tiled operator as a sliced ELL, for the kernels that
+read them instead of the dense layout (`csrc/nonzero_spmm.cuh`).
+
+Both tiled formats store a dense, mostly zero layout with an occupancy
+table (`sparse/occupancy.py`): the strip-BSR strips (`BSRTile.data`) and
+the bands (`RollingBanded.band`, `BandedELL.band`). Their walk reads
+each occupied 16 x 16 sub-block whole, 1 KB of fp32 for ~11 nonzeros on
+a cloud Laplacian. The table lists the nonzeros alone: 8 bytes each (an
+fp32 value and an int32 U row) plus the padding to each 32-row slice's
+widest row, and each row in the order in which the walk sums it (the
+pieces of the table in order, then the sub-block's column group, then
+the column), so that a kernel that chains each output's FFMA over its
+row's entries gives the walk's bits.
+
+`piece_table` builds it on the layout's device for either format from
+the dense tensor, its occupancy table and where each 128 x 128 piece
+sits in the matrix; `band_table` gives a band's pieces (full window or
+rolling) and `bsr.narrow_table` the strips'. `table_spmm_plain` is the
+plain torch reader of a table, and `launch_rows` the row-wise kernel's
+launch, which both formats' wrappers share.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from eigenpinns_torch.sparse.occupancy import ROWS_KERNEL_MAX_K
+
+SLICE = 32        # rows of a slice of the table: one a lane
+
+# Occupied sub-blocks gathered at a time while a table is built (64 MB of
+# fp32 values).
+_GATHER = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class NarrowTable:
+    """The nonzeros of an fp32 tiled operator as a sliced ELL.
+
+    Slice i holds rows [32 i, 32 i + 32); its entries are
+    [slice_start[i], slice_start[i + 1]), 32 times the slice's widest
+    row, and entry e of row 32 i + l sits at slice_start[i] + 32 e + l,
+    so the 32 lanes of a warp read neighbouring addresses. Each row lists
+    its nonzeros in the order in which the column-block walk sums them:
+    the pieces of the layout in table order (strip-BSR: chunk, then slot;
+    a band: its window's 128-column pieces), then the sub-block's column
+    group, then the column inside it. Padding has value 0 and index -1.
+
+    val: (L,) float32, the layout's values bit for bit
+    idx: (L,) int32, the U row each value multiplies (-1: padding)
+    slice_start: (n_slices + 1,) int64
+    """
+
+    val: torch.Tensor
+    idx: torch.Tensor
+    slice_start: torch.Tensor
+
+    @property
+    def n_slices(self) -> int:
+        return self.slice_start.numel() - 1
+
+    @property
+    def nnz(self) -> int:
+        return int((self.idx >= 0).sum())
+
+
+def piece_table(dense: torch.Tensor, occupancy: torch.Tensor,
+                row_tile: torch.Tensor, u_base: torch.Tensor,
+                n_rows: int) -> NarrowTable:
+    """The `NarrowTable` of an fp32 layout of 128 x 128 pieces, built on
+    its device. `dense` is (R * 128, Q * 128) and `occupancy` its (R, Q)
+    table; piece q = Q r + p (rows [128 r, 128 r + 128), columns [128 p,
+    128 p + 128) of `dense`) holds rows [128 row_tile[q], + 128) of the
+    matrix, its column c multiplies U row u_base[q] + c. Rows are listed
+    in piece order, then column (the walk's order); the table covers
+    `n_rows` rows (a multiple of 32). The occupied sub-blocks are
+    gathered, their nonzeros listed and sorted into that order."""
+    if dense.dtype != torch.float32:
+        raise ValueError(f"the nonzero table lists fp32 values, got "
+                         f"{dense.dtype}")
+    R, Q = occupancy.shape
+    T, sub = 128, 16
+    device = dense.device
+    if n_rows % SLICE:
+        raise ValueError(f"the table covers whole slices of {SLICE} rows, "
+                         f"got {n_rows}")
+    n_slices = n_rows // SLICE
+    span = R * Q * T                                  # keys within a row
+    if n_rows * span >= 2**63:
+        raise ValueError("the layout is too large for the table's sort key")
+    row_tile = row_tile.to(device=device, dtype=torch.int64)
+    u_base = u_base.to(device=device, dtype=torch.int64)
+    shifts = torch.arange(64, device=device)
+    q, b = torch.nonzero((occupancy.reshape(-1, 1) >> shifts) & 1,
+                         as_tuple=True)
+    blocks = dense.view(R, T // sub, sub, Q * T // sub, sub)
+    rows, cols, vals, keys = [], [], [], []
+    for lo in range(0, q.numel(), _GATHER):
+        sl = slice(lo, lo + _GATHER)
+        q_, i_, c_ = q[sl], b[sl] // 8, b[sl] % 8
+        tiles = blocks[q_ // Q, i_, :, (q_ % Q) * 8 + c_, :]  # (m, 16, 16)
+        m, rr, cc = torch.nonzero(tiles, as_tuple=True)
+        q_, i_, c_ = q_[m], i_[m], c_[m]
+        row = row_tile[q_] * T + i_ * sub + rr
+        col = c_ * sub + cc                           # column in the piece
+        rows.append(row)
+        cols.append(u_base[q_] + col)
+        vals.append(tiles[m, rr, cc])
+        keys.append(row * span + q_ * T + col)
+    cat = (lambda xs, dt: torch.cat(xs) if xs
+           else torch.zeros(0, dtype=dt, device=device))
+    order = torch.argsort(cat(keys, torch.int64))
+    row = cat(rows, torch.int64)[order]
+    if row.numel() and int(row.max()) >= n_rows:
+        raise ValueError(f"a nonzero lies past the table's {n_rows} rows")
+    counts = torch.bincount(row, minlength=n_rows)
+    width = counts.view(n_slices, SLICE).amax(dim=1)
+    slice_start = torch.zeros(n_slices + 1, dtype=torch.int64, device=device)
+    slice_start[1:] = torch.cumsum(width * SLICE, 0)
+    first = torch.cumsum(counts, 0) - counts       # each row's first entry
+    rank = torch.arange(row.numel(), device=device) - first[row]
+    dest = slice_start[row // SLICE] + rank * SLICE + row % SLICE
+    L = int(slice_start[-1])
+    val = torch.zeros(L, dtype=torch.float32, device=device)
+    idx = torch.full((L,), -1, dtype=torch.int32, device=device)
+    val[dest] = cat(vals, torch.float32)[order]
+    idx[dest] = cat(cols, torch.int64)[order].int()
+    return NarrowTable(val, idx, slice_start)
+
+
+def band_table(band: torch.Tensor, occupancy: torch.Tensor,
+               starts: torch.Tensor | None = None,
+               pre: int = 0) -> NarrowTable:
+    """The `NarrowTable` of an fp32 band of 128-row tiles, (n_pad, B) with
+    its (n_pad / 128, B / 128) occupancy table: a full-window band
+    (`starts`: piece p of tile t multiplies U rows starts[t] + 128 p
+    onward) or a rolling band (`starts` None: U rows 128 t - pre +
+    ((128 p - 128 t) mod B) onward, the window wrapping at its end). Each
+    row lists its nonzeros in band-column order, which is the band
+    kernels' order of summation (pieces, sub-block column, column)."""
+    n_tiles, P = occupancy.shape
+    B = band.shape[1]
+    device = band.device
+    t = torch.arange(n_tiles, dtype=torch.int64, device=device)[:, None]
+    p = torch.arange(P, dtype=torch.int64, device=device)[None, :]
+    if starts is None:
+        base = 128 * t - pre + torch.remainder(128 * p - 128 * t, B)
+    else:
+        base = starts.to(device=device, dtype=torch.int64)[:, None] + 128 * p
+    return piece_table(band, occupancy, t.expand(n_tiles, P).reshape(-1),
+                       base.reshape(-1), band.shape[0])
+
+
+def table_spmm_plain(t: NarrowTable, U: torch.Tensor, n: int) -> torch.Tensor:
+    """W (n, k) = A U in fp32 read from a table, summed by `index_add_` in
+    no fixed order; U rows at or past U's end read as zero."""
+    k = U.shape[1]
+    width = (t.slice_start[1:] - t.slice_start[:-1]) // SLICE
+    slice_of = torch.repeat_interleave(
+        torch.arange(t.n_slices, device=U.device), width * SLICE)
+    e = torch.arange(t.val.numel(), device=U.device)
+    row = slice_of * SLICE + (e - t.slice_start[slice_of]) % SLICE
+    live = (t.idx >= 0) & (t.idx < U.shape[0])
+    out = torch.zeros((t.n_slices * SLICE, k), dtype=torch.float32,
+                      device=U.device)
+    out.index_add_(0, row[live],
+                   t.val[live, None] * U.float()[t.idx[live].long()])
+    return out[:n].to(U.dtype)
+
+
+def check_table(t: NarrowTable, n: int, device: torch.device) -> None:
+    """Raises ValueError when the kernels cannot read `t` for n rows on
+    `device`."""
+    if not (t.val.dtype == torch.float32 and t.idx.dtype == torch.int32
+            and t.slice_start.dtype == torch.int64
+            and t.val.shape == t.idx.shape
+            and t.n_slices * SLICE >= n
+            and all(x.device == device and x.is_contiguous()
+                    for x in (t.val, t.idx, t.slice_start))):
+        raise ValueError("the nonzero table must hold contiguous float32 "
+                         "values, int32 U rows and int64 slice starts for "
+                         "every row, on the layout's device")
+
+
+def launch_rows(fn, t: NarrowTable, U: torch.Tensor, n: int,
+                stream: int) -> torch.Tensor:
+    """(W, err): W (n, k) = A U launched by the row-wise kernel (`fn`, a
+    library's C entry of signature (val, idx, slice_start, U, W, n, n_u,
+    k, stream)) over the table, and the CUDA error code of the launch,
+    which the caller turns into its library's message. The caller checks
+    the table and U."""
+    k = U.shape[1]
+    if not 1 <= k <= ROWS_KERNEL_MAX_K:
+        raise ValueError(f"the row-wise kernel takes 1 <= k <= "
+                         f"{ROWS_KERNEL_MAX_K}, got {k}")
+    W = torch.empty((n, k), dtype=torch.float32, device=U.device)
+    err = fn(t.val.data_ptr(), t.idx.data_ptr(), t.slice_start.data_ptr(),
+             U.data_ptr(), W.data_ptr(), n, U.shape[0], k, stream)
+    return W, err

@@ -76,28 +76,44 @@ def default_col_block(k: int, dtype: torch.dtype) -> int:
     (`sparse/bsr.py`): on fp32 strips at k <= 8 they take the narrow
     path, one lane a row over the operator's nonzeros, and no column
     block (at k = 1 on the 300k K 0.0088 ms on the card, against 0.2018
-    for the walk); on an operator whose row tiles x column blocks give
-    fewer than two blocks an SM (CLI run B's K_blk: 35 row tiles) they
-    take 32 columns and blocks of 4 or 2 warps (at k = 64 in fp32 0.0162
-    ms, against 0.0203 at 64 columns on 8-warp blocks). The same bits
-    either way; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py's Dirichlet
-    and CLI phases.
+    for the walk), and up to k = 128 the row-wise route over the same
+    table (at k = 84 on the 1M K 0.5878 ms against the walk's 1.5427,
+    polish_products.py); past it, or on bf16 strips, on an operator whose
+    row tiles x column blocks give fewer than two blocks an SM (CLI run
+    B's K_blk: 35 row tiles) the walk takes 32 columns and blocks of 4
+    or 2 warps (at k = 64 in fp32 0.0162 ms, against 0.0203 at 64
+    columns on 8-warp blocks). The same bits either way; NVIDIA H100
+    80GB HBM3, 700 W, chip_smoke.py's Dirichlet and CLI phases.
 
     The band kernels start from it too (`band_grid`): on an fp32 band a
     product that fits one column block (k <= col_block) takes the staged
     route, whose blocks own every column and stage each piece's U groups
     once for all their stripes, on 8-, 4- or 2-warp blocks by the same
-    fill rule as strip-BSR's small grid."""
+    fill rule as strip-BSR's small grid, unless the band carries a
+    nonzero table, whose row-wise route takes no column block."""
     return 64 if dtype == torch.float32 and k > 32 else 32
 
 
-BAND_ROUTES = ("staged", "walk")
+BAND_ROUTES = ("staged", "walk", "rows")
+
+# Widths at which an fp32 band with a nonzero table (`RollingBanded.narrow`)
+# takes the row-wise route by default, without the Gram: on the 300k
+# rolling band it beats the staged route and the walk at k = 20, 28, 60,
+# 84 and 128 (0.0452 / 0.1458, 0.0750 / 0.1498, 0.1415 / 0.1986, 0.1812 /
+# 0.4646, 0.2692 / 0.4680 ms on the card, NVIDIA H100 80GB HBM3, 700.00
+# W, polish_products.py), as the strip-BSR route does from k = 9
+# (`bsr.strip_route`).
+BAND_ROWS_K = (9, 128)
+
+# Widest product the row-wise kernel takes (csrc/nonzero_spmm.cuh,
+# kRowsMaxK).
+ROWS_KERNEL_MAX_K = 256
 
 
 def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
               with_gram: bool = False, col_block: int | None = None,
-              warps: int | None = None,
-              route: str | None = None) -> tuple[str, int, int]:
+              warps: int | None = None, route: str | None = None,
+              rows: bool = False) -> tuple[str, int, int]:
     """(route, col_block, warps) of one launch of the band kernels
     (`csrc/banded_spmm.cu`) on a band of `n_tiles` 128-row tiles, for a
     product of width k on a card of `sms` SMs.
@@ -118,10 +134,16 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     W, chip_smoke.py's `[route]` lines). Anything else (a bf16 band, or
     k past the column block: k = 84 and 128 run two blocks of 64
     columns) takes the column-block walk, 8 stripes a block, one column
-    block each. Every choice sums each output in the same order, so W
-    has the same bits.
+    block each. Before all of these, a band that carries a nonzero table
+    (`rows`: an fp32 rolling band) takes the row-wise route over it,
+    ceil(k / 4) lanes a row, where k lies in BAND_ROWS_K and there is no
+    Gram (the polish's K X and K S on the 300k rolling band, k = 28 and
+    84), unless a `col_block` or `warps` is given (they name a grid of
+    the block routes). Every choice sums each output in the same order,
+    so W has the same bits.
     `warps` and `route` force a choice (the card tests and
     chip_smoke.py use them); one the kernels cannot take raises."""
+    blocks_given = col_block is not None or warps is not None
     if col_block is None:
         col_block = default_col_block(k, dtype)
     if col_block not in (32, 64):
@@ -129,10 +151,24 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     can_stage = dtype == torch.float32 and k <= col_block
     small = n_tiles < 2 * sms
     if route is None:
-        route = ("staged" if can_stage and not (
-            with_gram and small and col_block == 32) else "walk")
+        if (rows and dtype == torch.float32 and not with_gram
+                and not blocks_given
+                and BAND_ROWS_K[0] <= k <= BAND_ROWS_K[1]):
+            route = "rows"
+        else:
+            route = ("staged" if can_stage and not (
+                with_gram and small and col_block == 32) else "walk")
     if route not in BAND_ROUTES:
         raise ValueError(f"route must be one of {BAND_ROUTES}, got {route!r}")
+    if route == "rows":
+        if not (rows and dtype == torch.float32 and not with_gram
+                and k <= ROWS_KERNEL_MAX_K and warps is None):
+            raise ValueError(
+                "the row-wise route takes an fp32 band with its nonzero "
+                f"table, no Gram, k <= {ROWS_KERNEL_MAX_K} and no warps "
+                f"(got {dtype}, table {rows}, with_gram={with_gram}, k = "
+                f"{k}, warps {warps})")
+        return route, col_block, 8
     if route == "staged" and not can_stage:
         raise ValueError("the staged route takes an fp32 band and k <= "
                          f"col_block (got {dtype}, k = {k}, col_block "

@@ -35,14 +35,17 @@ import torch
 import torch.nn.functional as F
 
 from eigenpinns_torch.sparse.banded import band_occupancy, launch_band_kernel
+from eigenpinns_torch.sparse.nonzeros import NarrowTable, band_table
 from eigenpinns_torch.sparse.occupancy import default_col_block
 
 PRECISIONS = ("highest", "high", "bf16")
 
-# Launches of the CUDA kernel (one per wrapper call that reaches it), and
-# how many of them asked for the fused Gram.
+# Launches of the CUDA kernel (one per wrapper call that reaches it), how
+# many of them asked for the fused Gram, and how many took the row-wise
+# route over the band's nonzero table.
 rolling_kernel_launches = 0
 rolling_gram_launches = 0
+rolling_rows_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -67,6 +70,10 @@ class RollingBanded:
           of the rotated band holds a nonzero (`occupancy_mask(band)`,
           taken from the band as stored); the CUDA kernel needs it. None
           for a tile other than 128, which the kernel does not take.
+    narrow: the band's nonzeros as a sliced ELL (`nonzeros.band_table`:
+          each row in the kernel's order of summation), which the
+          row-wise route reads; built for an fp32 band with an
+          occupancy table, None otherwise
     """
 
     band: torch.Tensor
@@ -77,20 +84,26 @@ class RollingBanded:
     transpose_rolling: "RollingBanded | None" = None
     mxu_precision: str = "highest"
     occupancy: torch.Tensor | None = None
+    narrow: NarrowTable | None = None
 
     def with_precision(self, precision: str) -> "RollingBanded":
         """Same operator, another precision mode. 'bf16' stores a bf16
         copy of the band; the other modes keep (or restore) fp32. The
         occupancy table is kept: rounding to bf16 can only turn a nonzero
-        into a zero, so the source's table covers the copy's nonzeros."""
+        into a zero, so the source's table covers the copy's nonzeros.
+        The nonzero table goes with the band: kept with the same fp32
+        band, rebuilt from a converted fp32 band, None with a bf16 one."""
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         t = (None if self.transpose_rolling is None
              else self.transpose_rolling.with_precision(precision))
         dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-        return dataclasses.replace(self, band=self.band.to(dtype),
-                                   mxu_precision=precision,
-                                   transpose_rolling=t)
+        band = self.band.to(dtype)
+        narrow = self.narrow
+        if band is not self.band:
+            narrow = _narrow_of(band, self.occupancy, self.pre)
+        return dataclasses.replace(self, band=band, mxu_precision=precision,
+                                   transpose_rolling=t, narrow=narrow)
 
     @property
     def shape(self):
@@ -153,9 +166,19 @@ class RollingBanded:
                     reorder=False, max_bandwidth=max_bandwidth,
                     with_transpose=False)[0]
         precision = "bf16" if dtype == torch.bfloat16 else "highest"
-        op = cls(band, pre, B, n, tile, transpose, precision,
-                 band_occupancy(band, tile))
+        occupancy = band_occupancy(band, tile)
+        op = cls(band, pre, B, n, tile, transpose, precision, occupancy,
+                 _narrow_of(band, occupancy, pre))
         return op, perm
+
+
+def _narrow_of(band: torch.Tensor, occupancy: torch.Tensor | None,
+               pre: int) -> NarrowTable | None:
+    """The nonzero table of an fp32 band with an occupancy table, else
+    None."""
+    if band.dtype != torch.float32 or occupancy is None:
+        return None
+    return band_table(band, occupancy, pre=pre)
 
 
 # ---- plain torch version (CPU tensors, and the kernel's oracle) ---------
@@ -190,11 +213,13 @@ def rolling_spmm_cuda(A: RollingBanded, U: torch.Tensor,
                       warps: int | None = None, route: str | None = None):
     """Launch the rolling band kernel of csrc/banded_spmm.cu: W = A U, and
     G = U^T A U when `with_gram`. `col_block` (32 or 64 output columns
-    per block), `warps` and `route` default to `band_grid`'s choice and
-    give the same bits whatever they are. Raises on anything the kernel
-    does not take: a tile other than 128 (the walk needs the rotation to
-    move whole 128-column pieces), no occupancy table, CPU tensors."""
+    per block), `warps` and `route` default to `band_grid`'s choice (the
+    row-wise route over `A.narrow` where it applies) and give the same
+    bits whatever they are. Raises on anything the kernel does not take:
+    a tile other than 128 (the walk needs the rotation to move whole
+    128-column pieces), no occupancy table, CPU tensors."""
     global rolling_kernel_launches, rolling_gram_launches
+    global rolling_rows_launches
     band = A.band
     if A.tile != 128 or A.pre % 128 or A.win + 128 != band.shape[1]:
         raise ValueError("the rolling band kernel takes tile = 128, pre a "
@@ -205,10 +230,13 @@ def rolling_spmm_cuda(A: RollingBanded, U: torch.Tensor,
     if band.dtype != want:
         raise ValueError(f"'{A.mxu_precision}' needs a {want} band, got "
                          f"{band.dtype}")
-    W, G = launch_band_kernel(band, None, A.pre, A.occupancy, U, A.n,
-                              with_gram, col_block, warps, route)
+    table = A.narrow if band.dtype == torch.float32 else None
+    W, G, route = launch_band_kernel(band, None, A.pre, A.occupancy, U, A.n,
+                                     with_gram, col_block, warps, route,
+                                     table)
     rolling_kernel_launches += 1
     rolling_gram_launches += int(with_gram)
+    rolling_rows_launches += int(route == "rows")
     return (W, G) if with_gram else W
 
 

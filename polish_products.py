@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""The fp32 products of the polishes on the card, route by route.
+
+Every LOBPCG polish of the direct and rolling-band slices applies its
+fp32 operator twice an iteration: K X at k = 28 (20 modes + 8 guard
+columns) and K S at k = 84 (S = [X W P]). This script times those
+products, and the widths around them, on each route of the kernel
+against the route the kernel took before the row-wise route existed and
+against torch.sparse.mm of the same operator (`chip_smoke.route_row`:
+`device_ms`, launches queued behind a busy-wait, beside the least-bytes
+bound), and holds W to the same bits on every route:
+
+  K2  the 300k and 1M strip-BSR K (RCM, C = 8) at k = 12, 20, 28, 60,
+      84 and 128: the default route (`bsr.strip_route`), the walk on
+      `walk_grid`'s grid (the parent's route), the row-wise route
+      forced; CLI run B's fused K_blk (the smoke's step 14 build) at
+      k = 20, 28, 64, 67, 84 and 128;
+  K1  the 300k rolling band (max_bandwidth 8192) at k = 20, 28, 60, 84
+      and 128: the default route (`band_grid`), the staged route or the
+      walk it took before, the row-wise route forced;
+  K4  the fp32 Hilbert core (window 512) of the fused-Gram path at k =
+      28 and 84: its route (staged, walk) and the row-wise route over a
+      table of its band (`nonzeros.band_table`), which no path routes.
+
+With --polish it also times the guarded LOBPCG polish an iteration (k =
+28 columns, tol 0, so every iteration runs) on the 300k and 1M strip-BSR
+K and the 300k rolling band, on the routes before this route existed
+(`bsr.ROWS_MAX_K` set to the narrow path's limit, `BAND_ROWS_K` empty:
+the walk and the staged route) and on the default ones, in turns:
+before, after, after, before.
+
+Run on a machine with one NVIDIA GPU from the root of a checkout:
+
+    python3 polish_products.py [--skip-1m] [--polish]
+
+Exits non-zero without a card. The 1M host stage (cloud and native
+Laplacian) takes 1-2 minutes of it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import tempfile
+import time
+
+import torch
+
+
+POLISH_ITERS = 100
+
+
+def polish_turns(label, K, M, seed) -> None:
+    """The guarded polish's ms an iteration (k = 28, POLISH_ITERS
+    iterations, tol 0) on K before the row-wise route (the narrow path's
+    limit for strip-BSR, no band widths) and after it, in turns: before,
+    after, after, before. Prints each and the launches a turn made on
+    the row-wise route."""
+    import numpy as np
+
+    from eigenpinns_torch.solvers import lobpcg
+    from eigenpinns_torch.sparse import bsr, occupancy, rolling
+
+    X0 = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(K.n, 28)).astype(np.float32), device=M.diagonal().device)
+    limits = {"before": (bsr.NARROW_MAX_K, (1, 0)),
+              "after": (bsr.ROWS_MAX_K, occupancy.BAND_ROWS_K)}
+    lobpcg(K, M, X0, max_iter=5, tol=0.0)
+    out = []
+    try:
+        for turn in ("before", "after", "after", "before"):
+            bsr.ROWS_MAX_K, occupancy.BAND_ROWS_K = limits[turn]
+            rows0 = (bsr.bsr_kernel_launches["rows"]
+                     + rolling.rolling_rows_launches)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pol = lobpcg(K, M, X0, max_iter=POLISH_ITERS, tol=0.0)
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) / POLISH_ITERS * 1e3
+            rows = (bsr.bsr_kernel_launches["rows"]
+                    + rolling.rolling_rows_launches - rows0)
+            out.append(f"{turn} {ms:.3f} ms ({rows} row-wise launches, "
+                       f"{int(pol.iterations)} iterations)")
+    finally:
+        bsr.ROWS_MAX_K, occupancy.BAND_ROWS_K = limits["after"]
+    print(f"[polish] {label}: an iteration " + ", ".join(out), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--skip-1m", action="store_true",
+                    help="leave out the 1M strip-BSR K")
+    ap.add_argument("--polish", action="store_true",
+                    help="time the polish an iteration on both routes")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("polish_products: no CUDA device", file=sys.stderr)
+        return 1
+    import numpy as np
+    import scipy.sparse as sp
+
+    import chip_smoke as cs
+    from eigenpinns_torch.geometry import (
+        load_mesh,
+        native,
+        point_cloud_laplacian,
+    )
+    from eigenpinns_torch.sampling import build_hierarchy
+    from eigenpinns_torch.sparse import (
+        BSRTile,
+        Diagonal,
+        RollingBanded,
+        SplitBanded,
+        banded,
+        bsr,
+        rolling,
+    )
+    from eigenpinns_torch.sparse.nonzeros import band_table
+    from eigenpinns_torch.utils.fixtures import make_cloud
+
+    device = torch.device("cuda:0")
+    smi = cs.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(f"device {torch.cuda.get_device_name(0)} ({smi})", flush=True)
+    t0 = time.time()
+    for build in (bsr.build_kernel, banded.build_kernel, native.require):
+        build()
+    print(f"[build] {time.time() - t0:.2f} s", flush=True)
+
+    t0 = time.time()
+    X = make_cloud(cs.DIRECT_N)
+    L, M_sp = point_cloud_laplacian(X, n_neighbors=15, use_native=True)
+    m_diag = np.asarray(M_sp.diagonal())
+    print(f"[host] 300k Laplacian in {time.time() - t0:.2f} s, nnz {L.nnz}",
+          flush=True)
+
+    K, perm = BSRTile.from_scipy(L, device=device)
+    Lp = L[perm][:, perm].tocsr()
+    cs.k2_route_rows(bsr, "300k", K, Lp, (12, 20, 28, 60, 84, 128), seed=1,
+                     plain_ks=(28, 84))
+    if args.polish:
+        polish_turns("300k strip-BSR K", K, Diagonal(torch.as_tensor(
+            m_diag[perm], dtype=torch.float32, device=device)), seed=6)
+    del K
+    torch.cuda.empty_cache()
+
+    Kr, perm_r = RollingBanded.from_scipy(L, max_bandwidth=8192,
+                                          device=device)
+    cs.describe_band("K_300k", Kr)
+    Lr = L[perm_r][:, perm_r].tocsr()
+    cs.band_route_rows(
+        "K1 300k rolling band",
+        lambda U, **grid: rolling.rolling_spmm_cuda(Kr, U, **grid),
+        Kr.band, None, Kr.pre, Kr.occupancy, Kr.narrow, Kr.n,
+        cs.torch_csr(Lr, device), Lr.nnz, (20, 28, 60, 84, 128), seed=2)
+    if args.polish:
+        polish_turns("300k rolling band", Kr, Diagonal(torch.as_tensor(
+            m_diag[perm_r], dtype=torch.float32, device=device)), seed=7)
+    del Kr
+    torch.cuda.empty_cache()
+
+    K_h, _ = SplitBanded.from_scipy(L, X=X, window=cs.HILBERT_WINDOW,
+                                    order="hilbert", device=device)
+    core = K_h.core
+    csr = cs.band_csr(core)
+    cs.band_route_rows(
+        "K4 Hilbert core fp32",
+        lambda U, **grid: banded.banded_spmm_cuda(core, U, **grid),
+        core.band, core.starts, 0, core.occupancy,
+        band_table(core.band, core.occupancy, core.starts), core.n, csr,
+        int(csr.values().numel()), (28, 84), seed=3)
+    del K_h, core, csr
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as work:
+        mesh = load_mesh(cs.cli_inputs(work)["obj"], normalize=True)
+        h_b = build_hierarchy(mesh, [256, 512, 1024],
+                              n_modes=cs.CLI_RUNS_K["B"],
+                              operator_format="auto", device="cpu")
+    K_sp = sp.block_diag([A.tocsr() for A in h_b.K_scipy], format="csr")
+    K_blk = BSRTile.from_scipy(K_sp, device=device, reorder=False)[0]
+    cs.k2_route_rows(bsr, "CLI K_blk", K_blk, K_sp,
+                     (20, 28, 64, 67, 84, 128), seed=4, plain_ks=(64, 67))
+    del K_blk
+
+    if not args.skip_1m:
+        t0 = time.time()
+        X = make_cloud(cs.XL_N)
+        L, M_sp = point_cloud_laplacian(X, n_neighbors=15, use_native=True)
+        print(f"[host] 1M Laplacian in {time.time() - t0:.2f} s, nnz "
+              f"{L.nnz}", flush=True)
+        K, perm = BSRTile.from_scipy(L, device=device)
+        cs.k2_route_rows(bsr, "1M", K, L[perm][:, perm].tocsr(),
+                         (20, 28, 60, 84, 128), seed=5, plain_ks=(84,))
+        if args.polish:
+            polish_turns("1M strip-BSR K", K, Diagonal(torch.as_tensor(
+                np.asarray(M_sp.diagonal())[perm], dtype=torch.float32,
+                device=device)), seed=8)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -255,13 +255,14 @@ def test_bsr_hbm_bytes_follow_the_dispatched_kernel(ops):
     """Both kernels read the occupied 16 x 16 sub-blocks (with 16 U rows
     each), every slot's occupancy word and column entry, the row tiles'
     chunk ranges, and write W; the grouped kernel reads its group tables
-    on top. At k = 1 on fp32 strips both take the narrow path: every
-    entry of the narrow table (value and U row, padding included), its
-    slice starts, each nonzero's U row, and W; bf16 strips keep the
-    walk."""
+    on top (the walk: fp32 strips past ROWS_MAX_K, bf16 strips). On fp32
+    strips up to ROWS_MAX_K both take a route over the narrow table (the
+    narrow path at k = 1, the row-wise route at k = 20): every entry of
+    the narrow table (value and U row, padding included), its slice
+    starts, each nonzero's U row, and W."""
     _, _, _, top, _ = ops["banded900_G8"]
     _, _, _, top0, _ = ops["group0"]
-    k = 20
+    k = tsparse.bsr.ROWS_MAX_K + 1
     for op in (top, top0):
         occupied = _occupied_sub_blocks(op.data)
         assert 0 < occupied < 64 * op.n_slots
@@ -279,8 +280,10 @@ def test_bsr_hbm_bytes_follow_the_dispatched_kernel(ops):
     for op in (top, top0):
         t = op.narrow
         nnz = int(torch.count_nonzero(op.data))
-        assert tsparse.bsr_spmm_hbm_bytes(op, 1) == (
-            t.val.numel() * 8 + (t.n_slices + 1) * 8 + nnz * 4 + op.n * 4)
+        for width in (1, 20):
+            assert tsparse.bsr_spmm_hbm_bytes(op, width) == (
+                t.val.numel() * 8 + (t.n_slices + 1) * 8 + nnz * width * 4
+                + op.n * width * 4)
     assert tsparse.bsr_spmm_hbm_bytes(bf16, 1) == (
         tsparse.bsr_spmm_hbm_bytes(bf16, k)
         - _occupied_sub_blocks(top.data) * 16 * (k - 1) * 4

@@ -190,16 +190,18 @@ def test_narrow_table_follows_with_precision(ops):
 
 
 def test_narrow_path_raises_without_its_table(ops):
-    """No fallback: the narrow path (fp32 strips, k <= NARROW_MAX_K,
-    col_block None) refuses an operator without the table; the walk
-    (an explicit col_block, a wider k, bf16 strips) does not need it."""
+    """No fallback: the narrow path and the row-wise route (fp32 strips,
+    k <= ROWS_MAX_K, col_block None) refuse an operator without the
+    table; the walk (an explicit col_block, a wider k, bf16 strips) does
+    not need it."""
     _, _, top = ops["cloud642"]
     bare = dataclasses.replace(top, narrow=None)
     for launch in (tbsr.bsr_spmm_grouped_cuda, tbsr.bsr_spmm_burst_cuda):
-        for k in (1, tbsr.NARROW_MAX_K):
+        for k in (1, tbsr.NARROW_MAX_K, tbsr.NARROW_MAX_K + 1, 84,
+                  tbsr.ROWS_MAX_K):
             with pytest.raises(ValueError, match="narrow table"):
                 launch(bare, torch.zeros(top.n, k))
-        for op, k, cb in ((bare, 1, 32), (bare, tbsr.NARROW_MAX_K + 1, None),
+        for op, k, cb in ((bare, 1, 32), (bare, tbsr.ROWS_MAX_K + 1, None),
                           (top.with_precision("bf16"), 1, None)):
             with pytest.raises(ValueError, match="CUDA"):
                 launch(op, torch.zeros(top.n, k), col_block=cb)

@@ -140,10 +140,11 @@ def test_bsr_cuda_kernels_match_plain(precision, k):
     Wg = tbsr.bsr_spmm_grouped_cuda(op, U)
     Wb = tbsr.bsr_spmm_burst_cuda(burst, U)
     torch.cuda.synchronize()
-    narrow = k <= tbsr.NARROW_MAX_K and precision != "bf16"
+    route = tbsr.strip_route(op.data.dtype, k)
     assert tbsr.bsr_kernel_launches == {
         "grouped": before["grouped"] + 1, "burst": before["burst"] + 1,
-        "narrow": before["narrow"] + 2 * narrow}
+        "narrow": before["narrow"] + 2 * (route == "narrow"),
+        "rows": before["rows"] + 2 * (route == "rows")}
     assert _rel(Wg.cpu(), Wp.cpu()) < tol
     assert _rel(Wb.cpu(), Wp.cpu()) < tol
     # One summation order whatever the kernel and its column block.
@@ -299,6 +300,8 @@ def test_bsr_cuda_kernels_past_2_31_elements(wide_bsr, precision):
     Wp = tbsr.bsr_spmm_plain(op, U)
     torch.cuda.synchronize()
     assert torch.equal(Wg, Wb)
+    # The walk (fp32 strips take the row-wise route by default).
+    assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U, col_block=32), Wg)
     assert _rel(Wg.cpu(), Wp.cpu()) < tol
     if precision == "highest":
         assert _rel(Wg.cpu(), A @ U_np.astype(np.float32)) < tol
@@ -551,3 +554,163 @@ def test_band_staged_route_walks_many_tiles_a_block(k):
                                          with_transpose=False)
     U = torch.from_numpy(r.normal(size=(n, k)).astype(np.float32)).cuda()
     _check_routes(tbanded.banded_spmm_cuda, op, U)
+
+
+# ---- the row-wise route over the nonzero table --------------------------
+
+ROWS_KS = [12, 20, 28, 30, 60, 84, 85, 128]
+
+
+def _rect_bsr():
+    """A rectangular 700 x 450 strip-BSR operator: its last column tile
+    reaches past n_cols (U rows 450..511 do not exist)."""
+    A = sp.random(700, 450, density=0.02, random_state=4, format="csr")
+    return tbsr.BSRTile.from_scipy(A, device="cuda", reorder=False,
+                                   with_transpose=False)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", ROWS_KS)
+@pytest.mark.parametrize("case", ["cloud", "asym800", "rect700x450"])
+def test_bsr_cuda_rows_route_matches_the_walk(case, k):
+    """The row-wise route (fp32 strips, 8 < k <= ROWS_MAX_K by default;
+    forced past it): both wrappers give the walk's W bit for bit (both
+    column blocks), a second launch the same bits, W within rel 1e-5 of
+    the plain version, and each launch on the route is counted under
+    "rows"; on a nonsymmetric operator and its stored transpose, and on a
+    rectangular one whose last column tile reaches past n_cols. Odd k
+    (30, 85) reads U by scalar loads."""
+    _need_card()
+    if case == "cloud":
+        ops = [_cloud_bsr(6000)]
+    elif case == "asym800":
+        op = tbsr.BSRTile.from_scipy(_asym800(), device="cuda")[0]
+        ops = [op, op.transpose_bsr]
+    else:
+        ops = [_rect_bsr()]
+    for op in ops:
+        burst = dataclasses.replace(op, gcid=None, lcid=None, gid=None)
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n_cols, k)).astype(np.float32)).cuda()
+        before = tbsr.bsr_kernel_launches["rows"]
+        W = tbsr.bsr_spmm_grouped_cuda(op, U, route="rows")
+        Wb = tbsr.bsr_spmm_burst_cuda(burst, U, route="rows")
+        torch.cuda.synchronize()
+        assert tbsr.bsr_kernel_launches["rows"] == before + 2
+        assert W.shape == (op.n, k)
+        assert _rel(W.cpu(), tbsr.bsr_spmm_plain(op, U).cpu()) < 1e-5
+        assert torch.equal(Wb, W)
+        assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U, route="rows"),
+                           W)
+        for cb in (32, 64):
+            assert torch.equal(
+                tbsr.bsr_spmm_grouped_cuda(op, U, col_block=cb), W)
+            assert torch.equal(
+                tbsr.bsr_spmm_burst_cuda(burst, U, col_block=cb), W)
+        before = tbsr.bsr_kernel_launches["rows"]
+        assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U), W)
+        assert tbsr.bsr_kernel_launches["rows"] == before + int(
+            k <= tbsr.ROWS_MAX_K)
+
+
+@pytest.mark.cuda
+def test_bsr_cuda_rows_route_raises_where_it_cannot_run():
+    """No fallback: the row-wise route refuses bf16 strips and an fp32
+    operator without its narrow table."""
+    _need_card()
+    op = tbsr.BSRTile.from_scipy(_asym800(), device="cuda")[0]
+    U = torch.zeros((op.n, 28), device="cuda")
+    with pytest.raises(ValueError, match="narrow table"):
+        tbsr.bsr_spmm_grouped_cuda(dataclasses.replace(op, narrow=None), U)
+    with pytest.raises(ValueError, match="fp32"):
+        tbsr.bsr_spmm_grouped_cuda(op.with_precision("bf16"), U,
+                                   route="rows")
+
+
+def _band_cases():
+    """(launch, op, table) for the band layouts: the rolling cloud band
+    ('high', windows above row 0) and the adversarial rolling operator
+    (windows before row 0 and past n, a word with only bit 63 set) with
+    their own tables; a split core whose clamped windows reach past n, a
+    nonsymmetric band and its transpose, and a shard's rectangular block
+    and its transpose (U rows past U's end read as zero), each with a
+    table from `band_table`, which no path of theirs routes."""
+    from eigenpinns_torch.parallel import build_sharded_operator
+    from eigenpinns_torch.sparse.nonzeros import band_table
+    from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
+
+    out = []
+    for op in (_rolling_cloud_op().with_precision("high"),
+               tsparse.RollingBanded.from_scipy(
+                   adversarial_rolling_matrix(), reorder=False,
+                   device="cuda")[0]):
+        out.append(("rolling", op, op.narrow))
+    X = np.random.default_rng(5).normal(size=(6000, 3))
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    L, _ = point_cloud_laplacian(X, n_neighbors=15)
+    _, (core, _), _ = build_sharded_operator(
+        L, 4, X=X, dtype=torch.float32, max_bandwidth=512, window=512,
+        shards=(1,), device="cpu")
+    block = core.block(1, "cuda")
+    asym = _banded_op("asym800", torch.float32)
+    for op in (_banded_op("cloud", torch.float32), asym,
+               asym.transpose_banded, block, block.transpose_banded):
+        out.append(("full", op, band_table(op.band, op.occupancy,
+                                           op.starts)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", ROWS_KS)
+def test_band_rows_route_matches_the_walk(k):
+    """The row-wise route over a band's nonzero table gives the walk's W
+    bit for bit on both band layouts (the rolling band's default route
+    in BAND_ROWS_K, counted in rolling_rows_launches; forced elsewhere),
+    the same bits from a second launch, and W within rel 1e-5 of the
+    plain version."""
+    from eigenpinns_torch.sparse.occupancy import BAND_ROWS_K
+
+    _need_card()
+    for layout, op, table in _band_cases():
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n_cols if layout == "full" else op.n, k)).astype(
+                np.float32)).cuda()
+        starts = op.starts if layout == "full" else None
+        pre = 0 if layout == "full" else op.pre
+        W, G, route = tbanded.launch_band_kernel(
+            op.band, starts, pre, op.occupancy, U, op.n, False, None,
+            route="rows", table=table)
+        assert route == "rows" and G is None and W.shape == (op.n, k)
+        W2 = tbanded.launch_band_kernel(
+            op.band, starts, pre, op.occupancy, U, op.n, False, None,
+            route="rows", table=table)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(W2, W)
+        if layout == "rolling":
+            Ww = tsparse.rolling_spmm_cuda(op, U, route="walk")
+            plain = tsparse.rolling_spmm_plain(op, U)
+            before = trolling.rolling_rows_launches
+            Wd = tsparse.rolling_spmm_cuda(op, U)
+            assert trolling.rolling_rows_launches == before + int(
+                BAND_ROWS_K[0] <= k <= BAND_ROWS_K[1])
+            assert torch.equal(Wd, W)
+        else:
+            Ww = tbanded.banded_spmm_cuda(op, U, route="walk")
+            plain = tbanded.banded_spmm_plain(op, U)
+        torch.cuda.synchronize()
+        assert torch.equal(W, Ww), (layout, op.band.shape)
+        assert _rel(W.cpu(), plain.cpu()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_band_rows_route_raises_where_it_cannot_run():
+    """No fallback: the row-wise route refuses a bf16 band, the Gram, and
+    a band without its table."""
+    _need_card()
+    op = _rolling_cloud_op()
+    U = torch.zeros((op.n, 84), device="cuda")
+    for bad, kw in ((op.with_precision("bf16"), {}),
+                    (op, {"with_gram": True}),
+                    (dataclasses.replace(op, narrow=None), {})):
+        with pytest.raises(ValueError, match="row-wise"):
+            tsparse.rolling_spmm_cuda(bad, U, route="rows", **kw)

@@ -1,0 +1,283 @@
+"""The nonzero table of a band (`sparse/nonzeros.py`) and the routes that
+read it, against the JAX package's layouts.
+
+The row-wise route (csrc/nonzero_spmm.cuh) reads a tiled operator's
+nonzeros as a sliced ELL, each row in the order in which the column-block
+walk sums it, so that it gives the walk's bits. Strip-BSR's table is held
+in tests/test_torch_bsr_narrow.py; here, on the CPU, the band's:
+
+  * `band_table` lists every nonzero of the band once, bit for bit, with
+    its U row, in band-column order (the walk's: pieces, sub-block column,
+    column), derived independently from the JAX package's band and the
+    permuted matrix's triplets, for the rolling layout (windows above row
+    0 and past n, the stored transpose) and the full-window layout;
+    padding is a zero value with index -1 after each row's entries;
+  * its plain reader (`table_spmm_plain`) equals `rolling_spmm_plain` and
+    the JAX package's rolling reference, `banded_spmm_plain` and the JAX
+    banded reference, at rel 1e-6 (fp32, sums in another order);
+  * `RollingBanded.with_precision` keeps, rebuilds or drops the table;
+  * `strip_route` and `band_grid` take the row-wise route where they
+    should and raise where the kernels cannot take it (bf16, the Gram,
+    no table, past the kernel's widest k).
+
+The kernel itself runs only on a card (tests/test_torch_cuda.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from eigenpinns_tpu import sparse as jsparse
+from eigenpinns_torch import sparse as tsparse
+from eigenpinns_torch.geometry import point_cloud_laplacian
+from eigenpinns_torch.sparse import banded as tbanded
+from eigenpinns_torch.sparse import bsr as tbsr
+from eigenpinns_torch.sparse.nonzeros import band_table, table_spmm_plain
+from eigenpinns_torch.sparse.occupancy import BAND_ROWS_K, band_grid
+from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
+
+torch.set_num_threads(2)
+
+
+def _cloud():
+    X = np.random.default_rng(20240818).normal(size=(900, 3))
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    return point_cloud_laplacian(X, n_neighbors=12)[0].tocsr()
+
+
+def _asym800():
+    r = np.random.default_rng(9)
+    n = 800
+    rows = r.integers(0, n, 4 * n)
+    cols = np.clip(rows + r.integers(-90, 90, 4 * n), 0, n - 1)
+    A = sp.coo_matrix((r.normal(size=4 * n), (rows, cols)),
+                      shape=(n, n)).tocsr()
+    return (A + sp.diags(np.full(n, 4.0))).tocsr()
+
+
+# (layout, matrix, reorder)
+CASES = {
+    "rolling-cloud": ("rolling", _cloud, True),
+    "rolling-asym": ("rolling", _asym800, False),
+    "rolling-adversarial": ("rolling", adversarial_rolling_matrix, False),
+    "full-cloud": ("full", _cloud, True),
+    "full-asym": ("full", _asym800, False),
+}
+
+
+@pytest.fixture(scope="module")
+def ops():
+    out = {}
+    for name, (layout, make, reorder) in CASES.items():
+        A = make()
+        if layout == "rolling":
+            top, perm = tsparse.RollingBanded.from_scipy(
+                A, reorder=reorder, device="cpu")
+            jop, jperm = jsparse.RollingBanded.from_scipy(A, reorder=reorder)
+        else:
+            top, perm = tbanded.BandedELL.from_scipy(A, reorder=reorder,
+                                                     device="cpu")
+            jop, jperm = jsparse.BandedELL.from_scipy(A, reorder=reorder)
+        np.testing.assert_array_equal(perm, jperm)
+        out[name] = (layout, A[perm][:, perm].tocsr(), top, jop)
+    return out
+
+
+def _pairs(layout, top, jop, Ap):
+    """[(torch op, its table, JAX op, its matrix)]: the operator and, for
+    a nonsymmetric one, its stored transpose."""
+    out = []
+    if layout == "rolling":
+        out.append((top, top.narrow, jop, Ap))
+        if top.transpose_rolling is not None:
+            out.append((top.transpose_rolling, top.transpose_rolling.narrow,
+                        jop.transpose_rolling, Ap.T.tocsr()))
+    else:
+        out.append((top, band_table(top.band, top.occupancy, top.starts),
+                    jop, Ap))
+        if top.transpose_banded is not None:
+            t = top.transpose_banded
+            out.append((t, band_table(t.band, t.occupancy, t.starts),
+                        jop.transpose_banded, Ap.T.tocsr()))
+    return out
+
+
+def _rows_of(t):
+    """Each table entry's row, and its rank within the row."""
+    width = np.diff(t.slice_start.numpy()) // 32
+    e = np.arange(t.val.numel())
+    slice_of = np.repeat(np.arange(t.n_slices), width * 32)
+    offset = e - t.slice_start.numpy()[slice_of]
+    return slice_of * 32 + offset % 32, offset // 32
+
+
+def _walk_lists(layout, jop, A):
+    """Per row, (values, U rows) in the walk's order, from the JAX band
+    and the triplets of the matrix it stores: each nonzero (r, c) sits at
+    band column (c + pre) mod B' (rolling) or c - starts[r // 128] (full
+    window), and a row is summed in band-column order."""
+    band = np.asarray(jop.band, np.float32)
+    coo = sp.coo_matrix(A)
+    if layout == "rolling":
+        b = (coo.col + jop.pre) % band.shape[1]
+    else:
+        b = coo.col - np.asarray(jop.starts)[coo.row // 128]
+    order = np.lexsort((b, coo.row))
+    r, c, b = coo.row[order], coo.col[order], b[order]
+    out = {}
+    for row in np.unique(r):
+        sel = r == row
+        out[row] = (band[row, b[sel]], c[sel])
+    return out
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_band_table_lists_every_nonzero_in_walk_order(ops, name):
+    layout, Ap, top, jop = ops[name]
+    for op, t, j_op, A in _pairs(layout, top, jop, Ap):
+        assert t is not None
+        val, idx = t.val.numpy(), t.idx.numpy()
+        assert t.n_slices * 32 == op.band.shape[0] and t.slice_start[0] == 0
+        assert np.all(np.diff(t.slice_start.numpy()) % 32 == 0)
+        row, rank = _rows_of(t)
+        live = idx >= 0
+        assert np.all(val[~live] == 0)
+        # The live entries of each row come first, then its padding.
+        counts = np.bincount(row[live], minlength=t.n_slices * 32)
+        assert np.array_equal(live, rank < counts[row])
+        # Every nonzero once, in the walk's order, bit for bit.
+        walk = _walk_lists(layout, j_op, A)
+        assert int(live.sum()) == A.nnz == sum(v.size for v, _ in
+                                               walk.values())
+        order = np.lexsort((rank, row))
+        order = order[live[order]]
+        starts = np.concatenate(([0], np.cumsum(counts)))
+        for r, (v, u) in walk.items():
+            sel = order[starts[r]:starts[r + 1]]
+            assert np.array_equal(val[sel].view(np.int32),
+                                  v.view(np.int32)), r
+            assert np.array_equal(idx[sel], u), r
+
+
+@pytest.mark.parametrize("k", [3, 28])
+@pytest.mark.parametrize("name", list(CASES))
+def test_band_table_plain_reader_matches_plain_and_jax(ops, name, k):
+    layout, Ap, top, jop = ops[name]
+    U = np.random.default_rng(k).normal(size=(top.n, k)).astype(np.float32)
+    Ut, Uj = torch.from_numpy(U), jnp.asarray(U)
+    for op, t, j_op, _ in _pairs(layout, top, jop, Ap):
+        W = table_spmm_plain(t, Ut, op.n).numpy()
+        if layout == "rolling":
+            Wp = tsparse.rolling_spmm_plain(op, Ut).numpy()
+            ref = jsparse.rolling.rolling_spmm_reference(j_op, Uj)
+        else:
+            Wp = tbanded.banded_spmm_plain(op, Ut).numpy()
+            ref = jsparse.banded.banded_spmm_reference(j_op, Uj)
+        for other in (Wp, np.asarray(ref)):
+            assert np.abs(W - other).max() <= 1e-6 * np.abs(other).max()
+
+
+def test_rolling_table_follows_with_precision(ops):
+    """A bf16 band carries no table; the upcast back to fp32 rebuilds it
+    from the rounded band (transpose too); the same fp32 band keeps
+    its own."""
+    _, _, top, _ = ops["rolling-asym"]
+    b = top.with_precision("bf16")
+    assert b.narrow is None and b.transpose_rolling.narrow is None
+    h = b.with_precision("highest")
+    for o in (h, h.transpose_rolling):
+        fresh = band_table(o.band, o.occupancy, pre=o.pre)
+        assert torch.equal(o.narrow.val, fresh.val)
+        assert torch.equal(o.narrow.idx, fresh.idx)
+        assert torch.equal(o.narrow.slice_start, fresh.slice_start)
+    live = h.narrow.idx >= 0
+    assert torch.equal(h.narrow.val[live],
+                       top.narrow.val[live].bfloat16().float())
+    assert top.with_precision("high").narrow is top.narrow
+    assert top.with_precision("highest").transpose_rolling.narrow is (
+        top.transpose_rolling.narrow)
+    bf = tsparse.RollingBanded.from_scipy(_asym800(), reorder=False,
+                                          dtype=torch.bfloat16,
+                                          device="cpu")[0]
+    assert bf.narrow is None
+
+
+@pytest.mark.parametrize("dtype, k, col_block, want", [
+    (torch.float32, 1, None, "narrow"),
+    (torch.float32, 8, None, "narrow"),
+    (torch.float32, 9, None, "rows"),
+    (torch.float32, 28, None, "rows"),
+    (torch.float32, 84, None, "rows"),
+    (torch.float32, tbsr.ROWS_MAX_K, None, "rows"),
+    (torch.float32, tbsr.ROWS_MAX_K + 1, None, "walk"),
+    (torch.float32, 28, 32, "walk"),
+    (torch.float32, 84, 64, "walk"),
+    (torch.bfloat16, 28, None, "walk"),
+    (torch.bfloat16, 1, None, "walk")])
+def test_strip_route_takes_the_table_on_fp32_strips(dtype, k, col_block,
+                                                    want):
+    """fp32 strips with col_block None read the narrow table: one lane a
+    row up to NARROW_MAX_K, the row-wise route up to ROWS_MAX_K; an
+    explicit col_block or bf16 strips take the walk."""
+    assert tbsr.strip_route(dtype, k, col_block) == want
+
+
+def test_strip_route_refuses_what_the_kernels_cannot_take():
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert tbsr.strip_route(f32, 200, route="rows") == "rows"
+    assert tbsr.strip_route(bf16, 28, route="walk") == "walk"
+    for dtype, k, cb, route in ((bf16, 28, None, "rows"),
+                                (bf16, 4, None, "narrow"),
+                                (f32, 28, 32, "rows"),
+                                (f32, 9, None, "narrow"),
+                                (f32, 257, None, "rows"),
+                                (f32, 28, None, "staged")):
+        with pytest.raises(ValueError):
+            tbsr.strip_route(dtype, k, cb, route)
+
+
+@pytest.mark.parametrize("n_tiles, k, dtype, gram, rows, want", [
+    (2344, 84, torch.float32, False, True, ("rows", 64, 8)),   # K S
+    (2344, BAND_ROWS_K[1], torch.float32, False, True, ("rows", 64, 8)),
+    (2344, BAND_ROWS_K[1] + 1, torch.float32, False, True,
+     ("walk", 64, 8)),
+    (2344, 28, torch.float32, False, True, ("rows", 32, 8)),    # K X
+    (2344, 20, torch.float32, False, True, ("rows", 32, 8)),
+    (34, 10, torch.float32, False, True, ("rows", 32, 8)),      # K_blk
+    (34, BAND_ROWS_K[0] - 1, torch.float32, False, True,
+     ("staged", 32, 2)),
+    (2344, 84, torch.float32, True, True, ("walk", 64, 8)),
+    (2344, 28, torch.float32, True, True, ("staged", 32, 8)),
+    (2344, 84, torch.float32, False, False, ("walk", 64, 8)),
+    (2344, 28, torch.float32, False, False, ("staged", 32, 8)),
+    (2344, 84, torch.bfloat16, False, True, ("walk", 32, 8))])
+def test_band_grid_takes_the_rows_route(n_tiles, k, dtype, gram, rows,
+                                        want):
+    """An fp32 band with a nonzero table takes the row-wise route in
+    BAND_ROWS_K without the Gram; everything else is routed as before."""
+    assert band_grid(n_tiles, k, dtype, 132, gram, rows=rows) == want
+
+
+def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
+    """A forced row-wise route needs an fp32 band with its table, no Gram,
+    no warps and k <= ROWS_KERNEL_MAX_K; a given col_block or warps names
+    a grid of the block routes, which the default then keeps."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert band_grid(2344, 28, f32, 132, col_block=32,
+                     rows=True) == ("staged", 32, 8)
+    assert band_grid(2344, 84, f32, 132, col_block=64,
+                     rows=True) == ("walk", 64, 8)
+    assert band_grid(34, 10, f32, 132, warps=4,
+                     rows=True) == ("staged", 32, 4)
+    assert band_grid(2344, 28, f32, 132, route="rows",
+                     rows=True) == ("rows", 32, 8)
+    for kw in (dict(dtype=bf16, rows=True), dict(dtype=f32, rows=False),
+               dict(dtype=f32, rows=True, with_gram=True),
+               dict(dtype=f32, rows=True, warps=2),
+               dict(dtype=f32, rows=True, k=257)):
+        kw = {"k": 84, **kw}
+        with pytest.raises(ValueError, match="row-wise"):
+            band_grid(2344, kw.pop("k"), kw.pop("dtype"), 132,
+                      route="rows", **kw)
