@@ -71,7 +71,12 @@ present or the package is not beside it. On the card it:
      its default route (the row-wise route over `BSRTile.narrow`), the
      walk it took before (`walk_grid`'s grid), the row-wise route forced
      and torch.sparse.mm, each on the card with the bound, W the same
-     bits on every route, the plain version at k = 28 and 84; prints the
+     bits on every route, the plain version at k = 28 and 84; `[rows]`
+     lines for K2 and K3 'bf16' at k = 20 (the training loss's width): the
+     row-wise route over the bf16 table (`strip_route`, BF16_ROWS_K)
+     against the tensor-core walk it replaced and torch.sparse.mm, within
+     BSR_TOL['bf16'] of the plain version and the same bits from two
+     launches, with the bound of 2-byte values; prints the
      occupied share of the tiles' 16 x 16 sub-blocks; times both
      kernels (both column blocks at k = 60 and 128), torch.sparse.mm,
      and `bsr_spmm_gram` at k = 128 in 'highest' and 'bf16' with the
@@ -93,10 +98,13 @@ present or the package is not beside it. On the card it:
      core's occupied share of 16 x 16 sub-blocks, times them (K4 with
      both column blocks), their plain
      version and torch.sparse.mm of the core (+ U^T W for K5), and K2
-     at k = 20 and 60 beside them; then K4 on the fp32 Hilbert core at
-     the fused-Gram polish's widths, k = 28 (staged) and 84 (the walk),
-     beside the row-wise route over a table of its band
-     (`nonzeros.band_table`; no path routes it) and torch.sparse.mm;
+     at k = 20 and 60 beside them; then `[rows]` lines for K4 on its
+     default route (the row-wise route over the core's table,
+     `BandedELL.narrow`, where `band_grid` sends it) against the route it
+     replaced and torch.sparse.mm, with the plain version: the fp32
+     Hilbert core at the fused-Gram polish's widths, k = 28 (the staged
+     route before) and 84 (the walk), the bf16 Hilbert core at k = 20
+     (the walk), the cluster core at k = 20 and 60 (the staged route);
   6b. runs the solver family at the widths of the JAX package's examples
      and notebooks, on the stand-ins, while the 300k oracle works:
      `solve_deflation` and `solve_deflation_adaptive` on the bunny
@@ -145,7 +153,9 @@ present or the package is not beside it. On the card it:
      loss operator, 300 epochs in chunks of 50), then the k + 8 guarded
      LOBPCG polish (800 iterations, tol 1e-6) on the 'highest' operator,
      counting K2's launches from zero (every launch of the polish on the
-     row-wise route, none of the bf16 training's); it checks the polished
+     row-wise route, and the bf16 training's on the bf16 row-wise route
+     but for its last product, on the fp32 K); it prints the training's
+     steps/s beside those of the walk's routes and checks the polished
      eigenvalues against the oracle's first 20 (max rel err of modes
      1..19 <= 1e-3);
      then the same training on K3 (no group tables), counting K3's
@@ -174,14 +184,17 @@ present or the package is not beside it. On the card it:
      vectors come back in the original point order (their Rayleigh
      quotients on L match the eigenvalues);
   9. runs the fused-Gram path: `train_joint` with the direct slice's
-     configuration on the Hilbert SplitBanded K (bf16 core), then the
-     guarded polish on its fp32 twin, counting K5's and K4's launches
+     configuration on the Hilbert SplitBanded K (bf16 core; K4's products
+     on the bf16 row-wise route), then the guarded polish on its fp32
+     twin (K4 on the fp32 row-wise route; its wall printed beside the
+     routes' it replaced), counting K5's and K4's launches
      from zero; the polished modes 1..19 must be within 1e-3 of the
      oracle;
  10. holds K3 against the plain version on each member's padded
      operator of the family of three 20k-point clouds (zero pad rows and
      pad chunks, no group tables) at the widths its solve gives it (W rel
-     1e-5, the gradient through `bsr_spmm` rel 1e-4), then runs
+     1e-5, the gradient through `bsr_spmm` rel 1e-4; `[rows]` lines on
+     the first member at those widths), then runs
      `spectral_basis_family` on them (k = 16, 4096-point coarse warm
      start), counting K3's launches from zero, and checks each member
      against its own eigsh (<= 1e-3);
@@ -191,7 +204,7 @@ present or the package is not beside it. On the card it:
      device memory printed), K2 against its plain version on it at k = 20
      and 28 in 'highest' and 'bf16' with torch.sparse.mm and the bound,
      `k2_route_rows` at k = 20, 28, 60, 84 and 128 (the plain version at
-     84),
+     84) and in 'bf16' at k = 20 for K2 and K3,
      `train_joint` at 150 epochs in chunks of 50 and the 800-iteration
      k + 8 guarded polish on the 'highest' K, counting K2's launches from
      zero; the polished modes 1..19 must be within 1.71e-3 of the 1M
@@ -200,7 +213,9 @@ present or the package is not beside it. On the card it:
      share, top kernels) and for 20 under CUDA's sync debug mode, which
      counts the host syncs by line;
  12. runs the 1M spectral basis: K4 and K5 against their plain version on
-     the 1M cluster core (window 1024) at k = 20 and 60, then
+     the 1M cluster core (window 1024) at k = 20 and 60 (its nonzero
+     table's size and build time printed; `[rows]` lines for K4's
+     row-wise route against the staged route), then
      `spectral_basis` with step 8's configuration on the same cloud and
      L, counting K4's launches from zero; modes 1..49 within 1e-3 of the
      oracle (the JAX package's 1M figure, 3.1e-4, is printed beside),
@@ -219,8 +234,14 @@ present or the package is not beside it. On the card it:
      the row-wise route as kernels of their own (`bsr_spmm_rows`, its
      1M k = 84 row and 300k row, its launches in the 300k and 1M
      polishes; `rolling_spmm_rows`, the 300k band's k = 84 row and its
-     launches in the rolling polish), K2, K1 and K4 with their
-     `[rows]` rows at the polish's widths;
+     launches in the rolling polish; `bsr_spmm_rows_bf16`, the bf16
+     route's 1M and 300k k = 20 rows for K2 and K3 and its launches in
+     the direct trainings; `banded_spmm_rows`, K4's fp32 row-wise route
+     on the Hilbert core at k = 84 and 28 and the cluster cores, its
+     launches in the fused-Gram polish and the spectral bases;
+     `banded_spmm_rows_bf16`, the bf16 Hilbert core's k = 20 row and its
+     launches in the fused-Gram training), K2, K1 and K4 with their
+     `[rows]` rows at the polish's widths, K3 with its family rows;
      every row timed by launch and on the card (`device_ms`), the
      library too; and the bound:
      the larger of the bytes the product must move -- each nonzero's
@@ -576,6 +597,11 @@ SHARD_16C_CFG = dict(SHARD_CFG, mlp_compute_dtype=None)
 SHARD_MG_LOSS_REL, SHARD_MG_LAM_REL = 1e-2, 2e-2
 # Eigenvalues of the single-device phases, by label, for step 16.
 PHASE_EIGS = {}
+# The direct trainings' per-chunk median steps/s and the fused-Gram
+# polish's wall from a run of this script on the routes that K4's and the
+# bf16 row-wise routes replaced (NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's.
+BEFORE_ROW_ROUTES = {"direct": 265.33, "xl": 95.37, "gram_polish_s": 10.803}
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -859,6 +885,18 @@ def bound(n_bytes: float, flops: dict) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def full_rows(core, k: int) -> bool:
+    """Whether the full-window band `core` (a BandedELL) takes the
+    row-wise route over its nonzero table for a product of width k
+    without the Gram (`band_grid`)."""
+    from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
+
+    band = core.band
+    return band_grid(band.shape[0] // 128, k, band.dtype,
+                     sm_count(band.device), rows=core.narrow is not None,
+                     window=band.shape[1])[0] == "rows"
+
+
 def least_bytes(nnz: int, value_bytes: int, n: int, k: int,
                 gram: bool = False, n_cols: int | None = None) -> int:
     """Least bytes of W = A U (n x n_cols A, n_cols = n by default, with
@@ -1011,25 +1049,27 @@ def describe_band(name: str, op) -> None:
 
 
 def band_routes(name, launch, band, occupancy, U, W, on_card=False,
-                gram_W=None, table=None):
+                gram_W=None, table=None, window=None):
     """The band kernels' route and grid for a product of width k on this
     band (`band_grid`; `table`, the band's nonzero table, makes the
-    row-wise route available), the U bytes a launch reads there and on
-    the walk (`band_u_bytes`; on the row-wise route the table and each
-    nonzero's U row), and W the same bits on every grid: the row-wise
-    route, the staged route on 8-, 4- and 2-warp blocks (an fp32 band,
-    k <= 64) and the column-block walk. `launch(U, **grid)` runs the
-    wrapper. With `on_card`, the default grid's, the staged route's
-    (where it can run) and the walk's times on the card (`device_ms`;
-    with `gram_W` given, K5's too). Returns (printed summary, {key:
-    ms})."""
+    row-wise route available; `window`: a full-window band's columns),
+    the U bytes a launch reads there and on the walk (`band_u_bytes`; on
+    the row-wise route the table and each nonzero's U row), and W (the
+    block routes') the same bits on every grid: the row-wise route (on a
+    bf16 band, whose walk sums in the tensor cores' order, within
+    BSR_TOL['bf16']), the staged route on 8-, 4- and 2-warp blocks (an
+    fp32 band, k <= 64) and the column-block walk. `launch(U, **grid)`
+    runs the wrapper. With `on_card`, the default grid's, the staged
+    route's (where it can run) and the walk's times on the card
+    (`device_ms`; with `gram_W` given, K5's too). Returns (printed
+    summary, {key: ms})."""
     from eigenpinns_torch.sparse.banded import band_u_bytes
     from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
 
     k = U.shape[1]
     n_tiles = band.shape[0] // 128
     route, cb, warps = band_grid(n_tiles, k, band.dtype, sm_count(U.device),
-                                 rows=table is not None)
+                                 rows=table is not None, window=window)
     grids = [dict(route="walk")]
     staged = dict(route="staged", col_block=max(cb, 32 * -(-k // 32)))
     can_stage = band.dtype == torch.float32 and k <= 64
@@ -1038,10 +1078,20 @@ def band_routes(name, launch, band, occupancy, U, W, on_card=False,
     if table is not None:
         grids.append(dict(route="rows"))
     for grid in grids:
-        check(torch.equal(launch(U, **grid), W),
-              f"{name} k={k}: W differs on the grid {grid}")
+        Wg = launch(U, **grid)
+        if grid["route"] == "rows" and band.dtype == torch.bfloat16:
+            check(rel_err(Wg, W) <= BSR_TOL["bf16"],
+                  f"{name} k={k}: the row-wise route parts from the walk")
+        else:
+            check(torch.equal(Wg, W),
+                  f"{name} k={k}: W differs on the grid {grid}")
     if route == "rows":
-        u_gb = (table.val.numel() * 8 + table.nnz * k * 4) / 1e9
+        from eigenpinns_torch.sparse import nonzeros
+
+        u_row = (2 * nonzeros.copy_ld(k) if band.dtype == torch.bfloat16
+                 else 4 * k)
+        u_gb = (table.val.numel() * (table.val.element_size() + 4)
+                + table.nnz * u_row) / 1e9
     else:
         u_gb = band_u_bytes(occupancy, k, route, warps) / 1e9
     walk_gb = band_u_bytes(occupancy, k, "walk") / 1e9
@@ -1168,7 +1218,9 @@ def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
                 **route_t,
                 "with_gram_device_ms": route_t["gram_device_ms"],
                 "library_device_ms": device_ms(
-                    lambda: torch.sparse.mm(csr, U))}
+                    lambda: torch.sparse.mm(csr, U)),
+                "with_gram_library_device_ms": device_ms(
+                    lambda: U.T @ torch.sparse.mm(csr, U))}
             del csr
             nnz = int(torch.count_nonzero(A.band))
             vb = A.band.element_size()
@@ -1192,7 +1244,9 @@ def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
                   f"{on_card['walk_device_ms']:.4f}), with the Gram "
                   f"{on_card['with_gram_device_ms']:.4f} (the walk "
                   f"{on_card['gram_walk_device_ms']:.4f}), torch.sparse.mm "
-                  f"{on_card['library_device_ms']:.4f}", flush=True)
+                  f"{on_card['library_device_ms']:.4f} (+ U^T W "
+                  f"{on_card['with_gram_library_device_ms']:.4f})",
+                  flush=True)
         del W, G, Wp, Gp
         torch.cuda.empty_cache()
     return row
@@ -1221,12 +1275,18 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
                 W = launch(A, U)
                 Wp = bsr.bsr_spmm_plain(A, U)
                 # No atomics, one summation order: a second launch and
-                # the other column block give the same bits.
+                # both column blocks of the walk give the same bits, the
+                # walk's on fp32 strips (on bf16 strips the row-wise
+                # route, the default at k <= 128, sums in another order).
                 check(torch.equal(launch(A, U), W),
                       f"{name} k={k} {prec}: two launches differ")
                 other = 96 - bsr.default_col_block(k, A.data.dtype)
-                check(torch.equal(launch(A, U, col_block=other), W),
+                Wc = launch(A, U, col_block=96 - other)
+                check(torch.equal(launch(A, U, col_block=other), Wc)
+                      and (A.data.dtype == torch.bfloat16
+                           or torch.equal(Wc, W)),
                       f"{name} k={k} {prec}: col_block {other} differs")
+                del Wc
                 # Gradient through the dispatcher (A is symmetric, so
                 # A^T = A): against torch autograd through the plain
                 # version in fp32; in 'bf16', where the kernel rounds the
@@ -1293,21 +1353,27 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
 
 
 def route_row(label, U, launch, parent, csr, nnz, n_cols, rows=None,
-              plain=None):
-    """One fp32 product of width k = U.shape[1] on its default route
+              plain=None, value_bytes=4):
+    """One product of width k = U.shape[1] on its default route
     (`launch()`) against the route the kernel took before the row-wise
     route existed (`parent()`, forced) and torch.sparse.mm of the same
-    operator as fp32 CSR (`csr`): W the same bits on both routes, from a
-    second launch and from the row-wise route forced (`rows()`, where
-    the default is another route); rel err against the plain version's
-    W (`plain()`) where given. Each timed on the card (`device_ms`, few
-    samples) and by launch (`median_ms`), beside the least-bytes bound.
-    Returns the row."""
+    operator as fp32 CSR (`csr`): W the same bits from a second launch
+    and from the row-wise route forced (`rows()`, where the default is
+    another route); on an fp32 operator (`value_bytes` 4) from the
+    parent's route too, on a bf16 one (2: 'bf16', U rounded to bf16) not,
+    since the walk's tensor cores sum in their own order. Rel err against
+    the plain version's W (`plain()`) where given, to BSR_TOL of the
+    precision. Each timed on the card (`device_ms`, few samples) and by
+    launch (`median_ms`), beside the least-bytes bound (values of
+    `value_bytes`). Returns the row."""
     k = U.shape[1]
+    fp32 = value_bytes == 4
     W = launch()
-    check(torch.equal(launch(), W) and torch.equal(parent(), W),
-          f"{label} k={k}: W differs between two launches or from the "
-          "parent's route")
+    check(torch.equal(launch(), W), f"{label} k={k}: W differs between "
+          "two launches")
+    if fp32:
+        check(torch.equal(parent(), W),
+              f"{label} k={k}: W differs from the parent's route")
     if rows is not None:
         check(torch.equal(rows(), W),
               f"{label} k={k}: W differs on the row-wise route")
@@ -1317,8 +1383,9 @@ def route_row(label, U, launch, parent, csr, nnz, n_cols, rows=None,
            "library_ms": median_ms(lambda: torch.sparse.mm(csr, U), 5, 5),
            "library_device_ms": device_ms(
                lambda: torch.sparse.mm(csr, U), 3, 10),
-           **bound(least_bytes(nnz, 4, U.shape[0], k, n_cols=n_cols),
-                   {"fp32": 2 * nnz * k})}
+           **bound(least_bytes(nnz, value_bytes, U.shape[0], k,
+                               n_cols=n_cols),
+                   {"fp32" if fp32 else "bf16": 2 * nnz * k})}
     if rows is not None:
         row["rows_device_ms"] = device_ms(rows, 3, 10)
     if plain is not None:
@@ -1328,8 +1395,9 @@ def route_row(label, U, launch, parent, csr, nnz, n_cols, rows=None,
         row["plain_ms"] = (time.time() - t0) * 1e3
         row["rel_err"] = rel_err(W, Wp)
         row["max_abs_err"] = float((W - Wp).abs().max())
-        check(row["rel_err"] <= BSR_TOL["highest"],
-              f"{label} k={k}: rel err {row['rel_err']:.3e}")
+        tol = BSR_TOL["highest" if fp32 else "bf16"]
+        check(row["rel_err"] <= tol,
+              f"{label} k={k}: rel err {row['rel_err']:.3e} > {tol}")
         del Wp
     print(f"[rows] {label} k={k}: on the card {row['device_ms']:.4f} ms "
           f"(by launch {row['ms']:.4f}), the parent's route "
@@ -1341,32 +1409,43 @@ def route_row(label, U, launch, parent, csr, nnz, n_cols, rows=None,
           f"({row['bound_by']}), nnz {nnz}"
           + (f"; rel err {row['rel_err']:.3e}, plain {row['plain_ms']:.1f}"
              " ms (one call)" if plain is not None else "")
-          + "; W the same bits on every route", flush=True)
+          + ("; W the same bits on every route" if fp32 else
+             "; W the same bits from two launches (bf16: the parent's "
+             "walk sums in its own order)"), flush=True)
     return row
 
 
-def k2_route_rows(bsr, label, K, K_sp, ks, seed, plain_ks=()):
-    """K2 'highest' on the strip-BSR K at each width of `ks` by
-    `route_row`: the default route (`strip_route`: the row-wise route on
-    fp32 strips from k = 9 to ROWS_MAX_K) against the column-block walk
-    on `walk_grid`'s grid (the parent's route), the row-wise route forced
-    and torch.sparse.mm of `K_sp` (K's scipy matrix in its own order);
-    the plain version at the widths of `plain_ks`. Returns {k: row}."""
+def k2_route_rows(bsr, label, K, K_sp, ks, seed, plain_ks=(),
+                  precision="highest", burst=False):
+    """K2 (K3 with `burst`: K without its group tables) in `precision` on
+    the strip-BSR K at each width of `ks` by `route_row`: the default
+    route (`strip_route`: the row-wise route on fp32 strips from k = 9 to
+    ROWS_MAX_K, on bf16 strips at BF16_ROWS_K) against the column-block
+    walk on `walk_grid`'s grid (the parent's route), the row-wise route
+    forced and torch.sparse.mm of `K_sp` (K's scipy matrix in its own
+    order); the plain version at the widths of `plain_ks`. Returns {k:
+    row}."""
     gen = torch.Generator("cuda").manual_seed(seed)
-    A = K.with_precision("highest")
+    A = K.with_precision(precision)
+    launch = bsr.bsr_spmm_grouped_cuda
+    if burst:
+        A = dataclasses.replace(A, gcid=None, lcid=None, gid=None)
+        launch = bsr.bsr_spmm_burst_cuda
     csr = torch_csr(K_sp, K.data.device)
     out = {}
     for k in ks:
         U = torch.randn((K.n, k), generator=gen, device="cuda")
+        route = bsr.strip_route(A.data.dtype, k)
         out[k] = route_row(
-            f"K2 {label} ({bsr.strip_route(A.data.dtype, k)} route)", U,
-            lambda: bsr.bsr_spmm_grouped_cuda(A, U),
-            lambda: bsr.bsr_spmm_grouped_cuda(A, U, route="walk"),
+            f"{'K3' if burst else 'K2'} {label} {precision} ({route} "
+            "route)", U, lambda: launch(A, U),
+            lambda: launch(A, U, route="walk"),
             csr, K_sp.nnz, K.n_cols,
-            rows=lambda: bsr.bsr_spmm_grouped_cuda(A, U, route="rows"),
+            rows=lambda: launch(A, U, route="rows"),
             plain=((lambda: bsr.bsr_spmm_plain(A, U)) if k in plain_ks
-                   else None))
-        out[k]["strip_route"] = bsr.strip_route(A.data.dtype, k)
+                   else None),
+            value_bytes=A.data.element_size())
+        out[k]["strip_route"] = route
         del U
         torch.cuda.empty_cache()
     del csr
@@ -1375,12 +1454,13 @@ def k2_route_rows(bsr, label, K, K_sp, ks, seed, plain_ks=()):
 
 def band_route_rows(label, launch, band, starts, pre, occupancy, table, n,
                     csr, nnz, ks, seed, plain=None):
-    """A band kernel ('highest') at each width of `ks` by `route_row`: the
-    default route of `launch(U, **grid)` against the route it took
-    before the row-wise route existed (`band_grid` without the table:
-    the staged route up to 64 columns, the walk past them), and the
-    row-wise route over `table` (the band's nonzero table) forced; the
-    plain version `plain(U)` where given. Returns {k: row}."""
+    """A band kernel at each width of `ks` by `route_row`: the default
+    route of `launch(U, **grid)` against the route it took before the
+    row-wise route existed (`band_grid` without the table: the staged
+    route up to 64 columns on an fp32 band, the walk past them and on a
+    bf16 band), and the row-wise route over `table` (the band's nonzero
+    table) forced; the plain version `plain(U)` where given. Returns {k:
+    row}."""
     from eigenpinns_torch.sparse.banded import launch_band_kernel
     from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
 
@@ -1396,7 +1476,8 @@ def band_route_rows(label, launch, band, starts, pre, occupancy, table, n,
             rows=lambda: launch_band_kernel(
                 band, starts, pre, occupancy, U, n, False, None,
                 route="rows", table=table)[0],
-            plain=None if plain is None else lambda: plain(U))
+            plain=None if plain is None else lambda: plain(U),
+            value_bytes=band.element_size())
         out[k]["parent_route"] = parent
         del U
     return out
@@ -1491,7 +1572,8 @@ def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
     loss = res.history["loss"]
     print(f"[{label}] train_joint {res.epochs_run} epochs: train "
           f"{train_s:.3f} s, per-chunk median {rates[len(rates) // 2]:.2f} "
-          f"steps/s, chunk times "
+          f"steps/s (on the walk's routes: {BEFORE_ROW_ROUTES[label]}), chunk "
+          f"times "
           f"{[round(t, 4) for _, t in res.chunk_times]}", flush=True)
     print(f"[{label}] loss {loss[0]:.6g} -> {loss[-1]:.6g}; polish "
           f"{polish_stats(pol, k)} in {polish_s:.3f} s; peak device memory "
@@ -1506,19 +1588,26 @@ def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
         profile_polish(label, K, M, X0, profile_iters)
     check(launches["grouped"] > 0, f"{label}: train_joint launched K2 0 "
           "times")
-    # The bf16 training walks, but for its last product, the Rayleigh
-    # quotients on the fp32 K at k = 20; every fp32 product of the polish
-    # (K X at k = 28, K S at k = 84) takes the row-wise route.
+    # The bf16 training takes the row-wise route over the bf16 table at
+    # k = 20 (where `strip_route` sends it; the walk otherwise), but for
+    # its last product, the Rayleigh quotients on the fp32 K at k = 20;
+    # every fp32 product of the polish (K X at k = 28, K S at k = 84)
+    # takes the row-wise route over the fp32 table.
     polish_k2 = launches["grouped"] - train_launches["grouped"]
+    bf16_route = bsr.strip_route(torch.bfloat16, k)
+    train_bf16 = (train_launches["grouped"] - 1) * (bf16_route == "rows")
     check(train_launches["rows"] == 1 and polish_k2 > 0
+          and train_launches["rows_bf16"] == train_bf16
+          and launches["rows_bf16"] == train_bf16
           and launches["rows"] - train_launches["rows"] == polish_k2,
-          f"{label}: K2's row-wise launches {launches['rows']} for the "
-          f"polish's {polish_k2} (training {train_launches['rows']})")
+          f"{label}: K2's row-wise launches {launches} for the polish's "
+          f"{polish_k2} (training {train_launches})")
     print(f"[{label}] K2's launches by precision and width: training "
-          f"{train_launches['grouped'] - 1} in bf16 at k = {k} (the walk) "
-          f"+ 1 fp32 at k = {k}, polish {polish_k2} fp32 at k = {k + 8} "
-          f"and {3 * (k + 8)}; on the row-wise route {launches['rows']}",
-          flush=True)
+          f"{train_launches['grouped'] - 1} in bf16 at k = {k} (the "
+          f"{bf16_route} route: {train_launches['rows_bf16']} over the bf16"
+          f" table) + 1 fp32 at k = {k}, polish {polish_k2} fp32 at k = "
+          f"{k + 8} and {3 * (k + 8)}; on the fp32 row-wise route "
+          f"{launches['rows']}", flush=True)
     check(bool(np.isfinite(loss).all() and np.isfinite(res.eigenvectors).all()
                and np.isfinite(lam_pol).all()), f"non-finite {label} results")
     check(polished.max() <= bar,
@@ -1564,9 +1653,10 @@ def profile_polish(label, K, M, X0, iters):
 
 def burst_slice(bsr, K, M, X, ref_loss):
     """The same training on K3 (the K without its group tables, sharing
-    the strips); returns K3's launches. Both kernels sum a row tile's
-    real slots in the same order and K3's pad slots add exact zeros, so
-    the loss history must repeat K2's."""
+    the strips); returns the strip-BSR launches (`bsr_kernel_launches`).
+    Both kernels sum a row tile's real slots in the same order, and read
+    the same nonzero tables on the row-wise route, and K3's pad slots add
+    exact zeros, so the loss history must repeat K2's."""
     from eigenpinns_torch.solvers import train_joint
 
     K3 = dataclasses.replace(K, gcid=None, lcid=None, gid=None)
@@ -1582,8 +1672,11 @@ def burst_slice(bsr, K, M, X, ref_loss):
           f"{time.time() - t0:.3f} s; kernel launches {launches}; loss "
           f"history vs the K2 run: max rel diff {dev:.3e}", flush=True)
     check(launches["burst"] > 0, "the ungrouped run launched K3 0 times")
+    check(launches["rows_bf16"] == (launches["burst"] - 1) * (
+        bsr.strip_route(torch.bfloat16, DIRECT_K) == "rows"),
+          f"K3's bf16 launches on the row-wise route: {launches}")
     check(dev <= 1e-6, f"K3 training differs from K2's: {dev:.3e}")
-    return launches["burst"]
+    return launches
 
 
 def rolling_slice(rolling, L, m_diag, X, oracle, device):
@@ -1750,7 +1843,9 @@ def check_adversarial(bsr, banded, rolling, device, seed):
             Ur = U.bfloat16().float() if prec == "bf16" else U
             refs = (bsr.bsr_spmm_plain(Ap, U),
                     dense.to(Ap.data.dtype).float() @ Ur)
-            for cb in (32, 64):
+            # The default route (the row-wise one over the narrow table)
+            # and the walk at both column blocks.
+            for cb in (None, 32, 64):
                 for op, launch in ((Ap, bsr.bsr_spmm_grouped_cuda),
                                    (burst, bsr.bsr_spmm_burst_cuda)):
                     W = launch(op, U, col_block=cb)
@@ -1762,8 +1857,9 @@ def check_adversarial(bsr, banded, rolling, device, seed):
     words = [hex(w & (2**64 - 1)) for w in A.occupancy.flatten().tolist()
              if w]
     print(f"[kernel] adversarial strip-BSR (n = {n}, {A_sp.nnz} nonzeros, "
-          f"occupancy words {words}): K2 and K3 (both column blocks) vs "
-          f"plain and dense, max rel err {worst:.3e}", flush=True)
+          f"occupancy words {words}): K2 and K3 (the default route, both "
+          f"column blocks of the walk) vs plain and dense, max rel err "
+          f"{worst:.3e}", flush=True)
 
     # Band: n_pad = 1024, B = 256; tile 0 holds only its last sub-block
     # (row 127, local column 255); the last tile's window [768, 1024)
@@ -1786,7 +1882,9 @@ def check_adversarial(bsr, banded, rolling, device, seed):
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         b = band.to(dtype)
-        core = BandedELL(b, starts, n, n, 128, occupancy=occupancy_mask(b))
+        occ = occupancy_mask(b)
+        core = BandedELL(b, starts, n, n, 128, occupancy=occ,
+                         narrow=banded.full_band_table(b, occ, starts))
         check(core.occupancy[0].tolist() == [0, -2**63],
               "adversarial band: tile 0 is not the single last sub-block")
         for k in (DIRECT_K, SPEC_K + 10):
@@ -1795,8 +1893,10 @@ def check_adversarial(bsr, banded, rolling, device, seed):
             Wp, Gp = banded.banded_spmm_gram_plain(core, U)
             Wd = dense @ Ur
             W5, G = banded.banded_spmm_cuda(core, U, with_gram=True)
-            outs = [W5] + [banded.banded_spmm_cuda(core, U, col_block=cb)
-                           for cb in (32, 64)]
+            outs = [W5, banded.banded_spmm_cuda(core, U),
+                    banded.banded_spmm_cuda(core, U, route="rows")] + [
+                banded.banded_spmm_cuda(core, U, col_block=cb)
+                for cb in (32, 64)]
             torch.cuda.synchronize()
             err = max(max(rel_err(W, Wp), rel_err(W, Wd)) for W in outs)
             err_g = max(rel_err(G, Gp), rel_err(G, U.T @ Wd))
@@ -1805,8 +1905,9 @@ def check_adversarial(bsr, banded, rolling, device, seed):
                   f"adversarial band {dtype} k={k}: rel err W {err:.3e} "
                   f"G {err_g:.3e}")
     print(f"[kernel] adversarial band (n = {n}, n_pad = {n_pad}, B = {B}): "
-          f"K4 (both column blocks) and K5 vs plain and dense, max rel err "
-          f"{worst:.3e}", flush=True)
+          f"K4 (the default route, the row-wise route over its table, "
+          f"both column blocks of the walk) and K5 vs plain and dense, max "
+          f"rel err {worst:.3e}", flush=True)
 
     # Rolling band (utils/fixtures.py::adversarial_rolling_matrix): pre =
     # 256, B' = 768; tile 1 holds only the last sub-block of a piece; tile
@@ -1855,6 +1956,7 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
     the kernels read the band's occupied 16 x 16 sub-blocks. `K` may be
     None (no K2 beside them)."""
     from eigenpinns_torch.sparse import occupied_blocks
+    from eigenpinns_torch.sparse.nonzeros import table_hbm_bytes
 
     gen = torch.Generator("cuda").manual_seed(seed)
     rows = {}
@@ -1883,10 +1985,14 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         # No atomics, one summation order: K4 again, K4 with the other
         # column block and K5 give the same W bit for bit, K5 again the
         # same G.
+        # The block routes' W: on a bf16 core the row-wise route (the
+        # default where it applies) sums in another order than the walk.
+        Wb = (W if core.band.dtype == torch.float32
+              else banded.banded_spmm_cuda(core, U, route="walk"))
         check(torch.equal(banded.banded_spmm_cuda(core, U), W)
               and torch.equal(
-                  banded.banded_spmm_cuda(core, U, col_block=other), W)
-              and torch.equal(W2, W) and torch.equal(W3, W),
+                  banded.banded_spmm_cuda(core, U, col_block=other), Wb)
+              and torch.equal(W2, Wb) and torch.equal(W3, Wb),
               f"{name} k={k}: W differs between launches, column blocks or "
               "K4 and K5")
         del W3, G3
@@ -1895,7 +2001,9 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
             f"{name} k={k}: G differs between two launches")
         _, route_t = band_routes(
             name, lambda V, **grid: banded.banded_spmm_cuda(core, V, **grid),
-            core.band, core.occupancy, U, W, on_card=True, gram_W=W)
+            core.band, core.occupancy, U, Wb, on_card=True, gram_W=Wb,
+            table=core.narrow, window=core.band.shape[1])
+        del Wb
         csr = band_csr(core)
         t = {"spmm": median_ms(lambda: banded.banded_spmm_cuda(core, U)),
              "spmm_other": median_ms(
@@ -1937,9 +2045,11 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         b4 = bound(least_bytes(nnz, vb, core.n, k), {kind: 2 * nnz * k})
         b5 = bound(least_bytes(nnz, vb, core.n, k, gram=True),
                    {kind: 2 * nnz * k, "fp32": 2 * core.n * k * k})
-        moved_gb = banded.banded_spmm_hbm_bytes(
-            core, k, route=route_t["band_route"],
-            warps=route_t["warps"]) / 1e9
+        moved_gb = (table_hbm_bytes(core.narrow, k, core.n, core.n_cols)
+                    if route_t["band_route"] == "rows" else
+                    banded.banded_spmm_hbm_bytes(
+                        core, k, route=route_t["band_route"],
+                        warps=route_t["warps"])) / 1e9
         print(f"[kernel] {name} {tuple(core.band.shape)} {kind} k={k}: "
               f"occupied 16 x 16 sub-blocks {occupied_share(core.occupancy)};"
               " "
@@ -1954,7 +2064,8 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
               f"{t['gram_library']:.4f}, bound {b5['bound_ms']:.4f}); nnz "
               f"{nnz}, executed FLOP "
               f"{2 * 256 * occupied_blocks(core.occupancy) * k / 1e9:.2f} G;"
-              f" K4 moves (occupied sub-blocks, their U rows, tables, W) "
+              f" K4 moves (on its route: the table and each nonzero's U "
+              f"row, or the occupied sub-blocks and their U rows; W) "
               f"{moved_gb:.3f} GB, {moved_gb / t['spmm'] * 1e3:.1f} GB/s",
               flush=True)
         for key, v in errs.items():
@@ -1999,7 +2110,7 @@ def spectral_slice(banded, X, L, m_diag, oracle, device, label="spectral",
                    profile=True):
     """`spectral_basis` on the cluster SplitBanded at the configuration's
     full width (under the profiler with `profile`); returns K4's
-    launches."""
+    launches (`banded_kernel_launches`)."""
     import contextlib
 
     from eigenpinns_torch.solvers import spectral_basis
@@ -2042,6 +2153,9 @@ def spectral_slice(banded, X, L, m_diag, oracle, device, label="spectral",
         device_report(label, prof, "spectral_basis.solve")
     check(launches["spmm"] > 0, f"{label}: spectral_basis launched K4 0 "
           "times")
+    check(0 < launches["rows"] <= launches["spmm"]
+          and launches["rows_bf16"] == 0,
+          f"{label}: K4's row-wise launches {launches}")
     check(lam.shape == (SPEC_K,) and V.shape == (X.shape[0], SPEC_K),
           f"unexpected {label} spectral_basis result shapes")
     check(bool(np.isfinite(lam).all() and np.isfinite(V).all()),
@@ -2054,13 +2168,14 @@ def spectral_slice(banded, X, L, m_diag, oracle, device, label="spectral",
     check(bool(np.allclose(rq, lam, rtol=1e-3, atol=1e-4)),
           f"{label} spectral_basis eigenvectors are not in the original "
           "point order")
-    return launches["spmm"]
+    return launches
 
 
 def gram_slice(banded, K_h, K_f, M, X, oracle):
     """train_joint on the Hilbert SplitBanded K (bf16 core: K5 in the
     loss, K4 in its backward pass), then the guarded polish on the fp32
-    twin (K4); returns K5's launches in training."""
+    twin (K4); returns the band kernels' launches in training and in the
+    polish (`banded_kernel_launches`)."""
     from eigenpinns_torch.solvers import lobpcg, train_joint
 
     device = K_h.core.band.device
@@ -2099,17 +2214,47 @@ def gram_slice(banded, K_h, K_f, M, X, oracle):
           f"in the polish {polish_launches} ({polish_stats(pol, DIRECT_K)},"
           f" in {polish_s:.3f} s)", flush=True)
     print(f"[gram] max rel err of modes 1..19 vs eigsh: raw {raw.max():.3e},"
-          f" polished {polished.max():.3e}", flush=True)
+          f" polished {polished.max():.3e}; the polish's wall {polish_s:.3f}"
+          " s (on the routes it replaced: "
+          f"{BEFORE_ROW_ROUTES['gram_polish_s']} s)", flush=True)
     device_report("gram", prof, "smoke.train_joint", steps=res.epochs_run)
     check(train_launches["spmm_gram"] > 0, "train_joint launched K5 0 times")
     check(train_launches["spmm"] > 0,
           "train_joint's backward pass launched K4 0 times")
     check(polish_launches["spmm"] > 0, "the polish launched K4 0 times")
+    # K4's bf16 products of the training (its backward pass and last
+    # product, k = 20) and the polish's fp32 ones (k = 28 and 84) on the
+    # row-wise route where `band_grid` sends a band with its table.
+    check(train_launches["rows"] == 0 and train_launches["rows_bf16"] == (
+              train_launches["spmm"] * full_rows(K_h.core, DIRECT_K))
+          and polish_launches["rows_bf16"] == 0
+          and polish_launches["rows"] == polish_launches["spmm"] * (
+              full_rows(K_f.core, DIRECT_K + POLISH_GUARD)
+              and full_rows(K_f.core, 3 * (DIRECT_K + POLISH_GUARD))),
+          f"K4's row-wise launches: training {train_launches}, polish "
+          f"{polish_launches}")
     check(bool(np.isfinite(loss).all() and np.isfinite(lam_pol).all()),
           "non-finite fused-Gram results")
     check(polished.max() <= MAX_REL_ERR,
           f"split polished max rel err {polished.max():.3e} > {MAX_REL_ERR}")
-    return train_launches["spmm_gram"]
+    return train_launches, polish_launches
+
+
+def table_csr(t, n: int, n_cols: int) -> torch.Tensor:
+    """A nonzero table's entries as an fp32 torch CSR tensor (n, n_cols)
+    on its device, for the library yardstick."""
+    from eigenpinns_torch.sparse.nonzeros import SLICE
+
+    width = (t.slice_start[1:] - t.slice_start[:-1]) // SLICE
+    slice_of = torch.repeat_interleave(
+        torch.arange(t.n_slices, device=t.idx.device), width * SLICE)
+    e = torch.arange(t.val.numel(), device=t.idx.device)
+    row = slice_of * SLICE + (e - t.slice_start[slice_of]) % SLICE
+    live = t.idx >= 0
+    coo = torch.sparse_coo_tensor(
+        torch.stack([row[live], t.idx[live].long()]), t.val[live].float(),
+        (n, n_cols))
+    return coo.coalesce().to_sparse_csr()
 
 
 def check_family_kernel(bsr, ops, seed):
@@ -2117,7 +2262,9 @@ def check_family_kernel(bsr, ops, seed):
     (padded to the family's shape: zero pad rows and pad chunks, no group
     tables) at the widths its solve gives it: W to rel 1e-5 and the
     gradient through `bsr_spmm` (A^T = A) to rel 1e-4, both against the
-    plain version in fp32."""
+    plain version in fp32; then, on the first member, `route_row` at
+    those widths (its default route, the column-block walk,
+    torch.sparse.mm, the bound). Returns {k: row}."""
     gen = torch.Generator("cuda").manual_seed(seed)
     worst = {"W": 0.0, "dU": 0.0}
     for i, (op, _) in enumerate(ops):
@@ -2141,12 +2288,24 @@ def check_family_kernel(bsr, ops, seed):
           f"{[(op.n, op.n_chunks, op.n_slots) for op, _ in ops]} (rows, "
           f"chunks, real tiles) at k = {FAMILY_WIDTHS}: max rel_err_W="
           f"{worst['W']:.3e} rel_err_dU={worst['dU']:.3e}", flush=True)
+    op = ops[0][0]
+    csr = table_csr(op.narrow, op.n, op.n_cols)
+    rows = {}
+    for k in FAMILY_WIDTHS:
+        U = torch.randn((op.n_cols, k), generator=gen, device="cuda")
+        rows[k] = route_row(
+            f"K3 family member 0 ({bsr.strip_route(op.data.dtype, k)} "
+            "route)", U, lambda: bsr.bsr_spmm_burst_cuda(op, U),
+            lambda: bsr.bsr_spmm_burst_cuda(op, U, route="walk"), csr,
+            op.narrow.nnz, op.n_cols,
+            plain=lambda: bsr.bsr_spmm_plain(op, U))
+    return rows
 
 
 def family_slice(bsr, device):
     """K3 vs plain on the family's padded operators, then
     spectral_basis_family on three 20k-point clouds (K3); returns K3's
-    launches."""
+    launches and `check_family_kernel`'s rows."""
     from eigenpinns_torch.geometry import point_cloud_laplacian
     from eigenpinns_torch.solvers import (
         eigsh_smallest,
@@ -2162,7 +2321,7 @@ def family_slice(bsr, device):
     print(f"[host] the family's 3 native Laplacians ({FAMILY_N} points "
           f"each) in {time.time() - t0:.2f} s", flush=True)
     ops = family_operators([L for L, _ in problems], device=device)
-    check_family_kernel(bsr, ops, seed=5)
+    rows = check_family_kernel(bsr, ops, seed=5)
     del ops
     torch.cuda.empty_cache()
     for key in bsr.bsr_kernel_launches:
@@ -2188,13 +2347,14 @@ def family_slice(bsr, device):
     check(launches["burst"] > 0, "spectral_basis_family launched K3 0 times")
     check(max(errs) <= MAX_REL_ERR,
           f"family max rel err {max(errs):.3e} > {MAX_REL_ERR}")
-    return launches["burst"]
+    return launches["burst"], rows
 
 
 def xl_phases(bsr, banded, X, L, m_diag, oracle, device, phases):
     """The 1M phases; returns K2's launches and 1M row, K4's launches and
     1M row."""
     from eigenpinns_torch.sparse import BSRTile, Diagonal, SplitBanded
+    from eigenpinns_torch.sparse.nonzeros import band_table
 
     # 11. The 1M direct phase (phase_xl's configuration at its own size),
     # after every 300k phase, whose operators are freed by now: the
@@ -2220,11 +2380,18 @@ def xl_phases(bsr, banded, X, L, m_diag, oracle, device, phases):
                                          SPEC_K + 10,
                                          3 * (DIRECT_K + POLISH_GUARD), 128),
         seed=18, plain_ks=(3 * (DIRECT_K + POLISH_GUARD),))
+    # The training's bf16 product (k = 20) on its route, K2 and K3,
+    # against the tensor-core walk it took before.
+    for key, burst in (("rows_bf16", False), ("rows_bf16_k3", True)):
+        row_1m[key] = k2_route_rows(
+            bsr, "1M", K, L[perm][:, perm], (DIRECT_K,), seed=19,
+            plain_ks=(DIRECT_K,), precision="bf16", burst=burst)
     k2_xl_launches, _ = direct_slice(bsr, K, M, X[perm], oracle,
                                      label="xl", cfg=XL_CFG, bar=XL_BAR,
                                      profile_iters=PROFILE_POLISH_ITERS)
     k2_xl = k2_xl_launches["grouped"]
     row_1m["launches_rows"] = k2_xl_launches["rows"]
+    row_1m["launches_rows_bf16"] = k2_xl_launches["rows_bf16"]
     del K, M
     torch.cuda.empty_cache()
     phases.done("1M direct phase")
@@ -2236,14 +2403,33 @@ def xl_phases(bsr, banded, X, L, m_diag, oracle, device, phases):
     K_c, _ = SplitBanded.from_scipy(L, X=X, window=SPEC_CFG["window"],
                                     device=device)
     torch.cuda.synchronize()
+    core = K_c.core
+    t = core.narrow
+    t1 = time.time()
+    band_table(core.band, core.occupancy, core.starts)
+    torch.cuda.synchronize()
     print(f"[xl] cluster SplitBanded (window {SPEC_CFG['window']}, fp32) in "
-          f"{time.time() - t0:.2f} s: core {tuple(K_c.core.band.shape)} "
-          f"({K_c.core.band.nbytes / 1e9:.3f} GB), remainder nnz fraction "
-          f"{K_c.remainder_nnz_fraction:.4f}", flush=True)
+          f"{t1 - t0:.2f} s: core {tuple(core.band.shape)} "
+          f"({core.band.nbytes / 1e9:.3f} GB), remainder nnz fraction "
+          f"{K_c.remainder_nnz_fraction:.4f}; its nonzero table "
+          f"{t.val.numel()} entries for {t.nnz} nonzeros, "
+          f"{(t.val.nbytes + t.idx.nbytes + t.slice_start.nbytes) / 1e6:.1f}"
+          f" MB (fp32 values, int32 U rows, slice starts; a bf16 table "
+          f"would add {t.val.numel() * 2 / 1e6:.1f} MB beside the U rows), "
+          f"built again alone in {time.time() - t1:.3f} s", flush=True)
     band_rows_1m = check_banded_kernels(
-        banded, bsr, [("cluster 1M", K_c.core, DIRECT_K),
-                      ("cluster 1M", K_c.core, SPEC_K + 10)], None, seed=9)
-    del K_c
+        banded, bsr, [("cluster 1M", core, DIRECT_K),
+                      ("cluster 1M", core, SPEC_K + 10)], None, seed=9)
+    # K4 at the spectral basis's widths on its default route (the
+    # row-wise route over the core's table) against the staged route.
+    csr = band_csr(core)
+    band_rows_1m["rows"] = band_route_rows(
+        "K4 1M cluster core fp32",
+        lambda V, **grid: banded.banded_spmm_cuda(core, V, **grid),
+        core.band, core.starts, 0, core.occupancy, t, core.n, csr,
+        int(csr.values().numel()), (DIRECT_K, SPEC_K + 10), seed=25,
+        plain=lambda V: banded.banded_spmm_plain(core, V))
+    del K_c, core, t, csr
     torch.cuda.empty_cache()
     k4_xl = spectral_slice(banded, X, L, m_diag, oracle, device,
                            label="xl spectral", profile=False)
@@ -2821,8 +3007,10 @@ def check_k2_cli(bsr, K, K_sp, seed):
     """K2 vs the plain version on run B's fused K_blk (strip-BSR of the
     four point-cloud levels) at k = 64 (the loss) and 67 (the polish
     block) in the three modes: W to BSR_TOL, the same bits from a second
-    launch and from every grid of the walk (8, 4 or 2 warps a block, both
-    column blocks); with torch.sparse.mm and the bound, each timed by
+    launch and every grid of the walk (8, 4 or 2 warps a block, both
+    column blocks) the walk's, which on fp32 strips are the default
+    route's (on bf16 ones the row-wise route sums in another order);
+    with torch.sparse.mm and the bound, each timed by
     launch and on the card, and the host's time to enqueue a launch;
     returns the k = 64 'high' row (the loss's mode)."""
     gen = torch.Generator("cuda").manual_seed(seed)
@@ -2841,14 +3029,21 @@ def check_k2_cli(bsr, K, K_sp, seed):
             err = rel_err(W, Wp)
             check(torch.equal(bsr.bsr_spmm_grouped_cuda(A, U), W),
                   f"CLI K_blk K2 k={k} {prec}: two launches differ")
+            # The walk's bits: the default route's on fp32 strips; on
+            # bf16 strips the row-wise route sums in another order.
+            Ww = (W if A.data.dtype == torch.float32
+                  else bsr.bsr_spmm_grouped_cuda(A, U, route="walk"))
             grids = {}
             for w in (8, 4, 2):
                 for c in (32, 64):
                     f = (lambda w=w, c=c: bsr.bsr_spmm_grouped_cuda(
                         A, U, col_block=c, warps=w))
-                    check(torch.equal(f(), W), f"CLI K_blk K2 k={k} {prec}:"
-                          f" the grid of {w} warps, col_block {c} differs")
+                    check(torch.equal(f(), Ww), f"CLI K_blk K2 k={k} "
+                          f"{prec}: the grid of {w} warps, col_block {c} "
+                          "differs")
                     grids[f"{w}x{c}"] = device_ms(f)
+            err = max(err, rel_err(Ww, Wp))
+            del Ww
             ms = median_ms(lambda: bsr.bsr_spmm_grouped_cuda(A, U))
             on_card, host = card_and_host_ms(
                 lambda: bsr.bsr_spmm_grouped_cuda(A, U))
@@ -4416,7 +4611,6 @@ def smoke(oracles: list) -> int:
         SplitBanded,
     )
     from eigenpinns_torch.sparse import banded, bsr, rolling
-    from eigenpinns_torch.sparse.nonzeros import band_table
     from eigenpinns_torch.utils.cuda_build import build_logs
     from eigenpinns_torch.utils.fixtures import make_cloud, perturbed_icosphere
 
@@ -4573,6 +4767,14 @@ def smoke(oracles: list) -> int:
         (DIRECT_K, DIRECT_K + POLISH_GUARD, SPEC_K + 10,
          3 * (DIRECT_K + POLISH_GUARD), 128), seed=21,
         plain_ks=(DIRECT_K + POLISH_GUARD, 3 * (DIRECT_K + POLISH_GUARD)))
+    # The bf16 training product (k = 20) on its default route
+    # (`strip_route`: the row-wise route over the bf16 table) against the
+    # tensor-core walk it took before, K2 and K3.
+    for key, burst in (("rows_300k_bf16", False),
+                       ("rows_300k_bf16_k3", True)):
+        bsr_rows[key] = k2_route_rows(
+            bsr, "300k", K, L[perm][:, perm], (DIRECT_K,), seed=23,
+            plain_ks=(DIRECT_K,), precision="bf16", burst=burst)
     check_adversarial(bsr, banded, rolling, device, seed=6)
     torch.cuda.empty_cache()
     phases.done("K2/K3 checks")
@@ -4609,18 +4811,28 @@ def smoke(oracles: list) -> int:
          ("hilbert", K_hf.core, DIRECT_K + POLISH_GUARD),
          ("hilbert", K_h.core, DIRECT_K)],
         K, seed=4)
-    # K4 at the fused-Gram polish's widths on the fp32 Hilbert core (its
-    # staged route at k = 28, the walk at k = 84) beside the row-wise
-    # route over a table of its band, which no path routes yet.
-    csr_h = band_csr(K_hf.core)
-    banded_rows["hilbert_rows"] = band_route_rows(
-        "K4 Hilbert core fp32",
-        lambda V, **grid: banded.banded_spmm_cuda(K_hf.core, V, **grid),
-        K_hf.core.band, K_hf.core.starts, 0, K_hf.core.occupancy,
-        band_table(K_hf.core.band, K_hf.core.occupancy, K_hf.core.starts),
-        K_hf.core.n, csr_h, int(csr_h.values().numel()),
-        (DIRECT_K + POLISH_GUARD, 3 * (DIRECT_K + POLISH_GUARD)), seed=22)
-    del K_c, csr_h
+    # K4 on its default route (the row-wise route over the core's table,
+    # `BandedELL.narrow`, where `band_grid` sends it) against the route
+    # it took before: the fp32 Hilbert core at the fused-Gram polish's
+    # widths (the staged route at k = 28, the walk at k = 84), the bf16
+    # one at the training's k = 20 (the walk), the cluster core at the
+    # spectral basis's k = 20 and 60 (the staged route).
+    for key, core, ks, seed in (
+            ("hilbert_rows", K_hf.core,
+             (DIRECT_K + POLISH_GUARD, 3 * (DIRECT_K + POLISH_GUARD)), 22),
+            ("hilbert_bf16_rows", K_h.core, (DIRECT_K,), 26),
+            ("cluster_rows", K_c.core, (DIRECT_K, SPEC_K + 10), 24)):
+        csr = band_csr(core)
+        banded_rows[key] = band_route_rows(
+            f"K4 {key.split('_')[0]} core "
+            f"{'bf16' if core.band.dtype == torch.bfloat16 else 'fp32'}",
+            lambda V, core=core, **grid: banded.banded_spmm_cuda(core, V,
+                                                                 **grid),
+            core.band, core.starts, 0, core.occupancy, core.narrow, core.n,
+            csr, int(csr.values().numel()), ks, seed=seed,
+            plain=lambda V, core=core: banded.banded_spmm_plain(core, V))
+        del csr
+    del K_c, core
     torch.cuda.empty_cache()
     phases.done("split builds and K4/K5 checks")
 
@@ -4651,7 +4863,8 @@ def smoke(oracles: list) -> int:
     k2_direct, ref_loss = direct_slice(bsr, K, M, Xp, oracle)
     k2_launches = k2_direct["grouped"]
     phases.done("direct slice")
-    k3_launches = burst_slice(bsr, K, M, Xp, ref_loss)
+    k3_direct = burst_slice(bsr, K, M, Xp, ref_loss)
+    k3_launches = k3_direct["burst"]
     del K, M
     torch.cuda.empty_cache()
     phases.done("burst slice")
@@ -4664,19 +4877,22 @@ def smoke(oracles: list) -> int:
     phases.done("rolling-band slice")
 
     # 8. The spectral-basis slice, counting K4's launches from zero.
-    k4_launches = spectral_slice(banded, X, L, m_diag, oracle, device)
+    k4_spectral = spectral_slice(banded, X, L, m_diag, oracle, device)
+    k4_launches = k4_spectral["spmm"]
     phases.done("spectral-basis slice")
 
     # 9. The fused-Gram path on the Hilbert split K.
     M_h = Diagonal(torch.as_tensor(m_diag[perm_h], dtype=torch.float32,
                                    device=device))
-    k5_launches = gram_slice(banded, K_h, K_hf, M_h, X[perm_h], oracle)
+    k4_gram_train, k4_gram_polish = gram_slice(banded, K_h, K_hf, M_h,
+                                               X[perm_h], oracle)
+    k5_launches = k4_gram_train["spmm_gram"]
     del K_h, K_hf, M_h
     torch.cuda.empty_cache()
     phases.done("fused-Gram slice")
 
     # 10. The family driver (K3).
-    k3_family = family_slice(bsr, device)
+    k3_family, rows_family = family_slice(bsr, device)
     phases.done("family slice")
 
     # 11-12. The 1M phases, after every 300k phase.
@@ -4746,10 +4962,36 @@ def smoke(oracles: list) -> int:
          "replaces": "eigenpinns_tpu/sparse/rolling.py:344",
          "launches": k1_polished["rows"],
          **k1_rows[3 * (DIRECT_K + POLISH_GUARD)]},
+        {"name": "bsr_spmm_rows_bf16", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/bsr.py:549",
+         "launches": k2_direct["rows_bf16"],
+         **row_1m["rows_bf16"][DIRECT_K],
+         "launches_1m": row_1m["launches_rows_bf16"],
+         "row_300k": bsr_rows["rows_300k_bf16"][DIRECT_K],
+         "launches_k3": k3_direct["rows_bf16"],
+         "row_k3_300k": bsr_rows["rows_300k_bf16_k3"][DIRECT_K],
+         "row_k3_1m": row_1m["rows_bf16_k3"][DIRECT_K]},
+        {"name": "banded_spmm_rows", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/banded.py:455",
+         "launches": k4_gram_polish["rows"],
+         **banded_rows["hilbert_rows"][3 * (DIRECT_K + POLISH_GUARD)],
+         "row_hilbert_k28": banded_rows["hilbert_rows"][
+             DIRECT_K + POLISH_GUARD],
+         "launches_spectral": k4_spectral["rows"],
+         "row_cluster": banded_rows["cluster_rows"],
+         "launches_1m": k4_xl["rows"], "row_1m_cluster": band_rows_1m["rows"]},
+        {"name": "banded_spmm_rows_bf16", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/banded.py:455",
+         "launches": k4_gram_train["rows_bf16"],
+         **banded_rows["hilbert_bf16_rows"][DIRECT_K]},
         {"name": "bsr_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/bsr_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/bsr.py:672",
          "launches": k3_launches, "launches_family": k3_family,
+         "rows_family": rows_family,
          "launches_cli_b": k3_cli,
          **bsr_rows["bsr_spmm"]},
         {"name": "banded_spmm", "route": "cuda",
@@ -4757,7 +4999,7 @@ def smoke(oracles: list) -> int:
          "replaces": "eigenpinns_tpu/sparse/banded.py:455",
          "launches": k4_launches, **banded_rows["banded_spmm"],
          "rows_hilbert_highest": banded_rows["hilbert_rows"],
-         "launches_1m": k4_xl, "row_1m": band_rows_1m["banded_spmm"]},
+         "launches_1m": k4_xl["spmm"], "row_1m": band_rows_1m["banded_spmm"]},
         {"name": "banded_spmm_gram", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/banded.py:382",

@@ -15,8 +15,15 @@
 //       <-  eigenpinns_tpu/sparse/rolling.py::_rolling_kernel_call (K1,
 //           public there as rolling_spmm_pallas / rolling_spmm_gram_pallas)
 //   nz::rows_kernel (nonzero_spmm.cuh) over the band's nonzero table
-//       <-  _rolling_kernel_call, on an fp32 rolling band past one
-//           column block (k = 84, the polish's K S)
+//       <-  _rolling_kernel_call, on an fp32 rolling band (k = 9 to 128
+//           without the Gram: the polish's K X and K S), and
+//       <-  banded_spmm_pallas, on a full-window band with its table
+//           (BandedELL.narrow): fp32 at k = 20 to 84, from 33 to 64
+//           on windows of 1024 columns or more (the spectral basis's
+//           products on the cluster core, the fused-Gram polish's K X
+//           and K S on the Hilbert core), bf16 at k = 20 to 28 (the
+//           fused-Gram training's backward pass), through
+//           nz::round_kernel's bf16 copy of U
 // The three kernels are three routes to the same sums (below); the
 // wrapper picks one by shape (sparse/occupancy.py::band_grid). The
 // row-wise route reads a sliced ELL of the band's nonzeros
@@ -788,14 +795,18 @@ int epk_banded_spmm(const void* band, int band_is_bf16, const int* starts,
 }
 
 // W = A U by the row-wise route over a band's nonzero table (val (L,)
-// fp32, idx (L,) int32 U rows, slice_start int64; nonzero_spmm.cuh): U
-// (n_u, k) and W (n, k) fp32, 1 <= k <= 256, U rows at or past n_u read
-// as zero. Returns cudaGetLastError() after the launch.
-int epk_banded_spmm_rows(const float* val, const int* idx,
+// fp32, or bf16 when val_is_bf16, idx (L,) int32 U rows, slice_start
+// int64; nonzero_spmm.cuh): U (n_u, k) and W (n, k) fp32, 1 <= k <= 256,
+// U rows at or past n_u read as zero, on a card of `sms` SMs; a bf16
+// table multiplies U rounded to bf16, through its copy in U_bf16 (n_u,
+// nz::copy_ld(k)) bf16. Returns cudaGetLastError() after the launches.
+int epk_banded_spmm_rows(const void* val, int val_is_bf16, const int* idx,
                          const long long* slice_start, const float* U,
-                         float* W, int n, int n_u, int k, void* stream) {
-  return (int)nz::launch_rows(val, idx, slice_start, U, W, n, n_u, k,
-                              static_cast<cudaStream_t>(stream));
+                         void* U_bf16, float* W, int n, int n_u, int k,
+                         int sms, void* stream) {
+  return (int)nz::launch_rows(val, val_is_bf16, idx, slice_start, U,
+                              static_cast<nz::bf16_bits*>(U_bf16), W, n, n_u,
+                              k, sms, static_cast<cudaStream_t>(stream));
 }
 
 const char* epk_banded_error_string(int err) {

@@ -11,8 +11,10 @@
 //       (column tiles through cid)
 //   nz::narrow_kernel, nz::rows_kernel      <-  either, on fp32 strips
 //       (the narrow path at k <= 8, the row-wise route from k = 9 to
-//       bsr.ROWS_MAX_K; the wrapper counts the launch as the kernel's it
-//       was called for)
+//       bsr.ROWS_MAX_K), and nz::rows_kernel on bf16 strips over their
+//       bf16 table through nz::round_kernel's bf16 copy of U (k = 8 to
+//       128, bsr.BF16_ROWS_K: the training loss's products at k = 20);
+//       the wrapper counts the launch as the kernel's it was called for
 //
 // Layout (built on the host by BSRTile.from_scipy, unchanged): data is
 // (S*128, C*128) row-major; chunk s holds C tiles of 128 x 128 of row
@@ -103,7 +105,8 @@
 // Left open: the walk's masked lanes at 8 < k < 32 in fp32; a U row
 // shared by the stripes of a tile is fetched once per stripe; the
 // grouped kernel's second lookup (cid holds the same column tiles); the
-// walk in 'bf16' (mma.sync with fragments from global memory). TMA
+// walk in 'bf16' past k = 128 and below 8 (mma.sync with fragments from
+// global memory). TMA
 // descriptors and wgmma do not fit this
 // work: the sub-blocks are tiny and irregularly placed, and wgmma wants
 // 64-row tiles. Blocks of 32 columns run three to an SM (fewer
@@ -266,13 +269,18 @@ int epk_bsr_spmm_narrow(const float* val, const int* idx,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// W = A U by the row-wise route over the same table: U (n_cols, k) and
-// W (n, k) fp32, 1 <= k <= 256. Returns cudaGetLastError() after the
-// launch.
-int epk_bsr_spmm_rows(const float* val, const int* idx,
-                      const long long* slice_start, const float* U, float* W,
-                      int n, int n_cols, int k, void* stream) {
-  return (int)nz::launch_rows(val, idx, slice_start, U, W, n, n_cols, k,
+// W = A U by the row-wise route over the same table: val (L,) fp32, or
+// bf16 when val_is_bf16 (bf16 strips: U rounded to bf16, through its copy
+// in U_bf16 (n_cols, nz::copy_ld(k)) bf16), U (n_cols, k) and W (n, k)
+// fp32, 1 <= k <= 256, on a card of `sms` SMs. Returns
+// cudaGetLastError() after the launches.
+int epk_bsr_spmm_rows(const void* val, int val_is_bf16, const int* idx,
+                      const long long* slice_start, const float* U,
+                      void* U_bf16, float* W, int n, int n_cols, int k,
+                      int sms, void* stream) {
+  return (int)nz::launch_rows(val, val_is_bf16, idx, slice_start, U,
+                              static_cast<nz::bf16_bits*>(U_bf16), W, n,
+                              n_cols, k, sms,
                               static_cast<cudaStream_t>(stream));
 }
 

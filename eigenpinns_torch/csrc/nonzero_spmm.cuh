@@ -1,8 +1,8 @@
 // W = A U from an operator's nonzeros listed as a sliced ELL, for both
 // tiled formats of the package: the strip-BSR strips (bsr_spmm.cu,
-// BSRTile.narrow) and the bands (banded_spmm.cu, RollingBanded.narrow;
-// sparse/nonzeros.py builds the table for either from the dense layout
-// and its occupancy table).
+// BSRTile.narrow) and the bands (banded_spmm.cu, RollingBanded.narrow,
+// BandedELL.narrow; sparse/nonzeros.py builds the table for either from
+// the dense layout and its occupancy table).
 //
 // The table. Slice i holds rows [32 i, 32 i + 32); its entries sit in
 // [slice_start[i], slice_start[i + 1]), 32 times the slice's widest row,
@@ -47,10 +47,36 @@
 // 1M K at k = 28 / 84 0.2350 / 0.5878 ms (the walk 0.6502 / 1.5427,
 // torch.sparse.mm 0.5585 / 0.7481, bound 0.0853 / 0.2191); the 300k
 // rolling band at k = 84 0.1812 (the walk 0.4646, the library 0.2474).
+// A lane's U values of an entry stay packed in the 4 registers of their
+// 16-byte load until the multiply-adds.
+//
+// The bf16 route (a bf16 table: bf16 strips, a bf16 band; 'bf16' means a
+// bf16 operator, U rounded to bf16, fp32 sums). Its values are 2 bytes,
+// its U rows and slices the fp32 table's. The tensor-core walk it
+// replaces (occupancy_spmm.cuh: one mma.sync.m16n8k16 a sub-block and 8
+// columns, both fragments from global memory) read 512 B a sub-block for
+// ~11 nonzeros and lost to the fp32 row-wise route on the same operator.
+// Here round_kernel first writes U rounded to bf16 (to nearest even, as
+// torch rounds) into a copy whose rows are padded to 8 values (16 bytes),
+// and the row-wise kernel reads it with 8 columns a lane: ceil(k / 8)
+// lanes a row, one 16-byte load an entry, half the lanes and loads of the
+// fp32 route's 4 columns, 2 ceil(k / 8) 8 bytes of U a nonzero. A product
+// of a bf16 value and a bf16 U value is exact in fp32, so each output is
+// one fp32 FFMA chain in the table's order, rounding once a step: W is
+// the same bits from launch to launch, but not the walk's, whose tensor
+// cores sum 16 products an instruction in their own order. The copy beat
+// rounding each fp32 U value in registers as it is loaded (4 columns a
+// lane, 4 k bytes a nonzero) at every width measured, both passes
+// counted (at k = 20 on the 300k K 0.0516 against 0.0638 ms; PERF.md), so
+// it is the one feed. At k = 20 the copy is 14.4 MB at 300k and 48 MB at
+// 1M (k padded to 24), within the card's 50 MB L2.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace nz {
 
@@ -149,40 +175,75 @@ inline cudaError_t launch_narrow(const float* val, const int* idx,
 
 // ---- the row-wise kernel: ceil(k / 4) lanes a row ----------------------
 
-// The 4 U values of row ix, columns c0 .. c0 + 3 (zero past k, and for a
-// row at or past n_u; ix >= 0).
-template <bool kVec>
-__device__ __forceinline__ float4 u_group(const float* __restrict__ U,
-                                          int ix, int n_u, int k, int c0) {
-  float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (ix >= n_u) return u;
-  const float* p = U + (size_t)ix * k + c0;
-  if constexpr (kVec) {
-    u = __ldg(reinterpret_cast<const float4*>(p));
-  } else {
-    if (c0 < k) u.x = __ldg(p);
-    if (c0 + 1 < k) u.y = __ldg(p + 1);
-    if (c0 + 2 < k) u.z = __ldg(p + 2);
-    if (c0 + 3 < k) u.w = __ldg(p + 3);
-  }
-  return u;
+// A bf16 value is the top half of an fp32's bits, so its fp32 value is
+// exact; tables and U copies in bf16 are read as their raw 16-bit words.
+using bf16_bits = unsigned short;
+
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(bf16_bits v) {
+  return __uint_as_float((unsigned)v << 16);
 }
 
-// kVec: k % 4 == 0 and U, W 16-byte aligned (vector loads and stores).
-template <bool kVec>
+__device__ __forceinline__ bf16_bits bits_bf16(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// A lane's U fragment of one entry: the 16 bytes of row ix, columns c0
+// onward, that hold its kC values (4 fp32 or 8 bf16), kept packed until
+// the multiply-adds, so that an entry in flight costs 4 registers either
+// way. Zero for padding (ix < 0) and for a row at or past n_u. U holds
+// rows of ld values: fp32 U (ld = k), or U's bf16 copy (ld a multiple of
+// 8, its pad columns zero). kVecU: one 16-byte load; otherwise scalar
+// loads masked at k (fp32 U only).
+template <typename UT, bool kVecU>
+__device__ __forceinline__ uint4 u_frag(const UT* __restrict__ U, int ix,
+                                        int n_u, int ld, int k, int c0) {
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  if (ix < 0 || ix >= n_u) return w;
+  const UT* p = U + (size_t)ix * ld + c0;
+  if constexpr (kVecU) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    static_assert(sizeof(UT) == 4, "U's bf16 copy is read by vectors");
+    if (c0 < k) w.x = __float_as_uint(__ldg(p));
+    if (c0 + 1 < k) w.y = __float_as_uint(__ldg(p + 1));
+    if (c0 + 2 < k) w.z = __float_as_uint(__ldg(p + 2));
+    if (c0 + 3 < k) w.w = __float_as_uint(__ldg(p + 3));
+  }
+  return w;
+}
+
+// Value j of a fragment of kC values (j a constant after unrolling).
+template <int kC>
+__device__ __forceinline__ float frag_value(const uint4& w, int j) {
+  const int i = kC == 4 ? j : j / 2;
+  const unsigned q = i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+  if constexpr (kC == 4) return __uint_as_float(q);
+  return __uint_as_float(j % 2 == 0 ? q << 16 : q & 0xffff0000u);
+}
+
+// ValT: the table's values, fp32 or bf16. UT: fp32 U (an fp32 table) or
+// U's bf16 copy (a bf16 table). A lane owns kC
+// adjacent output columns: 4 on fp32 U (one 16-byte load), 8 on the bf16
+// copy (one 16-byte load of its padded row). kVecU: 16-byte U loads (fp32
+// U: k % 4 == 0 and U 16-byte aligned; the copy: always). kVecW: 16-byte
+// W stores (k % 4 == 0, W 16-byte aligned). A product of a bf16 value and
+// a bf16-rounded U value is exact in fp32, so a bf16 table's FFMA chain
+// rounds once a step, as an fp32 table's does.
+template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC>
 __global__ void __launch_bounds__(kRowsThreads, 2)
-rows_kernel(const float* __restrict__ val, const int* __restrict__ idx,
+rows_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
             const long long* __restrict__ slice_start,
-            const float* __restrict__ U, float* __restrict__ W, int n,
+            const UT* __restrict__ U, int ld, float* __restrict__ W, int n,
             int n_u, int k, int lanes) {
   const int rows_per_block = blockDim.x / lanes;
   const int row = blockIdx.x * rows_per_block + threadIdx.x / lanes;
-  const int c0 = 4 * (threadIdx.x % lanes);
+  const int c0 = kC * (threadIdx.x % lanes);
   if (row >= n) return;
   const int slice = row / kSlice;
   const long long e0 = slice_start[slice];
   const int width = (int)((slice_start[slice + 1] - e0) / kSlice);
-  const float* vp = val + e0 + row % kSlice;
+  const ValT* vp = val + e0 + row % kSlice;
   const int* ip = idx + e0 + row % kSlice;
 
   float v_next[kRowsBatch];
@@ -191,43 +252,82 @@ rows_kernel(const float* __restrict__ val, const int* __restrict__ idx,
 #pragma unroll
     for (int b = 0; b < kRowsBatch; ++b) {
       const bool in = eb + b < width;
-      v_next[b] = in ? __ldg(vp + (size_t)(eb + b) * kSlice) : 0.f;
+      v_next[b] = in ? as_float(__ldg(vp + (size_t)(eb + b) * kSlice)) : 0.f;
       i_next[b] = in ? __ldg(ip + (size_t)(eb + b) * kSlice) : -1;
     }
   };
 
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc[kC];
+#pragma unroll
+  for (int j = 0; j < kC; ++j) acc[j] = 0.f;
   if (width > 0) fetch(0);
   for (int eb = 0; eb < width; eb += kRowsBatch) {
     float v[kRowsBatch];
     int ix[kRowsBatch];
-    float4 u[kRowsBatch];
+    uint4 u[kRowsBatch];
 #pragma unroll
     for (int b = 0; b < kRowsBatch; ++b) {
       v[b] = v_next[b];
       ix[b] = i_next[b];
-      u[b] = ix[b] >= 0 ? u_group<kVec>(U, ix[b], n_u, k, c0)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      u[b] = u_frag<UT, kVecU>(U, ix[b], n_u, ld, k, c0);
     }
     if (eb + kRowsBatch < width) fetch(eb + kRowsBatch);
 #pragma unroll
     for (int b = 0; b < kRowsBatch; ++b) {
       if (ix[b] >= 0) {  // the same for every lane of the row
-        acc.x = fmaf(v[b], u[b].x, acc.x);
-        acc.y = fmaf(v[b], u[b].y, acc.y);
-        acc.z = fmaf(v[b], u[b].z, acc.z);
-        acc.w = fmaf(v[b], u[b].w, acc.w);
+#pragma unroll
+        for (int j = 0; j < kC; ++j)
+          acc[j] = fmaf(v[b], frag_value<kC>(u[b], j), acc[j]);
       }
     }
   }
   float* wp = W + (size_t)row * k + c0;
-  if constexpr (kVec) {
-    *reinterpret_cast<float4*>(wp) = acc;
-  } else {
-    if (c0 < k) wp[0] = acc.x;
-    if (c0 + 1 < k) wp[1] = acc.y;
-    if (c0 + 2 < k) wp[2] = acc.z;
-    if (c0 + 3 < k) wp[3] = acc.w;
+#pragma unroll
+  for (int h = 0; h < kC / 4; ++h) {
+    if constexpr (kVecW) {
+      if (c0 + 4 * h < k)
+        reinterpret_cast<float4*>(wp)[h] = make_float4(
+            acc[4 * h], acc[4 * h + 1], acc[4 * h + 2], acc[4 * h + 3]);
+    } else {
+#pragma unroll
+      for (int j = 4 * h; j < 4 * h + 4; ++j)
+        if (c0 + j < k) wp[j] = acc[j];
+    }
+  }
+}
+
+// U's bf16 copy: out (n_u, ld) with out[r, c] = U[r, c] rounded to
+// nearest even for c < k and 0 in the pad columns k <= c < ld (ld a
+// multiple of 8). One thread writes 8 values (a 16-byte store) from two
+// 16-byte loads of U when `vec` (k % 4 == 0, U 16-byte aligned) and the
+// group lies inside the row, over a grid that strides the groups.
+__global__ void __launch_bounds__(256)
+round_kernel(const float* __restrict__ U, bf16_bits* __restrict__ out,
+             int n_u, int k, int ld, bool vec) {
+  const int groups = ld / 8;
+  const size_t count = (size_t)n_u * groups;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x; q < count;
+       q += stride) {
+    const size_t r = q / groups;
+    const int c0 = 8 * (int)(q % groups);
+    const float* p = U + r * k + c0;
+    float x[8];
+    if (vec && c0 + 8 <= k) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+      x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[j] = c0 + j < k ? __ldg(p + j) : 0.f;
+    }
+    uint4 w;
+    w.x = bits_bf16(x[0]) | (unsigned)bits_bf16(x[1]) << 16;
+    w.y = bits_bf16(x[2]) | (unsigned)bits_bf16(x[3]) << 16;
+    w.z = bits_bf16(x[4]) | (unsigned)bits_bf16(x[5]) << 16;
+    w.w = bits_bf16(x[6]) | (unsigned)bits_bf16(x[7]) << 16;
+    reinterpret_cast<uint4*>(out + r * ld)[c0 / 8] = w;
   }
 }
 
@@ -239,26 +339,62 @@ inline int rows_per_block(int lanes) {
   return r;
 }
 
-// W (n, k) = A U from the table (the table covers rows [0, n) at least),
-// U (n_u, k); 1 <= k <= kRowsMaxK. Vector loads and stores when k % 4 ==
-// 0 and U and W are 16-byte aligned.
-inline cudaError_t launch_rows(const float* val, const int* idx,
-                               const long long* slice_start, const float* U,
-                               float* W, int n, int n_u, int k,
-                               cudaStream_t s) {
-  if (k < 1 || k > kRowsMaxK || n < 1) return cudaErrorInvalidValue;
-  const int lanes = (k + 3) / 4;
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<size_t>(p) % bytes == 0;
+}
+
+// Row stride of U's bf16 copy: k rounded up to 8 values (16 bytes).
+inline int copy_ld(int k) { return (k + 7) / 8 * 8; }
+
+template <typename ValT, typename UT, bool kVecU, int kC>
+cudaError_t launch_rows_t(const void* val, const int* idx,
+                          const long long* slice_start, const UT* U, int ld,
+                          float* W, int n, int n_u, int k, cudaStream_t s) {
+  const int lanes = (k + kC - 1) / kC;
   const int rows = rows_per_block(lanes);
   const unsigned grid = (unsigned)((n + rows - 1) / rows);
-  const bool vec = k % 4 == 0 && reinterpret_cast<size_t>(U) % 16 == 0
-                   && reinterpret_cast<size_t>(W) % 16 == 0;
-  if (vec)
-    rows_kernel<true><<<grid, rows * lanes, 0, s>>>(val, idx, slice_start, U,
-                                                    W, n, n_u, k, lanes);
+  const ValT* v = static_cast<const ValT*>(val);
+  if (k % 4 == 0 && aligned(W, 16))
+    rows_kernel<ValT, UT, kVecU, true, kC>
+        <<<grid, rows * lanes, 0, s>>>(v, idx, slice_start, U, ld, W, n, n_u,
+                                       k, lanes);
   else
-    rows_kernel<false><<<grid, rows * lanes, 0, s>>>(val, idx, slice_start,
-                                                     U, W, n, n_u, k, lanes);
+    rows_kernel<ValT, UT, kVecU, false, kC>
+        <<<grid, rows * lanes, 0, s>>>(v, idx, slice_start, U, ld, W, n, n_u,
+                                       k, lanes);
   return cudaGetLastError();
+}
+
+// W (n, k) = A U from the table (the table covers rows [0, n) at least),
+// U (n_u, k) fp32; 1 <= k <= kRowsMaxK, on a card of `sms` SMs. An fp32
+// table (val_is_bf16 0) multiplies U as it is. A bf16 table multiplies U
+// rounded to bf16: round_kernel writes the rounded U into U_bf16 ((n_u,
+// copy_ld(k)), 2 bytes a value, 16-byte aligned) first, over at most 16
+// blocks an SM, and the product reads it, 8 columns a lane.
+inline cudaError_t launch_rows(const void* val, int val_is_bf16,
+                               const int* idx, const long long* slice_start,
+                               const float* U, bf16_bits* U_bf16, float* W,
+                               int n, int n_u, int k, int sms,
+                               cudaStream_t s) {
+  if (k < 1 || k > kRowsMaxK || n < 1 || n_u < 1 || sms < 1)
+    return cudaErrorInvalidValue;
+  const bool vec_u = k % 4 == 0 && aligned(U, 16);
+  if (!val_is_bf16) {
+    return vec_u ? launch_rows_t<float, float, true, 4>(
+                       val, idx, slice_start, U, k, W, n, n_u, k, s)
+                 : launch_rows_t<float, float, false, 4>(
+                       val, idx, slice_start, U, k, W, n, n_u, k, s);
+  }
+  if (U_bf16 == nullptr || !aligned(U_bf16, 16)) return cudaErrorInvalidValue;
+  const int ld = copy_ld(k);
+  const size_t groups = (size_t)n_u * (ld / 8);
+  const size_t most = (size_t)sms * 16;
+  const unsigned blocks = (unsigned)std::min((groups + 255) / 256, most);
+  round_kernel<<<blocks, 256, 0, s>>>(U, U_bf16, n_u, k, ld, vec_u);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_rows_t<bf16_bits, bf16_bits, true, 8>(
+      val, idx, slice_start, U_bf16, ld, W, n, n_u, k, s);
 }
 
 }  // namespace nz

@@ -47,6 +47,7 @@ import torch
 
 from eigenpinns_torch.sparse.nonzeros import (
     NarrowTable,
+    band_table,
     check_table,
     launch_rows,
 )
@@ -60,8 +61,10 @@ from eigenpinns_torch.sparse.occupancy import (
 
 # Launches of each CUDA kernel (one per wrapper call that reaches it):
 # K4 on a square operator, K4 on a rectangular block (a shard of the
-# sharded path), K5.
-banded_kernel_launches = {"spmm": 0, "spmm_rect": 0, "spmm_gram": 0}
+# sharded path), K5; "rows" and "rows_bf16" count those of K4's that
+# took the row-wise route over an fp32 and a bf16 table.
+banded_kernel_launches = {"spmm": 0, "spmm_rect": 0, "spmm_gram": 0,
+                          "rows": 0, "rows_bf16": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -87,6 +90,13 @@ def band_occupancy(band: torch.Tensor, tile: int) -> torch.Tensor | None:
     return occupancy_mask(band) if tile == 128 else None
 
 
+def full_band_table(band: torch.Tensor, occupancy: torch.Tensor | None,
+                    starts: torch.Tensor) -> NarrowTable | None:
+    """The nonzero table of a full-window band (values of the band's
+    type, `nonzeros.band_table`), None without an occupancy table."""
+    return None if occupancy is None else band_table(band, occupancy, starts)
+
+
 @dataclasses.dataclass(frozen=True)
 class BandedELL:
     """Row-tiled banded-dense matrix.
@@ -104,6 +114,11 @@ class BandedELL:
             set when the 16 x 16 sub-block (i, j) of that 128 x 128 piece
             of the band holds a nonzero (`occupancy_mask(band)`, taken
             from the band as stored); the CUDA kernels need it
+    narrow: the band's nonzeros as a sliced ELL in the band's type
+            (`full_band_table`: each row in the walk's order of
+            summation), which K4's row-wise route reads; `from_scipy`
+            and `SplitBanded.from_scipy` build it, the shard blocks of
+            the sharded path carry none
     """
 
     band: torch.Tensor
@@ -113,6 +128,7 @@ class BandedELL:
     tile: int
     transpose_banded: "BandedELL | None" = None
     occupancy: torch.Tensor | None = None
+    narrow: NarrowTable | None = None
 
     @property
     def bandwidth(self) -> int:
@@ -190,8 +206,10 @@ class BandedELL:
                     reorder=False, max_bandwidth=max_bandwidth,
                     with_transpose=False)[0]
 
-        op = cls(band, torch.as_tensor(starts, device=band.device), n, n,
-                 tile, transpose, band_occupancy(band, tile))
+        starts = torch.as_tensor(starts, device=band.device)
+        occupancy = band_occupancy(band, tile)
+        op = cls(band, starts, n, n, tile, transpose, occupancy,
+                 full_band_table(band, occupancy, starts))
         return op, perm
 
 
@@ -237,7 +255,8 @@ def build_kernel() -> ctypes.CDLL:
     lib.epk_banded_spmm.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i,
                                     i, i, i, i, p]
     lib.epk_banded_spmm_rows.restype = i
-    lib.epk_banded_spmm_rows.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.epk_banded_spmm_rows.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
+                                         p]
     lib.epk_banded_error_string.restype = ctypes.c_char_p
     lib.epk_banded_error_string.argtypes = [i]
     return lib
@@ -253,11 +272,11 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
     as zero) or a rolling band (`starts` None, windows `pre` rows above
     their tile; U has n rows). The Gram takes U with n rows. The route
     and grid come from `band_grid` (`col_block`, `warps` and `route`
-    force them); `table`, the band's nonzero table (fp32 bands), makes
-    the row-wise route available. Checks what both layouts share (the
-    band, its occupancy table, U, the grid), allocates the outputs and
-    raises when the launch fails. Returns (W, G, route); G is None
-    without `with_gram`."""
+    force them); `table`, the band's nonzero table (values of the
+    band's type), makes the row-wise route available. Checks
+    what both layouts share (the band, its occupancy table, U, the
+    grid), allocates the outputs and raises when the launch fails.
+    Returns (W, G, route); G is None without `with_gram`."""
     if occ is None:
         raise ValueError("the band kernels need the band's occupancy "
                          "table (from_scipy makes it; "
@@ -290,9 +309,10 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
     k = U.shape[1]
     route, col_block, warps = band_grid(
         n_pad // 128, k, band.dtype, sm_count(U.device), with_gram,
-        col_block, warps, route, rows=table is not None)
+        col_block, warps, route, rows=table is not None,
+        window=None if starts is None else B)
     if route == "rows":
-        check_table(table, n, band.device)
+        check_table(table, n, band.device, band.dtype)
         lib = build_kernel()
         W, err = launch_rows(
             lib.epk_banded_spmm_rows, table, U, n,
@@ -333,9 +353,11 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
     G = U^T A U (K5). K4 takes a rectangular block too, with U of any
     length >= 1 (rows past U's end read as zero); K5 takes a square
     operator only. `col_block` (32 or 64 output columns per block),
-    `warps` and `route` default to `band_grid`'s choice and give the
-    same bits whatever they are. Raises on anything the kernels do not
-    take."""
+    `warps` and `route` default to `band_grid`'s choice (the row-wise
+    route over `A.narrow` where it applies) and give the same bits
+    whatever they are on an fp32 band; on a bf16 band the row-wise route
+    sums in another order than the walk. Raises on anything the kernels
+    do not take."""
     band, starts = A.band, A.starts
     n_pad = band.shape[0]
     if A.tile != 128:
@@ -348,10 +370,14 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
             or starts.device != band.device or not starts.is_contiguous()):
         raise ValueError("starts must be contiguous int32 (n_pad / 128,) "
                          "on the band's device")
-    W, G, _ = launch_band_kernel(band, starts, 0, A.occupancy, U, A.n,
-                              with_gram, col_block, warps, route)
+    W, G, route = launch_band_kernel(band, starts, 0, A.occupancy, U, A.n,
+                                     with_gram, col_block, warps, route,
+                                     A.narrow)
     banded_kernel_launches["spmm_gram" if with_gram else
                            "spmm" if A.n == A.n_cols else "spmm_rect"] += 1
+    if route == "rows":
+        banded_kernel_launches["rows" if band.dtype == torch.float32
+                               else "rows_bf16"] += 1
     return (W, G) if with_gram else W
 
 

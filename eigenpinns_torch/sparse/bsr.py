@@ -27,7 +27,10 @@ the operator's nonzeros as a sliced ELL instead (`NarrowTable`, built
 from the strips: `sparse/nonzeros.py`), summed in the walk's order, so W
 has the walk's bits: the narrow path (one lane a row) at k <=
 NARROW_MAX_K, the row-wise route (ceil(k / 4) lanes a row) up to
-ROWS_MAX_K (`strip_route`). CPU tensors take
+ROWS_MAX_K (`strip_route`). On bf16 strips they take the row-wise route
+over the table's bf16 twin at BF16_ROWS_K: U rounded to bf16, fp32 sums
+in the table's order (not the walk's tensor-core order). CPU tensors
+take
 `bsr_spmm_plain`, the plain torch version of the same function. A CUDA
 tensor always reaches a kernel or raises.
 
@@ -53,6 +56,7 @@ from eigenpinns_torch.sparse.nonzeros import (
     check_table,
     launch_rows,
     piece_table,
+    table_hbm_bytes,
     table_spmm_plain,
 )
 from eigenpinns_torch.sparse.occupancy import (
@@ -65,29 +69,36 @@ from eigenpinns_torch.sparse.occupancy import sm_count as _sm_count
 PRECISIONS = ("highest", "high", "bf16")
 
 # Launches of each CUDA kernel (one per wrapper call that reaches it);
-# "narrow" and "rows" count those of them that took the narrow path and
-# the row-wise route.
-bsr_kernel_launches = {"grouped": 0, "burst": 0, "narrow": 0, "rows": 0}
+# "narrow", "rows" and "rows_bf16" count those of them that took the
+# narrow path, the row-wise route on fp32 strips and on bf16 strips.
+bsr_kernel_launches = {"grouped": 0, "burst": 0, "narrow": 0, "rows": 0,
+                       "rows_bf16": 0}
 
 # Routes of a launch on fp32 strips with col_block=None (`strip_route`):
 # the narrow path up to NARROW_MAX_K, the row-wise route from there to
 # ROWS_MAX_K, the column-block walk past it.
 NARROW_MAX_K = 8
 ROWS_MAX_K = 128
+# Widths at which bf16 strips with col_block=None take the row-wise route
+# over their bf16 table, U fed by its bf16 copy; the walk (tensor cores)
+# elsewhere. It beats the walk at every width measured: on the 300k K at
+# k = 8, 12, 20, 28, 60, 84, 128 0.0225 / 0.0971, 0.0356 / 0.1035, 0.0518
+# / 0.1175, 0.0702 / 0.1352, 0.1376 / 0.2566, 0.1813 / 0.3568, 0.2709 /
+# 0.4996 ms, on the 1M K at k = 20, 28, 84 0.1563 / 0.3602, 0.2243 /
+# 0.4151, 0.5824 / 1.1465 (on the card, NVIDIA H100 80GB HBM3, 700.00 W,
+# polish_products.py --tables).
+BF16_ROWS_K = (8, 128)
 STRIP_ROUTES = ("narrow", "rows", "walk")
 
 
 def narrow_table(data: torch.Tensor, occupancy: torch.Tensor,
                  rowid: torch.Tensor, cid: torch.Tensor,
                  n_row_tiles: int) -> NarrowTable:
-    """The `NarrowTable` of fp32 strips, built on their device from the
-    strips and the occupancy table: slot j of chunk s is piece s C + j,
-    rows of row tile rowid[s], U rows from 128 cid[s, j]; each row lists
-    its nonzeros by chunk, slot, sub-block column and column, the walk's
-    order (`nonzeros.piece_table`)."""
-    if data.dtype != torch.float32:
-        raise ValueError(f"the narrow table lists fp32 strips, got "
-                         f"{data.dtype}")
+    """The `NarrowTable` of fp32 or bf16 strips (values of their type),
+    built on their device from the strips and the occupancy table: slot
+    j of chunk s is piece s C + j, rows of row tile rowid[s], U rows from
+    128 cid[s, j]; each row lists its nonzeros by chunk, slot, sub-block
+    column and column, the walk's order (`nonzeros.piece_table`)."""
     C = cid.shape[1]
     return piece_table(data, occupancy,
                        rowid.long().repeat_interleave(C),
@@ -95,9 +106,8 @@ def narrow_table(data: torch.Tensor, occupancy: torch.Tensor,
 
 
 def _narrow_of(data, occupancy, rowid, cid, n_row_tiles):
-    """The narrow table of fp32 strips with an occupancy table, else
-    None."""
-    if data.dtype != torch.float32 or occupancy is None:
+    """The narrow table of strips with an occupancy table, else None."""
+    if occupancy is None:
         return None
     return narrow_table(data, occupancy, rowid, cid, n_row_tiles)
 
@@ -123,9 +133,9 @@ class BSRTile:
     occupancy: (S, C) int64 — bit 8 i + j of a slot's word is set when
           the 16 x 16 sub-block (i, j) of its tile holds a nonzero
           (`occupancy_mask(data)`); the CUDA kernels need it
-    narrow: the nonzeros of fp32 strips as a sliced ELL
-          (`narrow_table`), which the narrow path reads; None with bf16
-          strips
+    narrow: the nonzeros of the strips as a sliced ELL in the strips'
+          type (`narrow_table`), which the narrow path and the row-wise
+          route read
 
     Every array lives on one device. 'highest' and 'high' are both exact
     fp32 here; 'bf16' stores bf16 strips, rounds U to bf16 and
@@ -157,19 +167,19 @@ class BSRTile:
         upcast that keeps the bf16 rounding) fp32 strips. The occupancy
         table is kept: rounding to bf16 can only turn a nonzero into a
         zero, and the upcast turns none, so the table of the source
-        strips covers every nonzero of the copy. The narrow table goes
-        with the strips: kept with the same fp32 strips, rebuilt from
-        converted fp32 strips, None with bf16 ones."""
+        strips covers every nonzero of the copy. So is the narrow
+        table's layout: its values are converted as the strips are
+        (`NarrowTable.with_values`), sharing its indices and slice
+        starts."""
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         t = (None if self.transpose_bsr is None
              else self.transpose_bsr.with_precision(precision))
         dtype = torch.bfloat16 if precision == "bf16" else torch.float32
         data = self.data.to(dtype)
-        narrow = self.narrow
-        if data is not self.data:
-            narrow = _narrow_of(data, self.occupancy, self.rowid, self.cid,
-                                self.n_row_tiles)
+        narrow = (self.narrow.with_values(dtype) if self.narrow is not None
+                  else _narrow_of(data, self.occupancy, self.rowid,
+                                  self.cid, self.n_row_tiles))
         return dataclasses.replace(self, data=data, mxu_precision=precision,
                                    transpose_bsr=t, narrow=narrow)
 
@@ -406,7 +416,7 @@ def build_kernel() -> ctypes.CDLL:
     lib.epk_bsr_spmm_narrow.restype = i
     lib.epk_bsr_spmm_narrow.argtypes = [p, p, p, i, p, p, i, i, p]
     lib.epk_bsr_spmm_rows.restype = i
-    lib.epk_bsr_spmm_rows.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.epk_bsr_spmm_rows.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
     lib.epk_bsr_error_string.restype = ctypes.c_char_p
     lib.epk_bsr_error_string.argtypes = [i]
     return lib
@@ -431,26 +441,31 @@ def walk_grid(A: BSRTile, k: int, col_block: int | None = None) -> tuple:
 
 def strip_route(dtype: torch.dtype, k: int, col_block: int | None = None,
                 route: str | None = None) -> str:
-    """The route of a strip-BSR launch of width k on strips of `dtype`:
-    on fp32 strips with `col_block` None, the narrow path (one lane a
+    """The route of a strip-BSR launch of width k on strips of `dtype`,
+    with `col_block` None: on fp32 strips the narrow path (one lane a
     row) for k <= NARROW_MAX_K and the row-wise route (ceil(k / 4) lanes
-    a row) up to ROWS_MAX_K, both over the operator's narrow table; the
-    column-block walk otherwise. Every route gives the same bits. An
+    a row) up to ROWS_MAX_K, on bf16 strips the row-wise route at
+    BF16_ROWS_K, all over the operator's narrow table; the column-block
+    walk otherwise. On fp32 strips every route gives the same bits. An
     explicit `col_block` forces the walk; `route` forces one, and raises
-    where the kernels cannot take it (the table's routes need fp32
-    strips, the narrow path k <= NARROW_MAX_K)."""
+    where the kernels cannot take it (the narrow path needs fp32 strips
+    and k <= NARROW_MAX_K, the table's routes no col_block)."""
     if route is None:
-        if col_block is not None or dtype != torch.float32:
+        if col_block is not None:
             return "walk"
+        if dtype == torch.bfloat16:
+            return ("rows" if BF16_ROWS_K[0] <= k <= BF16_ROWS_K[1]
+                    else "walk")
         return ("narrow" if k <= NARROW_MAX_K
                 else "rows" if k <= ROWS_MAX_K else "walk")
     if route not in STRIP_ROUTES:
         raise ValueError(f"route must be one of {STRIP_ROUTES}, got "
                          f"{route!r}")
-    if route != "walk" and (dtype != torch.float32 or col_block is not None):
-        raise ValueError(f"the {route} route reads the narrow table of fp32 "
-                         f"strips and takes no col_block (got {dtype}, "
-                         f"col_block {col_block})")
+    if route != "walk" and col_block is not None:
+        raise ValueError(f"the {route} route reads the narrow table and "
+                         f"takes no col_block (got col_block {col_block})")
+    if route == "narrow" and dtype != torch.float32:
+        raise ValueError(f"the narrow path reads fp32 strips, got {dtype}")
     if (route == "narrow" and k > NARROW_MAX_K
             or route == "rows" and k > ROWS_KERNEL_MAX_K):
         raise ValueError(f"the {route} route takes k <= "
@@ -488,7 +503,7 @@ def _check_operator(A: BSRTile) -> None:
         raise ValueError("layout tables must be contiguous int32 on the "
                          "strips' device")
     if A.narrow is not None:
-        check_table(A.narrow, A.n, data.device)
+        check_table(A.narrow, A.n, data.device, data.dtype)
 
 
 def _launch(A: BSRTile, U: torch.Tensor, grouped: bool,
@@ -505,8 +520,7 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool,
     k = U.shape[1]
     route = strip_route(A.data.dtype, k, col_block, route)
     if route != "walk" and A.narrow is None:
-        raise ValueError(f"the {route} route (fp32 strips, k <= "
-                         f"{ROWS_MAX_K}) needs the operator's narrow "
+        raise ValueError(f"the {route} route needs the operator's narrow "
                          "table (BSRTile.from_scipy and with_precision "
                          "build it; narrow_table(...) for a hand-made "
                          "operator)")
@@ -553,7 +567,8 @@ def _launch(A: BSRTile, U: torch.Tensor, grouped: bool,
                            + lib.epk_bsr_error_string(err).decode())
     bsr_kernel_launches["grouped" if grouped else "burst"] += 1
     if route != "walk":
-        bsr_kernel_launches[route] += 1
+        bsr_kernel_launches[route if A.data.dtype == torch.float32
+                            else "rows_bf16"] += 1
     return W
 
 
@@ -565,10 +580,11 @@ def bsr_spmm_grouped_cuda(A: BSRTile, U: torch.Tensor,
     column tiles through `gcid`/`lcid`/`gid`, occupied sub-blocks only.
     With `col_block` None, fp32 strips take the narrow path (k <=
     NARROW_MAX_K) or the row-wise route (k <= ROWS_MAX_K) over the
-    operator's narrow table (`strip_route`; the same bits); otherwise
-    `col_block` (32 or 64 output columns per block) and `warps` (stripes
-    per block: 8, 4 or 2) default to `walk_grid`'s; every choice gives
-    the same bits. `route` forces a route."""
+    operator's narrow table (`strip_route`; the same bits), bf16 strips
+    the row-wise route at BF16_ROWS_K; otherwise `col_block` (32 or 64
+    output columns per block) and `warps` (stripes per block: 8, 4 or 2)
+    default to `walk_grid`'s; every grid gives the same bits. `route`
+    forces a route."""
     return _launch(A, U, grouped=True, col_block=col_block, warps=warps,
                    route=route)
 
@@ -600,20 +616,17 @@ def _impl(A: BSRTile, U: torch.Tensor) -> torch.Tensor:
 def bsr_spmm_hbm_bytes(A: BSRTile, k: int) -> int:
     """Bytes one `bsr_spmm(A, U)` with an (n_cols, k) fp32 U moves through
     the kernel `_impl` dispatches. The narrow path and the row-wise route
-    (fp32 strips, k <= ROWS_MAX_K): every entry of the narrow table,
-    padding included (a 4-byte value and a 4-byte U row), the slice
-    starts, each nonzero's U row (k fp32) and W written once. The column-block walk: for every
-    occupied 16 x 16 sub-block, its 256 strip values and the 16 x k fp32
-    U rows it multiplies; for every slot, pad slots too, its 8-byte
-    occupancy word and its 4-byte column entry (`cid`, or `lcid` with the
-    group tables `gcid` and `gid` on top); then `first_chunk_of_row`, and
-    W written once. A sub-block and its U rows count once per product:
-    the column blocks of a row tile are launched next to each other and
-    share them through L2. No lane padding: the kernels mask k."""
+    (`strip_route`): `nonzeros.table_hbm_bytes` of the narrow table. The
+    column-block walk: for every occupied 16 x 16
+    sub-block, its 256 strip values and the 16 x k fp32 U rows it
+    multiplies; for every slot, pad slots too, its 8-byte occupancy word
+    and its 4-byte column entry (`cid`, or `lcid` with the group tables
+    `gcid` and `gid` on top); then `first_chunk_of_row`, and W written
+    once. A sub-block and its U rows count once per product: the column
+    blocks of a row tile are launched next to each other and share them
+    through L2. No lane padding: the kernels mask k."""
     if strip_route(A.data.dtype, k) != "walk":
-        t = A.narrow
-        return int(t.val.numel() * 8 + t.slice_start.numel() * 8
-                   + t.nnz * k * 4 + A.n * k * 4)
+        return table_hbm_bytes(A.narrow, k, A.n, A.n_cols)
     sub_b = 16 * 16 * A.data.element_size() + 16 * k * 4
     tables = A.n_chunks * A.chunk * (8 + 4) + (A.n_row_tiles + 1) * 4
     if A.gcid is not None:

@@ -12,6 +12,13 @@ pieces of the table in order, then the sub-block's column group, then
 the column), so that a kernel that chains each output's FFMA over its
 row's entries gives the walk's bits.
 
+A bf16 layout's table holds bf16 values (2 bytes each): the kernel
+multiplies them by U rounded to bf16 and sums in fp32, what 'bf16' means
+for the walk, though not in the walk's order (its tensor-core products
+sum 16 terms an instruction). `NarrowTable.with_values` derives it from
+the fp32 table, as `with_precision` rounds the layout; a bf16 build
+lists its own layout's nonzeros.
+
 `piece_table` builds it on the layout's device for either format from
 the dense tensor, its occupancy table and where each 128 x 128 piece
 sits in the matrix; `band_table` gives a band's pieces (full window or
@@ -26,7 +33,7 @@ import dataclasses
 
 import torch
 
-from eigenpinns_torch.sparse.occupancy import ROWS_KERNEL_MAX_K
+from eigenpinns_torch.sparse.occupancy import ROWS_KERNEL_MAX_K, sm_count
 
 SLICE = 32        # rows of a slice of the table: one a lane
 
@@ -37,7 +44,7 @@ _GATHER = 1 << 16
 
 @dataclasses.dataclass(frozen=True)
 class NarrowTable:
-    """The nonzeros of an fp32 tiled operator as a sliced ELL.
+    """The nonzeros of a tiled operator as a sliced ELL.
 
     Slice i holds rows [32 i, 32 i + 32); its entries are
     [slice_start[i], slice_start[i + 1]), 32 times the slice's widest
@@ -48,7 +55,9 @@ class NarrowTable:
     a band: its window's 128-column pieces), then the sub-block's column
     group, then the column inside it. Padding has value 0 and index -1.
 
-    val: (L,) float32, the layout's values bit for bit
+    val: (L,) float32 or bfloat16, the layout's values bit for bit (a
+         bf16 table may list a value that rounded to 0 from the fp32
+         table it came from: `with_values`)
     idx: (L,) int32, the U row each value multiplies (-1: padding)
     slice_start: (n_slices + 1,) int64
     """
@@ -65,20 +74,31 @@ class NarrowTable:
     def nnz(self) -> int:
         return int((self.idx >= 0).sum())
 
+    def with_values(self, dtype: torch.dtype) -> "NarrowTable":
+        """The same table with its values in `dtype` (to bf16: rounded to
+        nearest even, as the layout's own conversion rounds), sharing
+        `idx` and `slice_start`; every entry stays, a value rounded to 0
+        too, so the table still lists the nonzeros of the layout it came
+        from."""
+        if self.val.dtype == dtype:
+            return self
+        return dataclasses.replace(self, val=self.val.to(dtype))
+
 
 def piece_table(dense: torch.Tensor, occupancy: torch.Tensor,
                 row_tile: torch.Tensor, u_base: torch.Tensor,
                 n_rows: int) -> NarrowTable:
-    """The `NarrowTable` of an fp32 layout of 128 x 128 pieces, built on
-    its device. `dense` is (R * 128, Q * 128) and `occupancy` its (R, Q)
-    table; piece q = Q r + p (rows [128 r, 128 r + 128), columns [128 p,
-    128 p + 128) of `dense`) holds rows [128 row_tile[q], + 128) of the
-    matrix, its column c multiplies U row u_base[q] + c. Rows are listed
-    in piece order, then column (the walk's order); the table covers
-    `n_rows` rows (a multiple of 32). The occupied sub-blocks are
-    gathered, their nonzeros listed and sorted into that order."""
-    if dense.dtype != torch.float32:
-        raise ValueError(f"the nonzero table lists fp32 values, got "
+    """The `NarrowTable` of an fp32 or bf16 layout of 128 x 128 pieces,
+    built on its device, with values of the layout's type. `dense` is
+    (R * 128, Q * 128) and `occupancy` its (R, Q) table; piece q = Q r + p
+    (rows [128 r, 128 r + 128), columns [128 p, 128 p + 128) of `dense`)
+    holds rows [128 row_tile[q], + 128) of the matrix, its column c
+    multiplies U row u_base[q] + c. Rows are listed in piece order, then
+    column (the walk's order); the table covers `n_rows` rows (a multiple
+    of 32). The occupied sub-blocks are gathered, their nonzeros listed
+    and sorted into that order."""
+    if dense.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the nonzero table lists fp32 or bf16 values, got "
                          f"{dense.dtype}")
     R, Q = occupancy.shape
     T, sub = 128, 16
@@ -123,9 +143,9 @@ def piece_table(dense: torch.Tensor, occupancy: torch.Tensor,
     rank = torch.arange(row.numel(), device=device) - first[row]
     dest = slice_start[row // SLICE] + rank * SLICE + row % SLICE
     L = int(slice_start[-1])
-    val = torch.zeros(L, dtype=torch.float32, device=device)
+    val = torch.zeros(L, dtype=dense.dtype, device=device)
     idx = torch.full((L,), -1, dtype=torch.int32, device=device)
-    val[dest] = cat(vals, torch.float32)[order]
+    val[dest] = cat(vals, dense.dtype)[order]
     idx[dest] = cat(cols, torch.int64)[order].int()
     return NarrowTable(val, idx, slice_start)
 
@@ -133,7 +153,7 @@ def piece_table(dense: torch.Tensor, occupancy: torch.Tensor,
 def band_table(band: torch.Tensor, occupancy: torch.Tensor,
                starts: torch.Tensor | None = None,
                pre: int = 0) -> NarrowTable:
-    """The `NarrowTable` of an fp32 band of 128-row tiles, (n_pad, B) with
+    """The `NarrowTable` of a band of 128-row tiles, (n_pad, B) with
     its (n_pad / 128, B / 128) occupancy table: a full-window band
     (`starts`: piece p of tile t multiplies U rows starts[t] + 128 p
     onward) or a rolling band (`starts` None: U rows 128 t - pre +
@@ -155,8 +175,12 @@ def band_table(band: torch.Tensor, occupancy: torch.Tensor,
 
 def table_spmm_plain(t: NarrowTable, U: torch.Tensor, n: int) -> torch.Tensor:
     """W (n, k) = A U in fp32 read from a table, summed by `index_add_` in
-    no fixed order; U rows at or past U's end read as zero."""
+    no fixed order; U rows at or past U's end read as zero. A bf16 table
+    multiplies U rounded to bf16, as the kernel does."""
     k = U.shape[1]
+    Uf = U.float()
+    if t.val.dtype == torch.bfloat16:
+        Uf = Uf.bfloat16().float()
     width = (t.slice_start[1:] - t.slice_start[:-1]) // SLICE
     slice_of = torch.repeat_interleave(
         torch.arange(t.n_slices, device=U.device), width * SLICE)
@@ -166,36 +190,69 @@ def table_spmm_plain(t: NarrowTable, U: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.zeros((t.n_slices * SLICE, k), dtype=torch.float32,
                       device=U.device)
     out.index_add_(0, row[live],
-                   t.val[live, None] * U.float()[t.idx[live].long()])
+                   t.val[live, None].float() * Uf[t.idx[live].long()])
     return out[:n].to(U.dtype)
 
 
-def check_table(t: NarrowTable, n: int, device: torch.device) -> None:
+def check_table(t: NarrowTable, n: int, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> None:
     """Raises ValueError when the kernels cannot read `t` for n rows on
-    `device`."""
-    if not (t.val.dtype == torch.float32 and t.idx.dtype == torch.int32
+    `device` as a table of `dtype` values (the layout's type)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the nonzero table holds fp32 or bf16 values, got "
+                         f"{dtype}")
+    if not (t.val.dtype == dtype and t.idx.dtype == torch.int32
             and t.slice_start.dtype == torch.int64
             and t.val.shape == t.idx.shape
             and t.n_slices * SLICE >= n
             and all(x.device == device and x.is_contiguous()
                     for x in (t.val, t.idx, t.slice_start))):
-        raise ValueError("the nonzero table must hold contiguous float32 "
+        raise ValueError(f"the nonzero table must hold contiguous {dtype} "
                          "values, int32 U rows and int64 slice starts for "
                          "every row, on the layout's device")
+
+
+def table_hbm_bytes(t: NarrowTable, k: int, n: int, n_u: int) -> int:
+    """Bytes the row-wise route moves for one (n, k) product over table
+    `t` with a U of n_u rows: every entry, padding included (its value,
+    4 or 2 bytes, and a 4-byte U row), the slice starts, each nonzero's
+    U row (k fp32; for a bf16 table, its padded row of `copy_ld(k)` bf16
+    in U's bf16 copy, after the rounding pass has read U and written the
+    copy) and W written once."""
+    u_row, out = 4 * k, 0
+    if t.val.dtype == torch.bfloat16:
+        ld = copy_ld(k)
+        u_row, out = 2 * ld, n_u * (4 * k + 2 * ld)
+    return int(out + t.val.numel() * (t.val.element_size() + 4)
+               + t.slice_start.numel() * 8 + t.nnz * u_row + n * k * 4)
+
+
+def copy_ld(k: int) -> int:
+    """Row stride of U's bf16 copy for a product of width k: k rounded up
+    to 8 values, so that each row starts on 16 bytes and a lane reads 8
+    columns in one load (csrc/nonzero_spmm.cuh, `copy_ld`)."""
+    return -(-k // 8) * 8
 
 
 def launch_rows(fn, t: NarrowTable, U: torch.Tensor, n: int,
                 stream: int) -> torch.Tensor:
     """(W, err): W (n, k) = A U launched by the row-wise kernel (`fn`, a
-    library's C entry of signature (val, idx, slice_start, U, W, n, n_u,
-    k, stream)) over the table, and the CUDA error code of the launch,
-    which the caller turns into its library's message. The caller checks
-    the table and U."""
+    library's C entry of signature (val, val_is_bf16, idx, slice_start,
+    U, U_bf16, W, n, n_u, k, sms, stream)) over the table, and the CUDA
+    error code of the launch, which the caller turns into its library's
+    message. A bf16 table multiplies U rounded to bf16: this allocates
+    the (n_u, copy_ld(k)) bf16 copy of U that the kernel's rounding pass
+    writes and its product reads. The caller checks the table and U."""
     k = U.shape[1]
     if not 1 <= k <= ROWS_KERNEL_MAX_K:
         raise ValueError(f"the row-wise kernel takes 1 <= k <= "
                          f"{ROWS_KERNEL_MAX_K}, got {k}")
+    bf16 = t.val.dtype == torch.bfloat16
+    copy = (torch.empty((U.shape[0], copy_ld(k)), dtype=torch.bfloat16,
+                        device=U.device) if bf16 else None)
     W = torch.empty((n, k), dtype=torch.float32, device=U.device)
-    err = fn(t.val.data_ptr(), t.idx.data_ptr(), t.slice_start.data_ptr(),
-             U.data_ptr(), W.data_ptr(), n, U.shape[0], k, stream)
+    err = fn(t.val.data_ptr(), int(bf16), t.idx.data_ptr(),
+             t.slice_start.data_ptr(), U.data_ptr(),
+             None if copy is None else copy.data_ptr(), W.data_ptr(), n,
+             U.shape[0], k, sm_count(U.device), stream)
     return W, err

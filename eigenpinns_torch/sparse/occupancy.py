@@ -96,14 +96,35 @@ def default_col_block(k: int, dtype: torch.dtype) -> int:
 
 BAND_ROUTES = ("staged", "walk", "rows")
 
-# Widths at which an fp32 band with a nonzero table (`RollingBanded.narrow`)
-# takes the row-wise route by default, without the Gram: on the 300k
-# rolling band it beats the staged route and the walk at k = 20, 28, 60,
-# 84 and 128 (0.0452 / 0.1458, 0.0750 / 0.1498, 0.1415 / 0.1986, 0.1812 /
-# 0.4646, 0.2692 / 0.4680 ms on the card, NVIDIA H100 80GB HBM3, 700.00
-# W, polish_products.py), as the strip-BSR route does from k = 9
-# (`bsr.strip_route`).
+# Widths at which an fp32 rolling band with a nonzero table
+# (`RollingBanded.narrow`) takes the row-wise route by default, without
+# the Gram: on the 300k rolling band it beats the staged route and the
+# walk at k = 20, 28, 60, 84 and 128 (0.0452 / 0.1458, 0.0750 / 0.1498,
+# 0.1415 / 0.1986, 0.1812 / 0.4646, 0.2692 / 0.4680 ms on the card,
+# NVIDIA H100 80GB HBM3, 700.00 W, polish_products.py), as the strip-BSR
+# route does from k = 9 (`bsr.strip_route`).
 BAND_ROWS_K = (9, 128)
+
+# Widths at which a full-window band with its nonzero table
+# (`BandedELL.narrow`) takes the row-wise route by default, without the
+# Gram, by the band's type: the span of the widths at which it beats the
+# route it replaces on the paths' operators (on the card, NVIDIA H100
+# 80GB HBM3, 700.00 W). fp32, against the staged route (the walk at 84):
+# the 300k Hilbert core (window 512) at k = 20, 28, 84 0.0444 / 0.1022,
+# 0.0739 / 0.1040, 0.1826 / 0.3460 ms (polish_products.py --tables); the
+# 300k and 1M cluster cores (window 1024) at k = 20 0.0451 / 0.1303 and
+# 0.1375 / 0.4110, at k = 60 0.1435 / 0.1641 and 0.4659 / 0.5304
+# (chip_smoke.py). bf16, against the tensor-core walk: the Hilbert core
+# at k = 20 and 28, 0.0513 / 0.0833 and 0.0691 / 0.0982
+# (polish_products.py --tables).
+FULL_ROWS_K = {torch.float32: (20, 84), torch.bfloat16: (20, 28)}
+
+# Narrowest window (band columns) on which an fp32 full-window band takes
+# the row-wise route where the staged route would run one block of 64
+# columns (32 < k <= 64): there the route wins on the cluster cores
+# (window 1024) at k = 60, as above, and loses on the Hilbert core
+# (window 512), 0.1415 / 0.1309 ms (polish_products.py --tables).
+FULL_ROWS_MIN_WINDOW_64 = 1024
 
 # Widest product the row-wise kernel takes (csrc/nonzero_spmm.cuh,
 # kRowsMaxK).
@@ -113,7 +134,8 @@ ROWS_KERNEL_MAX_K = 256
 def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
               with_gram: bool = False, col_block: int | None = None,
               warps: int | None = None, route: str | None = None,
-              rows: bool = False) -> tuple[str, int, int]:
+              rows: bool = False,
+              window: int | None = None) -> tuple[str, int, int]:
     """(route, col_block, warps) of one launch of the band kernels
     (`csrc/banded_spmm.cu`) on a band of `n_tiles` 128-row tiles, for a
     product of width k on a card of `sms` SMs.
@@ -135,12 +157,18 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     k past the column block: k = 84 and 128 run two blocks of 64
     columns) takes the column-block walk, 8 stripes a block, one column
     block each. Before all of these, a band that carries a nonzero table
-    (`rows`: an fp32 rolling band) takes the row-wise route over it,
-    ceil(k / 4) lanes a row, where k lies in BAND_ROWS_K and there is no
-    Gram (the polish's K X and K S on the 300k rolling band, k = 28 and
-    84), unless a `col_block` or `warps` is given (they name a grid of
-    the block routes). Every choice sums each output in the same order,
-    so W has the same bits.
+    (`rows`) takes the row-wise route over it, ceil(k / 4) lanes a row,
+    without the Gram and where k lies in the widths of its kind: an fp32
+    rolling band in BAND_ROWS_K (the polish's K X and K S on the 300k
+    rolling band, k = 28 and 84), a full-window band (a `BandedELL`,
+    whose `window`, its band's columns, is given) in FULL_ROWS_K of its
+    type, in fp32 where the staged route would run one block of 64
+    columns only on a window of FULL_ROWS_MIN_WINDOW_64 columns or more;
+    unless a `col_block` or `warps` is given (they name a grid of the
+    block routes). On an fp32
+    band every choice sums each output in the same order, so W has the
+    same bits; on a bf16 band the row-wise route sums the exact products
+    in another order than the walk's tensor cores.
     `warps` and `route` force a choice (the card tests and
     chip_smoke.py use them); one the kernels cannot take raises."""
     blocks_given = col_block is not None or warps is not None
@@ -150,10 +178,15 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
         raise ValueError(f"col_block must be 32 or 64, got {col_block}")
     can_stage = dtype == torch.float32 and k <= col_block
     small = n_tiles < 2 * sms
+    if window is not None:
+        lo, hi = FULL_ROWS_K.get(dtype, (1, 0))
+        if (can_stage and col_block == 64
+                and window < FULL_ROWS_MIN_WINDOW_64):
+            lo, hi = 1, 0
+    else:
+        lo, hi = BAND_ROWS_K if dtype == torch.float32 else (1, 0)
     if route is None:
-        if (rows and dtype == torch.float32 and not with_gram
-                and not blocks_given
-                and BAND_ROWS_K[0] <= k <= BAND_ROWS_K[1]):
+        if rows and not with_gram and not blocks_given and lo <= k <= hi:
             route = "rows"
         else:
             route = ("staged" if can_stage and not (
@@ -161,13 +194,13 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     if route not in BAND_ROUTES:
         raise ValueError(f"route must be one of {BAND_ROUTES}, got {route!r}")
     if route == "rows":
-        if not (rows and dtype == torch.float32 and not with_gram
-                and k <= ROWS_KERNEL_MAX_K and warps is None):
+        if not (rows and not with_gram and k <= ROWS_KERNEL_MAX_K
+                and warps is None):
             raise ValueError(
-                "the row-wise route takes an fp32 band with its nonzero "
-                f"table, no Gram, k <= {ROWS_KERNEL_MAX_K} and no warps "
-                f"(got {dtype}, table {rows}, with_gram={with_gram}, k = "
-                f"{k}, warps {warps})")
+                "the row-wise route takes a band with its nonzero table, "
+                f"no Gram, k <= {ROWS_KERNEL_MAX_K} and no warps (got "
+                f"{dtype}, table {rows}, with_gram={with_gram}, k = {k}, "
+                f"warps {warps})")
         return route, col_block, 8
     if route == "staged" and not can_stage:
         raise ValueError("the staged route takes an fp32 band and k <= "

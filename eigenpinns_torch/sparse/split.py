@@ -8,8 +8,8 @@ operator is decomposed as
     A = A_band + A_rem
 
 where A_band holds every entry inside a capped, row-centred window of
-each 128-row tile (a `BandedELL` core: kernels K4/K5 of
-`csrc/banded_spmm.cu`) and A_rem the few entries outside it (a
+each 128-row tile (a `BandedELL` core with its nonzero table: kernels
+K4/K5 of `csrc/banded_spmm.cu`) and A_rem the few entries outside it (a
 `SparseELL`, gather SpMM with its scatter-free backward pass). The host
 layout is the JAX package's, byte for byte; the orderings are numpy
 copies of its host code.
@@ -28,6 +28,7 @@ from eigenpinns_torch.sparse.banded import (
     band_occupancy,
     banded_spmm,
     banded_spmm_gram,
+    full_band_table,
     scatter_band,
 )
 from eigenpinns_torch.sparse.formats import SparseELL
@@ -207,9 +208,10 @@ class SplitBanded:
 
         band = scatter_band(coo.row[in_band], local[in_band],
                             coo.data[in_band], (n_pad, B), dtype, device)
-        core = BandedELL(band, torch.as_tensor(starts.astype(np.int32),
-                                               device=band.device),
-                         n, n, tile, occupancy=band_occupancy(band, tile))
+        starts = torch.as_tensor(starts.astype(np.int32), device=band.device)
+        occupancy = band_occupancy(band, tile)
+        core = BandedELL(band, starts, n, n, tile, occupancy=occupancy,
+                         narrow=full_band_table(band, occupancy, starts))
 
         remainder = None
         if int((~in_band).sum()):

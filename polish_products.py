@@ -22,6 +22,21 @@ bound), and holds W to the same bits on every route:
       28 and 84: its route (staged, walk) and the row-wise route over a
       table of its band (`nonzeros.band_table`), which no path routes.
 
+With --tables it times instead the routes over the nonzero table that
+the bf16 strip-BSR product and K4 on a full-window band take, at the
+widths behind `bsr.BF16_ROWS_K` and `occupancy.FULL_ROWS_K`, each
+against the route it took before (the tensor-core walk; the staged route
+or the walk) by the same `route_row` rows:
+
+  K2  'bf16' on the 300k strip-BSR K at k = 8, 12, 20, 28, 60, 84 and
+      128 and the 1M K at k = 20, 28 and 84; K3 'bf16' at k = 20 on
+      both, the row-wise route forced against the walk (W within
+      BSR_TOL['bf16'] of the plain version at k = 20);
+  K4  the fp32 Hilbert core (window 512) at k = 20, 28, 60 and 84 over
+      its own table (`BandedELL.narrow`), the bf16 one at k = 20 and 28.
+
+The cluster cores' K4 rows at k = 20 and 60 are chip_smoke.py's.
+
 With --polish it also times the guarded LOBPCG polish an iteration (k =
 28 columns, tol 0, so every iteration runs) on the 300k and 1M strip-BSR
 K and the 300k rolling band, on the routes before this route existed
@@ -31,7 +46,7 @@ before, after, after, before.
 
 Run on a machine with one NVIDIA GPU from the root of a checkout:
 
-    python3 polish_products.py [--skip-1m] [--polish]
+    python3 polish_products.py [--skip-1m] [--polish | --tables]
 
 Exits non-zero without a card. The 1M host stage (cloud and native
 Laplacian) takes 1-2 minutes of it.
@@ -86,12 +101,71 @@ def polish_turns(label, K, M, seed) -> None:
     print(f"[polish] {label}: an iteration " + ", ".join(out), flush=True)
 
 
+def ptxas_report() -> None:
+    """The row-wise and rounding kernels' registers and spills, from the
+    nvcc -Xptxas -v log of the build (printed when this process builds
+    the library, not when it finds it built)."""
+    from eigenpinns_torch.utils import cuda_build
+
+    lines = cuda_build.build_logs.get("bsr_spmm", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and ("rows_kernel" in line
+                                          or "round_kernel" in line):
+            print("[ptxas] " + " | ".join(x.strip() for x in lines[i:i + 4]
+                                          if "Compile time" not in x),
+                  flush=True)
+
+
+def table_routes(L, X, device, skip_1m: bool) -> None:
+    """The --tables rows (see the module's docstring)."""
+    import chip_smoke as cs
+    from eigenpinns_torch.geometry import point_cloud_laplacian
+    from eigenpinns_torch.sparse import BSRTile, SplitBanded, banded, bsr
+    from eigenpinns_torch.utils.fixtures import make_cloud
+
+    def k2_rows(tag, L, ks, seed):
+        K, perm = BSRTile.from_scipy(L, device=device)
+        Lp = L[perm][:, perm].tocsr()
+        cs.k2_route_rows(bsr, tag, K, Lp, ks, seed=seed, plain_ks=(20,),
+                         precision="bf16")
+        cs.k2_route_rows(bsr, tag, K, Lp, (20,), seed=seed,
+                         plain_ks=(20,), precision="bf16", burst=True)
+        del K
+        torch.cuda.empty_cache()
+
+    k2_rows("300k", L, (8, 12, 20, 28, 60, 84, 128), seed=1)
+    for dtype, ks in ((torch.float32, (20, 28, 60, 84)),
+                      (torch.bfloat16, (20, 28))):
+        K_h, _ = SplitBanded.from_scipy(L, X=X, window=cs.HILBERT_WINDOW,
+                                        order="hilbert", dtype=dtype,
+                                        device=device)
+        core = K_h.core
+        csr = cs.band_csr(core)
+        cs.band_route_rows(
+            f"K4 Hilbert core {'fp32' if dtype == torch.float32 else 'bf16'}",
+            lambda U, **grid: banded.banded_spmm_cuda(core, U, **grid),
+            core.band, core.starts, 0, core.occupancy, core.narrow, core.n,
+            csr, int(csr.values().numel()), ks, seed=2)
+        del K_h, core, csr
+        torch.cuda.empty_cache()
+    if not skip_1m:
+        t0 = time.time()
+        L1, _ = point_cloud_laplacian(make_cloud(cs.XL_N), n_neighbors=15,
+                                      use_native=True)
+        print(f"[host] 1M Laplacian in {time.time() - t0:.2f} s, nnz "
+              f"{L1.nnz}", flush=True)
+        k2_rows("1M", L1, (20, 28, 84), seed=5)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-1m", action="store_true",
                     help="leave out the 1M strip-BSR K")
     ap.add_argument("--polish", action="store_true",
                     help="time the polish an iteration on both routes")
+    ap.add_argument("--tables", action="store_true",
+                    help="time the bf16 strip-BSR and full-band K4 routes "
+                         "over the nonzero table instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("polish_products: no CUDA device", file=sys.stderr)
@@ -135,6 +209,11 @@ def main() -> int:
     m_diag = np.asarray(M_sp.diagonal())
     print(f"[host] 300k Laplacian in {time.time() - t0:.2f} s, nnz {L.nnz}",
           flush=True)
+    if args.tables:
+        ptxas_report()
+        table_routes(L, X, device, args.skip_1m)
+        print(smi, flush=True)
+        return 0
 
     K, perm = BSRTile.from_scipy(L, device=device)
     Lp = L[perm][:, perm].tocsr()

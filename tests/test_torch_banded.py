@@ -18,7 +18,11 @@ and `eigenpinns_torch.sparse.banded`. Tolerances:
     while both Pallas kernels (and the port) round U (ROADMAP F10), so
     there rel 2e-2 (tests/test_sparse.py:740 gives the same bound);
   * gradients through `banded_spmm` and `banded_spmm_gram` against
-    jax.grad with the same cotangents: rel 1e-5.
+    jax.grad with the same cotangents: rel 1e-5;
+  * the band's nonzero table (`BandedELL.narrow`, which K4's row-wise
+    route reads): its plain reader against the plain version (rel 1e-6)
+    and the JAX reference (fp32, rel 1e-6) or the Pallas kernel in
+    interpret mode (bf16, rel 1e-5), for the operator and its transpose.
 
 The CUDA kernels are checked against the plain version by the
 `cuda`-marked tests of tests/test_torch_cuda.py, which run only on a card.
@@ -38,6 +42,7 @@ from eigenpinns_tpu.sparse import banded as jbanded
 from eigenpinns_torch import sparse as tsparse
 from eigenpinns_torch.geometry import point_cloud_laplacian
 from eigenpinns_torch.sparse import banded as tbanded
+from eigenpinns_torch.sparse.nonzeros import table_spmm_plain
 
 # The suite runs in several worker processes on a few cores; one torch
 # thread per core in each makes their thread pools contend.
@@ -124,6 +129,39 @@ def test_banded_layout_matches_jax(ops, case, dt):
     np.testing.assert_array_equal(top.diagonal().float().numpy(),
                                   np.asarray(jop.diagonal(), np.float32))
     assert int(top.starts.max()) <= top.band.shape[0] - top.bandwidth
+
+
+def _table_pairs(top, jop):
+    """[(torch op, JAX op)]: the operator and its stored transpose."""
+    out = [(top, jop)]
+    if top.transpose_banded is not None:
+        out.append((top.transpose_banded, jop.transpose_banded))
+    return out
+
+
+@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", ["cloud642", "asym800"])
+def test_banded_table_plain_reader_matches_plain_and_jax(ops, case, dt, k):
+    """`from_scipy` gives the band (and its transpose) its nonzero table
+    in the band's type, which K4's row-wise route reads: its plain reader
+    against `banded_spmm_plain` and, in fp32, the JAX reference at rel
+    1e-6 (sums in another order); in bf16, where both round U to bf16,
+    against the Pallas kernel in interpret mode at rel 1e-5 (the JAX
+    reference does not round U, ROADMAP F10)."""
+    _, jop, _, top, _ = ops[case, dt]
+    U = np.random.default_rng(k).normal(size=(top.n, k)).astype(np.float32)
+    Ut, Uj = torch.from_numpy(U), jnp.asarray(U)
+    for op, j_op in _table_pairs(top, jop):
+        t = op.narrow
+        assert t is not None and t.val.dtype == op.band.dtype
+        W = table_spmm_plain(t, Ut, op.n).numpy()
+        assert _rel(W, tbanded.banded_spmm_plain(op, Ut).numpy()) < 1e-6
+        if dt == "f32":
+            assert _rel(W, jbanded.banded_spmm_reference(j_op, Uj)) < 1e-6
+        else:
+            assert _rel(W, jbanded.banded_spmm_pallas(
+                j_op, Uj, interpret=True)) < 1e-5
 
 
 def test_banded_bandwidth_guard():

@@ -15,8 +15,8 @@ the CPU:
   * a plain reader of the table (`narrow_spmm_plain`) equals
     `bsr_spmm_plain` and JAX's `bsr_spmm_reference` at rel 1e-6 (fp32,
     sums in another order);
-  * `with_precision` rebuilds it with converted fp32 strips and drops it
-    with bf16 ones;
+  * `with_precision` gives bf16 strips the fp32 table with its values
+    rounded, and an fp32 upcast the table of the rounded strips;
   * the wrappers raise on an operator without it, and the grid of the
     walk follows the card's SM count.
 
@@ -168,12 +168,16 @@ def test_narrow_plain_reader_matches_plain_and_jax(ops, case, k):
 
 
 def test_narrow_table_follows_with_precision(ops):
-    """bf16 strips carry no table; the upcast back to fp32 rebuilds it
-    from the rounded strips (transpose too); the same fp32 strips keep
-    theirs."""
+    """bf16 strips carry the fp32 table with its values rounded to bf16,
+    sharing its U rows and slices; the upcast back to fp32 gives the
+    table a fresh build of the rounded strips gives (transpose too); the
+    same fp32 strips keep theirs."""
     _, _, top = ops["asym800"]
     b = top.with_precision("bf16")
-    assert b.narrow is None and b.transpose_bsr.narrow is None
+    for o, f in ((b, top), (b.transpose_bsr, top.transpose_bsr)):
+        assert o.narrow.idx is f.narrow.idx
+        assert o.narrow.slice_start is f.narrow.slice_start
+        assert torch.equal(o.narrow.val, f.narrow.val.bfloat16())
     h = b.with_precision("highest")
     for o in (h, h.transpose_bsr):
         fresh = tbsr.narrow_table(o.data, o.occupancy, o.rowid, o.cid,
@@ -191,22 +195,24 @@ def test_narrow_table_follows_with_precision(ops):
 
 def test_narrow_path_raises_without_its_table(ops):
     """No fallback: the narrow path and the row-wise route (fp32 strips,
-    k <= ROWS_MAX_K, col_block None) refuse an operator without the
-    table; the walk (an explicit col_block, a wider k, bf16 strips) does
-    not need it."""
+    k <= ROWS_MAX_K, bf16 strips at BF16_ROWS_K, col_block None) refuse
+    an operator without the table; the walk (an explicit col_block, a
+    wider k, bf16 strips past BF16_ROWS_K) does not need it."""
     _, _, top = ops["cloud642"]
     bare = dataclasses.replace(top, narrow=None)
+    bare16 = dataclasses.replace(top.with_precision("bf16"), narrow=None)
     for launch in (tbsr.bsr_spmm_grouped_cuda, tbsr.bsr_spmm_burst_cuda):
-        for k in (1, tbsr.NARROW_MAX_K, tbsr.NARROW_MAX_K + 1, 84,
-                  tbsr.ROWS_MAX_K):
+        for op, k in [(bare, k) for k in (
+                1, tbsr.NARROW_MAX_K, tbsr.NARROW_MAX_K + 1, 84,
+                tbsr.ROWS_MAX_K)] + [(bare16, k) for k in tbsr.BF16_ROWS_K]:
             with pytest.raises(ValueError, match="narrow table"):
-                launch(bare, torch.zeros(top.n, k))
+                launch(op, torch.zeros(top.n, k))
         for op, k, cb in ((bare, 1, 32), (bare, tbsr.ROWS_MAX_K + 1, None),
                           (top.with_precision("bf16"), 1, None)):
             with pytest.raises(ValueError, match="CUDA"):
                 launch(op, torch.zeros(top.n, k), col_block=cb)
-    with pytest.raises(ValueError, match="fp32"):
-        tbsr.narrow_table(top.data.bfloat16(), top.occupancy, top.rowid,
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        tbsr.narrow_table(top.data.half(), top.occupancy, top.rowid,
                           top.cid, top.n_row_tiles)
 
 

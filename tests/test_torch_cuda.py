@@ -13,7 +13,9 @@ keeps the operator's own rounding, and rel 1e-4 for strip-BSR, where the
 plain version rounds U exactly as the kernels do. The full-window band
 (K4, K5): W rel 1e-5, G rel 2e-5 and the gradient through the fused Gram
 rel 1e-4, with an fp32 or a bf16 band (the plain version rounds U as the
-kernels do).
+kernels do). The bf16 row-wise route (bf16 strips, a bf16 band): rel 1e-4
+of the plain version, which rounds U as the kernel does; its bits are
+its own, not the tensor-core walk's.
 """
 
 import dataclasses
@@ -28,6 +30,7 @@ from eigenpinns_torch.geometry import point_cloud_laplacian
 from eigenpinns_torch.sparse import banded as tbanded
 from eigenpinns_torch.sparse import bsr as tbsr
 from eigenpinns_torch.sparse import rolling as trolling
+from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
 from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
 
 
@@ -141,18 +144,24 @@ def test_bsr_cuda_kernels_match_plain(precision, k):
     Wb = tbsr.bsr_spmm_burst_cuda(burst, U)
     torch.cuda.synchronize()
     route = tbsr.strip_route(op.data.dtype, k)
+    bf16 = op.data.dtype == torch.bfloat16
     assert tbsr.bsr_kernel_launches == {
         "grouped": before["grouped"] + 1, "burst": before["burst"] + 1,
         "narrow": before["narrow"] + 2 * (route == "narrow"),
-        "rows": before["rows"] + 2 * (route == "rows")}
+        "rows": before["rows"] + 2 * (route == "rows" and not bf16),
+        "rows_bf16": before["rows_bf16"] + 2 * (route == "rows" and bf16)}
     assert _rel(Wg.cpu(), Wp.cpu()) < tol
     assert _rel(Wb.cpu(), Wp.cpu()) < tol
-    # One summation order whatever the kernel and its column block.
+    assert torch.equal(Wb, Wg)
+    # One summation order whatever the kernel and its column block (on
+    # bf16 strips the walk's tensor-core order, which the row-wise route
+    # does not keep).
+    Ww = tbsr.bsr_spmm_grouped_cuda(op, U, route="walk") if bf16 else Wg
     for cb in (32, 64):
         assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U, col_block=cb),
-                           Wg)
+                           Ww)
         assert torch.equal(tbsr.bsr_spmm_burst_cuda(burst, U, col_block=cb),
-                           Wg)
+                           Ww)
     g = torch.randn_like(U)
     Ut = U.clone().requires_grad_(True)
     (tbsr.bsr_spmm(op, Ut) * g).sum().backward()
@@ -239,10 +248,18 @@ def test_bsr_cuda_small_operator_grid(precision):
         size=(op.n, 64)).astype(np.float32)).cuda()
     if torch.cuda.get_device_properties(0).multi_processor_count >= 72:
         assert tbsr.walk_grid(op, 64) == (32, 2)
-    W8 = tbsr.bsr_spmm_grouped_cuda(op, U, warps=8)
+    W8 = tbsr.bsr_spmm_grouped_cuda(op, U, warps=8, route="walk")
     tol = 1e-4 if precision == "bf16" else 1e-5
-    assert _rel(W8.cpu(), tbsr.bsr_spmm_plain(op, U).cpu()) < tol
-    assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U), W8)
+    Wp = tbsr.bsr_spmm_plain(op, U)
+    assert _rel(W8.cpu(), Wp.cpu()) < tol
+    # The default route (the row-wise one at k = 64) has the walk's bits
+    # on fp32 strips; on bf16 strips it sums in another order.
+    Wd = tbsr.bsr_spmm_grouped_cuda(op, U)
+    torch.cuda.synchronize()
+    if precision == "bf16":
+        assert _rel(Wd.cpu(), Wp.cpu()) < tol
+    else:
+        assert torch.equal(Wd, W8)
     burst = dataclasses.replace(op, gcid=None, lcid=None, gid=None)
     for warps in (8, 4, 2):
         for col_block in (32, 64):
@@ -285,8 +302,8 @@ def wide_bsr():
 def test_bsr_cuda_kernels_past_2_31_elements(wide_bsr, precision):
     """K2 and K3 on strips of more than 2^31 elements (and bytes): the
     data offsets are 64-bit. W vs the plain version (rel 1e-5; 1e-4 in
-    'bf16') and, in fp32, vs scipy's product in float64 (rel 1e-5); the
-    same bits from both kernels."""
+    'bf16') on the default route and the walk and, in fp32, vs scipy's
+    product in float64 (rel 1e-5); the same bits from both kernels."""
     A, op = wide_bsr
     assert op.data.numel() > 2**31 and op.n_chunks == 8 * op.n_row_tiles
     op = op.with_precision(precision)
@@ -300,8 +317,14 @@ def test_bsr_cuda_kernels_past_2_31_elements(wide_bsr, precision):
     Wp = tbsr.bsr_spmm_plain(op, U)
     torch.cuda.synchronize()
     assert torch.equal(Wg, Wb)
-    # The walk (fp32 strips take the row-wise route by default).
-    assert torch.equal(tbsr.bsr_spmm_grouped_cuda(op, U, col_block=32), Wg)
+    # The walk (the strips take the row-wise route by default): its bits
+    # in fp32, within the tolerance of the plain version in 'bf16'.
+    Ww = tbsr.bsr_spmm_grouped_cuda(op, U, col_block=32)
+    torch.cuda.synchronize()
+    assert torch.equal(tbsr.bsr_spmm_burst_cuda(burst, U, col_block=32), Ww)
+    if precision == "highest":
+        assert torch.equal(Ww, Wg)
+    assert _rel(Ww.cpu(), Wp.cpu()) < tol
     assert _rel(Wg.cpu(), Wp.cpu()) < tol
     if precision == "highest":
         assert _rel(Wg.cpu(), A @ U_np.astype(np.float32)) < tol
@@ -334,13 +357,22 @@ def test_banded_cuda_kernels_match_plain(case, k, dtype):
     gW = torch.randn((op.n, k), generator=gen, device="cuda")
     gG = torch.randn((k, k), generator=gen, device="cuda")
     before = dict(tbanded.banded_kernel_launches)
-    W = tbanded.banded_spmm_cuda(op, U)
+    Wd = tbanded.banded_spmm_cuda(op, U)
     W2, G = tbanded.banded_spmm_cuda(op, U, with_gram=True)
     torch.cuda.synchronize()
+    rows = int(band_grid(op.band.shape[0] // 128, k, dtype,
+                         sm_count(U.device), rows=op.narrow is not None,
+                         window=op.band.shape[1])[0] == "rows")
+    bf16 = dtype == torch.bfloat16
     assert tbanded.banded_kernel_launches == {
         "spmm": before["spmm"] + 1, "spmm_rect": before["spmm_rect"],
-        "spmm_gram": before["spmm_gram"] + 1}
+        "spmm_gram": before["spmm_gram"] + 1,
+        "rows": before["rows"] + rows * (not bf16),
+        "rows_bf16": before["rows_bf16"] + rows * bf16}
     Wp, Gp = tbanded.banded_spmm_gram_plain(op, U)
+    assert _rel(Wd.cpu(), Wp.cpu()) < 1e-5
+    # The block routes' bits (on an fp32 band every route's).
+    W = tbanded.banded_spmm_cuda(op, U, route="walk") if bf16 else Wd
     assert torch.equal(W, W2)
     for cb in (32, 64):
         assert torch.equal(tbanded.banded_spmm_cuda(op, U, col_block=cb), W)
@@ -615,26 +647,29 @@ def test_bsr_cuda_rows_route_matches_the_walk(case, k):
 
 @pytest.mark.cuda
 def test_bsr_cuda_rows_route_raises_where_it_cannot_run():
-    """No fallback: the row-wise route refuses bf16 strips and an fp32
-    operator without its narrow table."""
+    """No fallback: the row-wise route refuses fp32 or bf16 strips
+    without their narrow table, and the narrow path bf16 strips."""
     _need_card()
     op = tbsr.BSRTile.from_scipy(_asym800(), device="cuda")[0]
     U = torch.zeros((op.n, 28), device="cuda")
-    with pytest.raises(ValueError, match="narrow table"):
-        tbsr.bsr_spmm_grouped_cuda(dataclasses.replace(op, narrow=None), U)
+    for bare in (op, op.with_precision("bf16")):
+        with pytest.raises(ValueError, match="narrow table"):
+            tbsr.bsr_spmm_grouped_cuda(dataclasses.replace(bare, narrow=None),
+                                       U, route="rows")
     with pytest.raises(ValueError, match="fp32"):
-        tbsr.bsr_spmm_grouped_cuda(op.with_precision("bf16"), U,
-                                   route="rows")
+        tbsr.bsr_spmm_grouped_cuda(op.with_precision("bf16"), U[:, :4],
+                                   route="narrow")
 
 
 def _band_cases():
     """(launch, op, table) for the band layouts: the rolling cloud band
     ('high', windows above row 0) and the adversarial rolling operator
     (windows before row 0 and past n, a word with only bit 63 set) with
-    their own tables; a split core whose clamped windows reach past n, a
-    nonsymmetric band and its transpose, and a shard's rectangular block
-    and its transpose (U rows past U's end read as zero), each with a
-    table from `band_table`, which no path of theirs routes."""
+    their own tables; a split core whose clamped windows reach past n
+    and a nonsymmetric band and its transpose, with the tables their
+    builds give them (`BandedELL.narrow`), and a shard's rectangular
+    block and its transpose (U rows past U's end read as zero), which
+    carry none, with a table from `band_table`."""
     from eigenpinns_torch.parallel import build_sharded_operator
     from eigenpinns_torch.sparse.nonzeros import band_table
     from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
@@ -654,7 +689,10 @@ def _band_cases():
     block = core.block(1, "cuda")
     asym = _banded_op("asym800", torch.float32)
     for op in (_banded_op("cloud", torch.float32), asym,
-               asym.transpose_banded, block, block.transpose_banded):
+               asym.transpose_banded):
+        out.append(("full", op, op.narrow))
+    for op in (block, block.transpose_banded):
+        assert op.narrow is None
         out.append(("full", op, band_table(op.band, op.occupancy,
                                            op.starts)))
     return out
@@ -665,9 +703,12 @@ def _band_cases():
 def test_band_rows_route_matches_the_walk(k):
     """The row-wise route over a band's nonzero table gives the walk's W
     bit for bit on both band layouts (the rolling band's default route
-    in BAND_ROWS_K, counted in rolling_rows_launches; forced elsewhere),
-    the same bits from a second launch, and W within rel 1e-5 of the
-    plain version."""
+    in BAND_ROWS_K, counted in rolling_rows_launches; K4's on a band that
+    carries its table where `band_grid` sends it (FULL_ROWS_K, and a
+    window of FULL_ROWS_MIN_WINDOW_64 columns where the staged route
+    would run 64 columns), counted under "rows", and equal to the staged
+    route too; forced elsewhere), the same bits from a second launch, and
+    W within rel 1e-5 of the plain version."""
     from eigenpinns_torch.sparse.occupancy import BAND_ROWS_K
 
     _need_card()
@@ -697,6 +738,20 @@ def test_band_rows_route_matches_the_walk(k):
         else:
             Ww = tbanded.banded_spmm_cuda(op, U, route="walk")
             plain = tbanded.banded_spmm_plain(op, U)
+            if op.narrow is not None:
+                # K4's default route: the row-wise one where band_grid
+                # sends the band with its table.
+                before = tbanded.banded_kernel_launches["rows"]
+                Wd = tbanded.banded_spmm_cuda(op, U)
+                rows = band_grid(op.band.shape[0] // 128, k, torch.float32,
+                                 sm_count(U.device), rows=True,
+                                 window=op.band.shape[1])[0] == "rows"
+                assert tbanded.banded_kernel_launches["rows"] == before + int(
+                    rows)
+                assert torch.equal(Wd, W)
+                if k <= 64:
+                    assert torch.equal(tbanded.banded_spmm_cuda(
+                        op, U, route="staged"), W)
         torch.cuda.synchronize()
         assert torch.equal(W, Ww), (layout, op.band.shape)
         assert _rel(W.cpu(), plain.cpu()) < 1e-5
@@ -714,3 +769,96 @@ def test_band_rows_route_raises_where_it_cannot_run():
                     (dataclasses.replace(op, narrow=None), {})):
         with pytest.raises(ValueError, match="row-wise"):
             tsparse.rolling_spmm_cuda(bad, U, route="rows", **kw)
+
+
+# ---- the bf16 row-wise route -------------------------------------------
+
+BF16_KS = [12, 20, 30, 84, 85]
+
+
+def _bf16_rows_check(launch, op, U, plain, counter, key, default):
+    """One bf16 operator's row-wise route at width k = U.shape[1]: a
+    second launch the same bits, W within BSR_TOL['bf16'] (1e-4) of the
+    plain version, which rounds U as the kernel does, and the default
+    route (`default`: whether it is the row-wise one) counted under
+    `key` of `counter`."""
+    W = launch(op, U, route="rows")
+    torch.cuda.synchronize()
+    assert W.shape == (op.n, U.shape[1])
+    assert torch.equal(launch(op, U, route="rows"), W)
+    assert _rel(W.cpu(), plain(op, U).cpu()) < 1e-4
+    before = counter[key]
+    Wd = launch(op, U)
+    assert counter[key] == before + int(default)
+    if default:
+        assert torch.equal(Wd, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", BF16_KS)
+@pytest.mark.parametrize("case", ["cloud", "asym800", "rect700x450"])
+def test_bsr_cuda_bf16_rows_route_matches_plain(case, k):
+    """K2 and K3 on bf16 strips by the row-wise route over the bf16 table
+    (by default at BF16_ROWS_K): within 1e-4 of the plain version, the
+    same bits from both wrappers and a second launch; on a
+    nonsymmetric operator and its transpose and a rectangular one whose
+    last column tile reaches past n_cols. Odd k (85) stores W by scalar
+    stores; the bf16 copy's rows are padded to 8 values."""
+    _need_card()
+    if case == "cloud":
+        ops = [_cloud_bsr(6000)]
+    elif case == "asym800":
+        op = tbsr.BSRTile.from_scipy(_asym800(), device="cuda")[0]
+        ops = [op, op.transpose_bsr]
+    else:
+        ops = [_rect_bsr()]
+    lo, hi = tbsr.BF16_ROWS_K
+    for op in ops:
+        op = op.with_precision("bf16")
+        burst = dataclasses.replace(op, gcid=None, lcid=None, gid=None)
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n_cols, k)).astype(np.float32)).cuda()
+        for launch, o in ((tbsr.bsr_spmm_grouped_cuda, op),
+                          (tbsr.bsr_spmm_burst_cuda, burst)):
+            _bf16_rows_check(launch, o, U, tbsr.bsr_spmm_plain,
+                             tbsr.bsr_kernel_launches, "rows_bf16",
+                             lo <= k <= hi)
+        assert torch.equal(
+            tbsr.bsr_spmm_grouped_cuda(op, U, route="rows"),
+            tbsr.bsr_spmm_burst_cuda(burst, U, route="rows"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", BF16_KS)
+@pytest.mark.parametrize("case", ["cloud", "asym800"])
+def test_band_bf16_rows_route_matches_plain(case, k):
+    """K4 on a bf16 band by the row-wise route over its bf16 table (by
+    default at FULL_ROWS_K[bf16]): a split core whose clamped windows
+    reach past U (U rows past n read as zero), a nonsymmetric band and
+    its transpose; within 1e-4 of the plain version, a second launch the
+    same bits; the gradient through `banded_spmm`
+    applies the transpose through the same route."""
+    from eigenpinns_torch.sparse.occupancy import FULL_ROWS_K
+
+    _need_card()
+    op = _banded_op(case, torch.bfloat16)
+    if case == "cloud":
+        assert int(op.starts.max()) + op.bandwidth > op.n
+    lo, hi = FULL_ROWS_K[torch.bfloat16]
+    ops = [op] + ([op.transpose_banded] if op.transpose_banded is not None
+                  else [])
+    for o in ops:
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(o.n, k)).astype(np.float32)).cuda()
+        _bf16_rows_check(tbanded.banded_spmm_cuda, o, U,
+                         tbanded.banded_spmm_plain,
+                         tbanded.banded_kernel_launches, "rows_bf16",
+                         lo <= k <= hi)
+    U = torch.from_numpy(np.random.default_rng(k).normal(
+        size=(op.n, k)).astype(np.float32)).cuda()
+    g = torch.randn_like(U)
+    Ut = U.clone().requires_grad_(True)
+    (tbanded.banded_spmm(op, Ut) * g).sum().backward()
+    At = op.transpose_banded if op.transpose_banded is not None else op
+    assert _rel(Ut.grad.cpu(),
+                tbanded.banded_spmm_plain(At, g).cpu()) < 1e-4

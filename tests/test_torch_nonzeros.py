@@ -3,8 +3,9 @@ read it, against the JAX package's layouts.
 
 The row-wise route (csrc/nonzero_spmm.cuh) reads a tiled operator's
 nonzeros as a sliced ELL, each row in the order in which the column-block
-walk sums it, so that it gives the walk's bits. Strip-BSR's table is held
-in tests/test_torch_bsr_narrow.py; here, on the CPU, the band's:
+walk sums it, so that it gives the walk's bits on fp32 layouts. Strip-BSR's
+table is held in tests/test_torch_bsr_narrow.py; here, on the CPU, the
+band's, and the bf16 tables:
 
   * `band_table` lists every nonzero of the band once, bit for bit, with
     its U row, in band-column order (the walk's: pieces, sub-block column,
@@ -15,10 +16,17 @@ in tests/test_torch_bsr_narrow.py; here, on the CPU, the band's:
   * its plain reader (`table_spmm_plain`) equals `rolling_spmm_plain` and
     the JAX package's rolling reference, `banded_spmm_plain` and the JAX
     banded reference, at rel 1e-6 (fp32, sums in another order);
+  * a full-window band (`BandedELL.from_scipy`, its transpose) carries
+    its table;
   * `RollingBanded.with_precision` keeps, rebuilds or drops the table;
+  * strip-BSR's bf16 table (`with_precision("bf16")`) is the fp32 table
+    with its values rounded, the same as a bf16 build's, and its plain
+    reader, which rounds U, matches `bsr_spmm_plain` in 'bf16' and both
+    JAX Pallas kernels in interpret mode at rel 1e-5;
   * `strip_route` and `band_grid` take the row-wise route where they
-    should and raise where the kernels cannot take it (bf16, the Gram,
-    no table, past the kernel's widest k).
+    should (fp32 and bf16 strips, fp32 rolling bands, fp32 and bf16
+    full-window bands, each at its widths) and raise where the kernels
+    cannot take it (the Gram, no table, past the kernel's widest k).
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
@@ -95,12 +103,10 @@ def _pairs(layout, top, jop, Ap):
             out.append((top.transpose_rolling, top.transpose_rolling.narrow,
                         jop.transpose_rolling, Ap.T.tocsr()))
     else:
-        out.append((top, band_table(top.band, top.occupancy, top.starts),
-                    jop, Ap))
+        out.append((top, top.narrow, jop, Ap))
         if top.transpose_banded is not None:
             t = top.transpose_banded
-            out.append((t, band_table(t.band, t.occupancy, t.starts),
-                        jop.transpose_banded, Ap.T.tocsr()))
+            out.append((t, t.narrow, jop.transpose_banded, Ap.T.tocsr()))
     return out
 
 
@@ -179,6 +185,22 @@ def test_band_table_plain_reader_matches_plain_and_jax(ops, name, k):
             assert np.abs(W - other).max() <= 1e-6 * np.abs(other).max()
 
 
+@pytest.mark.parametrize("name", ["full-cloud", "full-asym"])
+def test_full_band_carries_its_table(ops, name):
+    """`BandedELL.from_scipy` gives the band and its stored transpose the
+    table `band_table` builds from them, which K4's row-wise route
+    reads."""
+    _, _, top, _ = ops[name]
+    for op in (top, top.transpose_banded):
+        if op is None:
+            continue
+        fresh = band_table(op.band, op.occupancy, op.starts)
+        for a, b in ((op.narrow.val, fresh.val), (op.narrow.idx, fresh.idx),
+                     (op.narrow.slice_start, fresh.slice_start)):
+            assert torch.equal(a, b)
+    assert (top.transpose_banded is None) == (name == "full-cloud")
+
+
 def test_rolling_table_follows_with_precision(ops):
     """A bf16 band carries no table; the upcast back to fp32 rebuilds it
     from the rounded band (transpose too); the same fp32 band keeps
@@ -204,6 +226,58 @@ def test_rolling_table_follows_with_precision(ops):
     assert bf.narrow is None
 
 
+@pytest.fixture(scope="module")
+def strips():
+    """The cloud's strip-BSR K in both packages (the same RCM order), its
+    bf16 copy by `with_precision` and a bf16 build."""
+    from eigenpinns_tpu.sparse import bsr as jbsr
+
+    A = _cloud()
+    top, perm = tbsr.BSRTile.from_scipy(A, device="cpu")
+    jop, jperm = jbsr.BSRTile.from_scipy(A)
+    np.testing.assert_array_equal(perm, jperm)
+    built = tbsr.BSRTile.from_scipy(A, dtype=torch.bfloat16, device="cpu")[0]
+    return top, top.with_precision("bf16"), built, jop.with_precision("bf16")
+
+
+def test_bf16_strip_table_is_the_fp32_table_rounded(strips):
+    """`with_precision("bf16")` rounds the fp32 table's values to nearest
+    even, as the strips are rounded, and shares its U rows and slices; a
+    bf16 build lists its own strips' nonzeros, which here (no value
+    rounds to 0) is the same table."""
+    top, b, built, _ = strips
+    t32, t16 = top.narrow, b.narrow
+    assert t16.val.dtype == torch.bfloat16
+    assert t16.idx is t32.idx and t16.slice_start is t32.slice_start
+    assert torch.equal(t16.val, t32.val.bfloat16())
+    live = t32.idx >= 0
+    assert bool((t16.val[live] != 0).all())
+    for a, c in ((built.narrow.val, t16.val), (built.narrow.idx, t16.idx),
+                 (built.narrow.slice_start, t16.slice_start)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("k", [5, 20, 30])
+def test_bf16_strip_table_plain_reader_matches_plain_and_pallas(strips, k):
+    """A bf16 table's plain reader rounds U to bf16 and sums the exact
+    products in fp32: against `bsr_spmm_plain` in 'bf16' and both JAX
+    Pallas kernels in interpret mode, which round U too (ROADMAP F8), at
+    rel 1e-5 (sums in another order)."""
+    from eigenpinns_tpu.sparse import bsr as jbsr
+
+    _, b, _, jb = strips
+    U = np.random.default_rng(k).normal(size=(b.n, k)).astype(np.float32)
+    Ut, Uj = torch.from_numpy(U), jnp.asarray(U)
+    W = table_spmm_plain(b.narrow, Ut, b.n).numpy()
+    others = [tbsr.bsr_spmm_plain(b, Ut).numpy(),
+              np.asarray(jbsr.bsr_spmm_pallas(jb, Uj, interpret=True))]
+    if jb.gcid is not None:
+        others.append(np.asarray(jbsr.bsr_spmm_pallas_grouped(
+            jb, Uj, interpret=True)))
+    for other in others:
+        assert np.abs(W - other).max() <= 1e-5 * np.abs(other).max()
+
+
 @pytest.mark.parametrize("dtype, k, col_block, want", [
     (torch.float32, 1, None, "narrow"),
     (torch.float32, 8, None, "narrow"),
@@ -214,13 +288,21 @@ def test_rolling_table_follows_with_precision(ops):
     (torch.float32, tbsr.ROWS_MAX_K + 1, None, "walk"),
     (torch.float32, 28, 32, "walk"),
     (torch.float32, 84, 64, "walk"),
-    (torch.bfloat16, 28, None, "walk"),
-    (torch.bfloat16, 1, None, "walk")])
+    (torch.bfloat16, 28, None, "rows"),
+    (torch.bfloat16, 1, None, "walk"),
+    (torch.bfloat16, 7, None, "walk"),
+    (torch.bfloat16, 8, None, "rows"),
+    (torch.bfloat16, 20, None, "rows"),
+    (torch.bfloat16, 128, None, "rows"),
+    (torch.bfloat16, 129, None, "walk"),
+    (torch.bfloat16, 20, 32, "walk")])
 def test_strip_route_takes_the_table_on_fp32_strips(dtype, k, col_block,
                                                     want):
     """fp32 strips with col_block None read the narrow table: one lane a
-    row up to NARROW_MAX_K, the row-wise route up to ROWS_MAX_K; an
-    explicit col_block or bf16 strips take the walk."""
+    row up to NARROW_MAX_K, the row-wise route up to ROWS_MAX_K; bf16
+    strips take the row-wise route over their bf16 table at BF16_ROWS_K
+    (8 to 128) and the walk elsewhere; an explicit col_block takes the
+    walk."""
     assert tbsr.strip_route(dtype, k, col_block) == want
 
 
@@ -228,7 +310,8 @@ def test_strip_route_refuses_what_the_kernels_cannot_take():
     f32, bf16 = torch.float32, torch.bfloat16
     assert tbsr.strip_route(f32, 200, route="rows") == "rows"
     assert tbsr.strip_route(bf16, 28, route="walk") == "walk"
-    for dtype, k, cb, route in ((bf16, 28, None, "rows"),
+    assert tbsr.strip_route(bf16, 200, route="rows") == "rows"
+    for dtype, k, cb, route in ((bf16, 28, 32, "rows"),
                                 (bf16, 4, None, "narrow"),
                                 (f32, 28, 32, "rows"),
                                 (f32, 9, None, "narrow"),
@@ -273,7 +356,9 @@ def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
                      rows=True) == ("staged", 32, 4)
     assert band_grid(2344, 28, f32, 132, route="rows",
                      rows=True) == ("rows", 32, 8)
-    for kw in (dict(dtype=bf16, rows=True), dict(dtype=f32, rows=False),
+    assert band_grid(2344, 84, bf16, 132, route="rows", rows=True,
+                     window=512) == ("rows", 32, 8)
+    for kw in (dict(dtype=bf16, rows=False), dict(dtype=f32, rows=False),
                dict(dtype=f32, rows=True, with_gram=True),
                dict(dtype=f32, rows=True, warps=2),
                dict(dtype=f32, rows=True, k=257)):
@@ -281,3 +366,45 @@ def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
         with pytest.raises(ValueError, match="row-wise"):
             band_grid(2344, kw.pop("k"), kw.pop("dtype"), 132,
                       route="rows", **kw)
+
+
+@pytest.mark.parametrize("k, dtype, gram, rows, window, want", [
+    (20, torch.float32, False, True, 1024, ("rows", 32, 8)),   # spectral X
+    (28, torch.float32, False, True, 1024, ("rows", 32, 8)),
+    (60, torch.float32, False, True, 1024, ("rows", 64, 8)),   # spectral S
+    (84, torch.float32, False, True, 1024, ("rows", 64, 8)),
+    (19, torch.float32, False, True, 1024, ("staged", 32, 8)),
+    (85, torch.float32, False, True, 1024, ("walk", 64, 8)),
+    (84, torch.float32, True, True, 1024, ("walk", 64, 8)),
+    (28, torch.float32, True, True, 1024, ("staged", 32, 8)),
+    (28, torch.float32, False, False, 1024, ("staged", 32, 8)),
+    (20, torch.float32, False, True, 512, ("rows", 32, 8)),
+    (28, torch.float32, False, True, 512, ("rows", 32, 8)),    # polish K X
+    (32, torch.float32, False, True, 512, ("rows", 32, 8)),
+    (33, torch.float32, False, True, 512, ("staged", 64, 8)),
+    (60, torch.float32, False, True, 512, ("staged", 64, 8)),
+    (64, torch.float32, False, True, 896, ("staged", 64, 8)),
+    (33, torch.float32, False, True, 1024, ("rows", 64, 8)),
+    (65, torch.float32, False, True, 512, ("rows", 64, 8)),
+    (84, torch.float32, False, True, 512, ("rows", 64, 8)),    # polish K S
+    (20, torch.bfloat16, False, True, 512, ("rows", 32, 8)),   # K4 backward
+    (28, torch.bfloat16, False, True, 512, ("rows", 32, 8)),
+    (19, torch.bfloat16, False, True, 512, ("walk", 32, 8)),
+    (29, torch.bfloat16, False, True, 512, ("walk", 32, 8)),
+    (20, torch.bfloat16, True, True, 512, ("walk", 32, 8)),    # K5
+    (20, torch.bfloat16, False, False, 512, ("walk", 32, 8))])
+def test_band_grid_takes_the_rows_route_on_full_bands(k, dtype, gram, rows,
+                                                      window, want):
+    """A full-window band with its table (`BandedELL.narrow`) takes the
+    row-wise route in FULL_ROWS_K of its type, without the Gram: fp32 at
+    k = 20 to 84, bf16 at k = 20 to 28; in fp32 where the staged route
+    would run one block of 64 columns (32 < k <= 64) only on a window of
+    FULL_ROWS_MIN_WINDOW_64 (1024) columns or more (the cluster cores,
+    not the Hilbert core's 512); elsewhere, with the Gram or without a
+    table, the routes it took before. A rolling band of the same type and
+    width keeps its own widths."""
+    assert band_grid(2344, k, dtype, 132, gram, rows=rows,
+                     window=window) == want
+    rolling = band_grid(2344, k, dtype, 132, gram, rows=rows)
+    if dtype == torch.bfloat16:
+        assert rolling[0] == "walk"

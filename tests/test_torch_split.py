@@ -12,7 +12,12 @@ Tolerances:
   * `split_spmm` / `split_spmm_gram` with an fp32 core: rel 1e-5 against
     JAX, the U-gradients rel 1e-5; with a bf16 core the JAX CPU path
     multiplies by the unrounded U (ROADMAP F10) while the port rounds U
-    as the Pallas kernels do: rel 2e-2.
+    as the Pallas kernels do: rel 2e-2;
+  * the core's nonzero table, which K4's row-wise route reads: its
+    plain reader against the core's plain product (rel 1e-6) and the
+    JAX core's reference (fp32, rel 1e-6) or Pallas kernel in interpret
+    mode (bf16, rel 1e-5); the bf16 core's table is the fp32 core's with
+    its values rounded.
 """
 
 import jax
@@ -223,6 +228,50 @@ def test_split_spmm_and_gram_match_jax(ops, case):
     (torch.sin(tsparse.spmm(top, Ut)).sum() + (W**2).sum()
      + (G**2).sum()).backward()
     assert _rel(Ut.grad.numpy(), jax.grad(jf)(Uj)) < tol
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_core_carries_its_table(ops, case):
+    """The core's nonzero table (`BandedELL.narrow`, in the core's type),
+    which K4's row-wise route reads, is the table of its band, and its
+    plain reader matches the core's plain product (rel 1e-6) and the JAX
+    core's: the reference in fp32 (rel 1e-6), the Pallas kernel in
+    interpret mode in bf16, where both round U (rel 1e-5)."""
+    from eigenpinns_tpu.sparse import banded as jbanded
+    from eigenpinns_torch.sparse.banded import banded_spmm_plain
+    from eigenpinns_torch.sparse.nonzeros import band_table, table_spmm_plain
+
+    jop, _, top, _ = ops[case]
+    core, t = top.core, top.core.narrow
+    fresh = band_table(core.band, core.occupancy, core.starts)
+    assert t.val.dtype == core.band.dtype
+    for a, b in ((t.val, fresh.val), (t.idx, fresh.idx),
+                 (t.slice_start, fresh.slice_start)):
+        assert torch.equal(a, b)
+    U = np.random.default_rng(6).normal(size=(core.n, 20)).astype(np.float32)
+    Ut, Uj = torch.from_numpy(U), jnp.asarray(U)
+    W = table_spmm_plain(t, Ut, core.n).numpy()
+    assert _rel(W, banded_spmm_plain(core, Ut).numpy()) < 1e-6
+    if case.endswith("bf16"):
+        ref, tol = jbanded.banded_spmm_pallas(jop.core, Uj,
+                                              interpret=True), 1e-5
+    else:
+        ref, tol = jbanded.banded_spmm_reference(jop.core, Uj), 1e-6
+    assert _rel(W, ref) < tol
+
+
+def test_split_bf16_core_table_is_the_fp32_table_rounded(ops):
+    """The bf16 core's table, built from its own band, lists the fp32
+    core's nonzeros (none rounds to 0 here) with their values rounded to
+    nearest even: the same U rows and slices."""
+    _, _, t32, _ = ops["hilbert"]
+    _, _, t16, _ = ops["hilbert_bf16"]
+    a, b = t32.core.narrow, t16.core.narrow
+    assert b.val.dtype == torch.bfloat16
+    assert torch.equal(a.idx, b.idx)
+    assert torch.equal(a.slice_start, b.slice_start)
+    assert torch.equal(a.val.bfloat16(), b.val)
+    assert torch.equal(a.with_values(torch.bfloat16).val, b.val)
 
 
 @pytest.mark.parametrize("targets", [[100, 300], [50], [5000]])
