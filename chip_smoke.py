@@ -578,6 +578,10 @@ YAML_SECTIONS = {
 # epochs, cut from the bench's 2000 (every step of the 4-rank loop is
 # some 65 host-staged collectives).
 SHARD_DEV = 4
+# Columns of the multigrid corrector's input features, the width at
+# which the sharded multigrid applies its graph operator (16c's ranks
+# record K4 launches at k = N_MODES and 19).
+MG_FEATURES = 19
 SHARD_CFG = {key: v for key, v in XL_CFG.items()
              if key not in ("mode", "loss_mxu_precision")}
 SHARD_MG_EPOCHS = 300
@@ -1061,8 +1065,12 @@ def band_routes(name, launch, band, occupancy, U, W, on_card=False,
     fp32 band, k <= 64) and the column-block walk. `launch(U, **grid)`
     runs the wrapper. With `on_card`, the default grid's, the staged
     route's (where it can run) and the walk's times on the card
-    (`device_ms`; with `gram_W` given, K5's too). Returns (printed
-    summary, {key: ms})."""
+    (`device_ms`; with `gram_W` given, with the Gram too). With `gram_W`,
+    W with the Gram the same bits on the block routes, and on the Gram's
+    default route (`band_grid` with the Gram: the row-wise route on a
+    rolling band that takes it) W and G the walk's bits on an fp32 band,
+    W within BSR_TOL['bf16'] of the walk's on a bf16 one. Returns
+    (printed summary, {key: ms})."""
     from eigenpinns_torch.sparse.banded import band_u_bytes
     from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
 
@@ -1070,6 +1078,8 @@ def band_routes(name, launch, band, occupancy, U, W, on_card=False,
     n_tiles = band.shape[0] // 128
     route, cb, warps = band_grid(n_tiles, k, band.dtype, sm_count(U.device),
                                  rows=table is not None, window=window)
+    gram_route = band_grid(n_tiles, k, band.dtype, sm_count(U.device), True,
+                           rows=table is not None, window=window)[0]
     grids = [dict(route="walk")]
     staged = dict(route="staged", col_block=max(cb, 32 * -(-k // 32)))
     can_stage = band.dtype == torch.float32 and k <= 64
@@ -1125,11 +1135,27 @@ def band_routes(name, launch, band, occupancy, U, W, on_card=False,
                     lambda: launch(U, with_gram=True, **staged))
                 text += f", staged {times['gram_staged_device_ms']:.4f}"
     if gram_W is not None:
-        gram_grids = [dict(), dict(route="walk")] + (
-            [staged] if can_stage else [])
+        # With the Gram, W is the same bits on every block route and, on
+        # an fp32 band, on the row-wise route, G too (the walk's order of
+        # the partials); a bf16 band's row-wise W is held to the walk's
+        # within BSR_TOL['bf16'].
+        gram_grids = [dict(route="walk")] + ([staged] if can_stage else [])
+        G_walk = launch(U, with_gram=True, route="walk")[1]
         check(all(torch.equal(launch(U, with_gram=True, **grid)[0], W)
                   for grid in gram_grids),
               f"{name} k={k}: W with the Gram differs between routes")
+        Wd, Gd = launch(U, with_gram=True)
+        if gram_route == "rows" and band.dtype == torch.bfloat16:
+            check(rel_err(Wd, W) <= BSR_TOL["bf16"],
+                  f"{name} k={k}: the row-wise W with the Gram parts from "
+                  "the walk")
+        else:
+            check(torch.equal(Wd, W) and torch.equal(Gd, G_walk),
+                  f"{name} k={k}: W or G with the Gram differs on the "
+                  f"{gram_route} route")
+        text += f"; with the Gram the {gram_route} route"
+        times["gram_route"] = gram_route
+        del Wd, Gd, G_walk
     print(f"[route] {name} k={k}: {text}", flush=True)
     return text, times
 
@@ -1158,10 +1184,17 @@ def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
         # for bit, and G from a second launch.
         W2, G2 = rolling.rolling_spmm_cuda(A, U, with_gram=True,
                                            col_block=other)
-        check(torch.equal(rolling.rolling_spmm_cuda(A, U), W)
+        # The block routes' W: on a bf16 band the row-wise route (the
+        # default where it applies, with the Gram or without, at widths
+        # of their own) sums in another order than the walk.
+        fp32 = A.band.dtype == torch.float32
+        Wb = W if fp32 else rolling.rolling_spmm_cuda(A, U, route="walk")
+        Wn = rolling.rolling_spmm_cuda(A, U)
+        check((torch.equal(Wn, W) if fp32
+               else rel_err(Wn, W) <= BSR_TOL["bf16"])
               and torch.equal(
-                  rolling.rolling_spmm_cuda(A, U, col_block=other), W)
-              and torch.equal(W2, W), f"{name} k={k} {prec}: W differs "
+                  rolling.rolling_spmm_cuda(A, U, col_block=other), Wb)
+              and torch.equal(W2, Wb), f"{name} k={k} {prec}: W differs "
               "between launches, column blocks or with the Gram")
         check(torch.equal(
             rolling.rolling_spmm_cuda(A, U, with_gram=True)[1], G),
@@ -1171,9 +1204,10 @@ def check_kernel(rolling, name, op, A_sp, k, seed, row_prec="high",
         _, route_t = band_routes(
             f"{name} {prec}",
             lambda V, **grid: rolling.rolling_spmm_cuda(A, V, **grid),
-            A.band, A.occupancy, U, W,
+            A.band, A.occupancy, U, Wb,
             on_card=prec == row_prec or A.band.dtype == torch.float32,
-            gram_W=W, table=A.narrow)
+            gram_W=Wb, table=A.narrow)
+        del Wb
         # Gradient through the fused Gram: kernel autograd vs torch
         # autograd through the plain version; in 'bf16', where the kernel
         # rounds the cotangent to bf16, vs dU = A^T (gW + U gG) + W gG^T
@@ -1353,7 +1387,7 @@ def check_bsr_kernels(bsr, K, K_sp, seed):
 
 
 def route_row(label, U, launch, parent, csr, nnz, n_cols, rows=None,
-              plain=None, value_bytes=4):
+              plain=None, value_bytes=4, n=None):
     """One product of width k = U.shape[1] on its default route
     (`launch()`) against the route the kernel took before the row-wise
     route existed (`parent()`, forced) and torch.sparse.mm of the same
@@ -1365,7 +1399,7 @@ def route_row(label, U, launch, parent, csr, nnz, n_cols, rows=None,
     the plain version's W (`plain()`) where given, to BSR_TOL of the
     precision. Each timed on the card (`device_ms`, few samples) and by
     launch (`median_ms`), beside the least-bytes bound (values of
-    `value_bytes`). Returns the row."""
+    `value_bytes`; W of `n` rows, U's by default). Returns the row."""
     k = U.shape[1]
     fp32 = value_bytes == 4
     W = launch()
@@ -1383,7 +1417,8 @@ def route_row(label, U, launch, parent, csr, nnz, n_cols, rows=None,
            "library_ms": median_ms(lambda: torch.sparse.mm(csr, U), 5, 5),
            "library_device_ms": device_ms(
                lambda: torch.sparse.mm(csr, U), 3, 10),
-           **bound(least_bytes(nnz, value_bytes, U.shape[0], k,
+           **bound(least_bytes(nnz, value_bytes,
+                               U.shape[0] if n is None else n, k,
                                n_cols=n_cols),
                    {"fp32" if fp32 else "bf16": 2 * nnz * k})}
     if rows is not None:
@@ -1481,6 +1516,128 @@ def band_route_rows(label, launch, band, starts, pre, occupancy, table, n,
         out[k]["parent_route"] = parent
         del U
     return out
+
+
+def shard_route_rows(banded, label, A, ks, seed, plain_ks=()):
+    """K4 on a shard block or its transpose (`A`, with its nonzero table)
+    at each width of `ks` by `route_row`: the default route (`band_grid`
+    with the table and the block's window: the row-wise route where it
+    takes the block) against the route the block took before it carried
+    a table (`band_grid` without it: the staged route up to 64 columns,
+    the walk past them), the row-wise route forced and torch.sparse.mm of
+    the block; W the same bits on all three; the plain version at the
+    widths of `plain_ks`. Returns {k: row}, with each row's routes."""
+    from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    csr = band_csr(A)
+    nnz = int(csr.values().numel())
+    n_tiles, window = A.band.shape[0] // 128, A.band.shape[1]
+    out = {}
+    for k in ks:
+        U = torch.randn((A.n_cols, k), generator=gen, device="cuda")
+        sms = sm_count(U.device)
+        parent = band_grid(n_tiles, k, A.band.dtype, sms)[0]
+        route = band_grid(n_tiles, k, A.band.dtype, sms, rows=True,
+                          window=window)[0]
+        out[k] = route_row(
+            f"K4 {label} {A.n} x {A.n_cols} window {window} ({route} "
+            f"route, was {parent})", U,
+            lambda: banded.banded_spmm_cuda(A, U),
+            lambda: banded.banded_spmm_cuda(A, U, route=parent), csr, nnz,
+            A.n_cols, rows=lambda: banded.banded_spmm_cuda(A, U,
+                                                           route="rows"),
+            plain=((lambda: banded.banded_spmm_plain(A, U))
+                   if k in plain_ks else None), n=A.n)
+        out[k].update(band_route=route, parent_route=parent)
+        del U
+    del csr
+    return out
+
+
+def gram_route_row(rolling, label, A, A_sp, k, seed):
+    """K1 with the Gram on the rolling band `A` at width k on its default
+    route (`band_grid`: the row-wise route over `A.narrow` where it takes
+    the Gram) against the route it took before (`band_grid` without the
+    table: the walk, or the staged route), both timed on the card and by
+    launch, beside U^T torch.sparse.mm(A) (`A_sp`, A's scipy matrix in
+    its own order) and the bound with the Gram. W and G bit-identical
+    between two launches; on an fp32 band the parent's bits (W and G);
+    on a bf16 band within BSR_TOL['bf16'] of the plain version (the Gram
+    from the unrounded U). Returns the row."""
+    from eigenpinns_torch.sparse.nonzeros import gram_partials_plain
+    from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    U = torch.randn((A.n, k), generator=gen, device="cuda")
+    dtype = A.band.dtype
+    n_tiles, sms = A.band.shape[0] // 128, sm_count(U.device)
+    route = band_grid(n_tiles, k, dtype, sms, True,
+                      rows=A.narrow is not None)[0]
+    parent = band_grid(n_tiles, k, dtype, sms, True)[0]
+    W, G = rolling.rolling_spmm_cuda(A, U, with_gram=True)
+    W2, G2 = rolling.rolling_spmm_cuda(A, U, with_gram=True)
+    Ww, Gw = rolling.rolling_spmm_cuda(A, U, with_gram=True, route=parent)
+    check(torch.equal(W2, W) and torch.equal(G2, G),
+          f"{label} k={k}: W or G differs between two launches")
+    Wp, Gp = rolling.rolling_spmm_gram_plain(A, U)
+    _, Gt = gram_partials_plain(U, W, A.band.shape[0] // 128)
+    torch.cuda.synchronize()
+    errs = {"W": rel_err(W, Wp), "G": rel_err(G, Gp),
+            "G_order": rel_err(G, Gt)}
+    if dtype == torch.float32:
+        check(torch.equal(W, Ww) and torch.equal(G, Gw),
+              f"{label} k={k}: W or G differs from the {parent} route's")
+        tol = BSR_TOL["highest"]
+    else:
+        tol = BSR_TOL["bf16"]
+    check(max(errs.values()) <= tol,
+          f"{label} k={k}: rel err {errs} > {tol}")
+    csr = torch_csr(A_sp, U.device)
+    nnz = int(csr.values().numel())
+    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+
+    def launch():
+        return rolling.rolling_spmm_cuda(A, U, with_gram=True)
+
+    def was():
+        return rolling.rolling_spmm_cuda(A, U, with_gram=True, route=parent)
+
+    def library():
+        return U.T @ torch.sparse.mm(csr, U)
+
+    t0 = time.time()
+    rolling.rolling_spmm_gram_plain(A, U)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    row = {"k": k, "route": route, "parent_route": parent,
+           "ms": median_ms(launch, 5, 5),
+           "device_ms": device_ms(launch, 3, 10),
+           "parent_ms": median_ms(was, 5, 5),
+           "parent_device_ms": device_ms(was, 3, 10), "plain_ms": plain_ms,
+           "library_ms": median_ms(library, 5, 5),
+           "library_device_ms": device_ms(library, 3, 10),
+           "max_abs_err": max(float((W - Wp).abs().max()),
+                              float((G - Gp).abs().max())),
+           **{f"rel_err_{key}": v for key, v in errs.items()},
+           **bound(least_bytes(nnz, A.band.element_size(), A.n, k,
+                               gram=True),
+                   {kind: 2 * nnz * k, "fp32": 2 * A.n * k * k})}
+    print(f"[rows gram] {label} {tuple(A.band.shape)} {kind} k={k} with "
+          f"the Gram ({route} route, was {parent}): on the card "
+          f"{row['device_ms']:.4f} ms (by launch {row['ms']:.4f}), the "
+          f"{parent} route {row['parent_device_ms']:.4f} (by launch "
+          f"{row['parent_ms']:.4f}); "
+          f"U^T torch.sparse.mm {row['library_device_ms']:.4f} (by launch "
+          f"{row['library_ms']:.4f}); bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}); rel err vs plain W {errs['W']:.3e}, G "
+          f"{errs['G']:.3e}, G vs the reduce's order "
+          f"{errs['G_order']:.3e}; plain {plain_ms:.1f} ms (one call); "
+          + (f"W and G the {parent} route's bits" if kind == "fp32" else
+             "W and G the same bits from two launches"), flush=True)
+    del U, W, G, W2, G2, Ww, Gw, Wp, Gp, Gt, csr
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_k2_1m(bsr, K, K_sp, seed):
@@ -1679,17 +1836,36 @@ def burst_slice(bsr, K, M, X, ref_loss):
     return launches
 
 
+def rolling_counts(rolling) -> dict:
+    """K1's launch counts: all, with the Gram, on the row-wise route, and
+    of those over a bf16 table and with the Gram."""
+    return {"all": rolling.rolling_kernel_launches,
+            "with_gram": rolling.rolling_gram_launches,
+            "rows": rolling.rolling_rows_launches,
+            "rows_bf16": rolling.rolling_rows_bf16_launches,
+            "rows_gram": rolling.rolling_rows_gram_launches}
+
+
+def zero_rolling_counts(rolling) -> None:
+    """Sets K1's launch counts (`rolling_counts`) to 0."""
+    rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
+    rolling.rolling_rows_launches = rolling.rolling_rows_bf16_launches = 0
+    rolling.rolling_rows_gram_launches = 0
+
+
 def rolling_slice(rolling, L, m_diag, X, oracle, device):
     """The bench's 300k training phase on the card: the RCM-ordered
     rolling band of L, K1 against its plain version on it, train_joint
     (K1 with the fused Gram on a bf16 copy of the band; its backward pass
     applies the band again without the Gram; run once timed and once
     more under the profiler), then the guarded LOBPCG polish on the fp32
-    band (K1 without the Gram). Returns K1's launches in the timed
-    training, its counts in the polish (all, with the Gram, on the
-    row-wise route), the k = 20 'bf16' row of measurements and the
-    polish's products in 'highest' ({k: `route_row`} at k = 28 and
-    84)."""
+    band (K1 without the Gram). Returns K1's counts in the timed
+    training and in the polish (all, with the Gram, on the row-wise
+    route, of those over a bf16 table and with the Gram), the k = 20
+    'bf16' row of measurements, the polish's products in 'highest' ({k:
+    `route_row`} at k = 28 and 84) and the training's k = 20 products on
+    the bf16 band by the row-wise route (`route_row`) and its Gram
+    (`gram_route_row`)."""
     from eigenpinns_torch.solvers import lobpcg, train_joint
     from eigenpinns_torch.sparse import Diagonal, RollingBanded
 
@@ -1718,24 +1894,31 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
         None, K.pre, K.occupancy, K.narrow, K.n, torch_csr(Lp, device),
         Lp.nnz, (polish_k, 3 * polish_k), seed=9,
         plain=lambda V: rolling.rolling_spmm_plain(K, V))
-
-    def counts():
-        return {"all": rolling.rolling_kernel_launches,
-                "with_gram": rolling.rolling_gram_launches,
-                "rows": rolling.rolling_rows_launches}
+    # The training's products on the bf16 band: without the Gram (its
+    # backward pass) on the bf16 row-wise route against the tensor-core
+    # walk it took before, and with the Gram (its forward pass) on the
+    # row-wise route's Gram against the walk's.
+    Kb = K.with_precision("bf16")
+    rows_bf16 = band_route_rows(
+        "K1 300k rolling band bf16",
+        lambda V, **grid: rolling.rolling_spmm_cuda(Kb, V, **grid), Kb.band,
+        None, Kb.pre, Kb.occupancy, Kb.narrow, Kb.n, torch_csr(Lp, device),
+        Lp.nnz, (DIRECT_K,), seed=10,
+        plain=lambda V: rolling.rolling_spmm_plain(Kb, V))[DIRECT_K]
+    gram_bf16 = gram_route_row(rolling, "K_300k", Kb, Lp, DIRECT_K, seed=11)
+    del Kb
 
     # Training twice: timed on its own, then under the profiler (whose
     # cost on a slow host halves the rate); the second run must repeat
     # the first one's loss history.
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
-    rolling.rolling_rows_launches = 0
+    zero_rolling_counts(rolling)
     t0 = time.time()
     res = train_joint(K, M, X[perm], device=device, **DIRECT_CFG)
     torch.cuda.synchronize()
     train_s = time.time() - t0
-    train_launches = counts()
+    train_launches = rolling_counts(rolling)
     with traced() as prof:
         with torch.profiler.record_function("smoke.train_rolling"):
             again = train_joint(K, M, X[perm], device=device, **DIRECT_CFG)
@@ -1746,8 +1929,7 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
           f"the timed one: {dev:.3e}")
     del again
     rates = sorted(n / t for n, t in res.chunk_times[1:])
-    rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
-    rolling.rolling_rows_launches = 0
+    zero_rolling_counts(rolling)
     t0 = time.time()
     guards = torch.as_tensor(np.random.default_rng(3).normal(
         size=(K.n, POLISH_GUARD)).astype(np.float32), device=device)
@@ -1757,7 +1939,7 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
                  tol=POLISH_TOL)
     torch.cuda.synchronize()
     polish_s = time.time() - t0
-    polish_launches = counts()
+    polish_launches = rolling_counts(rolling)
     peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
 
     vals = oracle.result()[:DIRECT_K]
@@ -1785,10 +1967,14 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
           "train_joint's backward pass launched K1 0 times")
     check(polish_launches["all"] > 0 and polish_launches["with_gram"] == 0,
           f"the polish's K1 launches: {polish_launches}")
-    # The bf16 training takes the walk but for its last product, the
-    # Rayleigh quotients on the fp32 band at k = 20; every product of the
-    # polish (K X at k = 28, K S at k = 84) the row-wise route.
-    check(train_launches["rows"] == 1 and polish_launches["rows"] > 0
+    # Every product of the bf16 training takes the row-wise route: over
+    # the bf16 table at k = 20, its forward pass with the Gram, but for
+    # its last product, the Rayleigh quotients on the fp32 band at k = 20;
+    # every product of the polish (K X at k = 28, K S at k = 84) too.
+    check(train_launches["rows"] == train_launches["all"]
+          and train_launches["rows_bf16"] == train_launches["all"] - 1
+          and train_launches["rows_gram"] == train_launches["with_gram"]
+          and polish_launches["rows"] > 0
           and polish_launches["rows"] == polish_launches["all"],
           f"K1's row-wise launches: training {train_launches}, polish "
           f"{polish_launches}")
@@ -1797,7 +1983,8 @@ def rolling_slice(rolling, L, m_diag, X, oracle, device):
     check(polished.max() <= MAX_REL_ERR,
           f"rolling polished max rel err {polished.max():.3e} > "
           f"{MAX_REL_ERR}")
-    return train_launches["all"], polish_launches, row, rows_84
+    return (train_launches, polish_launches, row, rows_84, rows_bf16,
+            gram_bf16)
 
 
 def check_adversarial(bsr, banded, rolling, device, seed):
@@ -1928,7 +2115,7 @@ def check_adversarial(bsr, banded, rolling, device, seed):
                 Ur = U.bfloat16().float() if prec == "bf16" else U
                 Wp, Gp = rolling.rolling_spmm_gram_plain(A, U)
                 Wd = dense @ Ur
-                for cb in (32, 64):
+                for cb in (None, 32, 64):   # the default route too
                     W = rolling.rolling_spmm_cuda(A, U, col_block=cb)
                     W5, G = rolling.rolling_spmm_cuda(A, U, with_gram=True,
                                                       col_block=cb)
@@ -1942,8 +2129,9 @@ def check_adversarial(bsr, banded, rolling, device, seed):
                           f"{cb}: rel err W {err:.3e} G {err_g:.3e}")
     print(f"[kernel] adversarial rolling band (n = {n}, band "
           f"{tuple(op.band.shape)}, pre = {op.pre}) and its transpose: K1 "
-          f"with and without the Gram (both column blocks) vs plain and "
-          f"dense, max rel err {worst:.3e}", flush=True)
+          f"with and without the Gram (the default route, both column "
+          f"blocks of the walk) vs plain and dense, max rel err "
+          f"{worst:.3e}", flush=True)
 
 
 def check_banded_kernels(banded, bsr, cores, K, seed):
@@ -2117,8 +2305,7 @@ def spectral_slice(banded, X, L, m_diag, oracle, device, label="spectral",
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    for key in banded.banded_kernel_launches:
-        banded.banded_kernel_launches[key] = 0
+    zero_banded_counts(banded)
     with traced() if profile else contextlib.nullcontext() as prof:
         t0 = time.time()
         res = spectral_basis(X, operators=(L, m_diag), device=device,
@@ -2179,8 +2366,7 @@ def gram_slice(banded, K_h, K_f, M, X, oracle):
     from eigenpinns_torch.solvers import lobpcg, train_joint
 
     device = K_h.core.band.device
-    for key in banded.banded_kernel_launches:
-        banded.banded_kernel_launches[key] = 0
+    zero_banded_counts(banded)
     with traced() as prof:
         t0 = time.time()
         with torch.profiler.record_function("smoke.train_joint"):
@@ -2189,8 +2375,7 @@ def gram_slice(banded, K_h, K_f, M, X, oracle):
         train_s = time.time() - t0
     train_launches = dict(banded.banded_kernel_launches)
     rates = sorted(n / t for n, t in res.chunk_times[1:])
-    for key in banded.banded_kernel_launches:
-        banded.banded_kernel_launches[key] = 0
+    zero_banded_counts(banded)
     t0 = time.time()
     guards = torch.as_tensor(np.random.default_rng(3).normal(
         size=(K_f.n, POLISH_GUARD)).astype(np.float32), device=device)
@@ -2703,8 +2888,9 @@ def upscaler_phase(device):
 
 def transfer_phase(rolling, mesh, h_cpu, device):
     """`train_per_level` on the multigrid phase's hierarchy (built on the
-    card), counting K1's launches from zero; returns them. Each level's
-    last loss must be < 1.5 x its first, the frozen layers bit-identical
+    card), counting K1's launches from zero (`rolling_counts`); returns
+    them and the `gram_route_row` of each level's K at the loss's width,
+    taken first. Each level's last loss must be < 1.5 x its first, the frozen layers bit-identical
     across their level, each level_<l> checkpoint restore the saved
     tensors. Then 50 epochs a level on the card, from the CPU build's
     hierarchy (saved and loaded) and the same parameters, against the
@@ -2717,21 +2903,26 @@ def transfer_phase(rolling, mesh, h_cpu, device):
     from eigenpinns_torch.models import SimpleCorrector
     from eigenpinns_torch.sampling import Hierarchy, build_hierarchy
     from eigenpinns_torch.solvers import eigsh_smallest, train_per_level
+    from eigenpinns_torch.sparse import RollingBanded
     from eigenpinns_torch.train import freeze_mask, restore_checkpoint
     from eigenpinns_torch.utils import align_ritz_vectors
 
     h = build_hierarchy(mesh, LEVELS, n_modes=N_MODES,
                         operator_format="auto", device=device)
+    # The loss's Gram on each level's operator (the hierarchy's K_scipy
+    # is in its band's order), the row-wise route's against the walk's.
+    gram_rows = [gram_route_row(rolling, f"transfer level {lv} K", K_op,
+                                K_sp, N_MODES, seed=20 + lv)
+                 for lv, (K_op, K_sp) in enumerate(zip(h.K_ops, h.K_scipy))
+                 if isinstance(K_op, RollingBanded)]
     with tempfile.TemporaryDirectory() as ckdir:
-        rolling.rolling_kernel_launches = 0
-        rolling.rolling_gram_launches = 0
+        zero_rolling_counts(rolling)
         t0 = time.time()
         res = train_per_level(h, N_MODES, checkpoint_dir=ckdir,
                               **TRANSFER_CFG)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {"all": rolling.rolling_kernel_launches,
-                    "with_gram": rolling.rolling_gram_launches}
+        launches = rolling_counts(rolling)
         restored = [restore_checkpoint(os.path.join(ckdir, f"level_{lv}"),
                                        target={"params": p,
                                                "lambda_refined": lam})
@@ -2752,6 +2943,11 @@ def transfer_phase(rolling, mesh, h_cpu, device):
           f"{TRANSFER_JAX_ERR:.3e} on its own build of the hierarchy)",
           flush=True)
     check(launches["all"] > 0, "train_per_level launched K1 0 times")
+    # K1's Gram launches (the loss, k = 10 on fp32 bands) take the
+    # row-wise route's Gram.
+    check(launches["with_gram"] > 0
+          and launches["rows_gram"] == launches["with_gram"],
+          f"transfer: K1's Gram launches off the row-wise route: {launches}")
     check(all(b < 1.5 * a for a, b in zip(firsts, lasts)),
           "a transfer level's loss rose past 1.5 x its first")
     check(bool(np.isfinite(res.eigenvalues).all()), "non-finite transfer "
@@ -2815,7 +3011,7 @@ def transfer_phase(rolling, mesh, h_cpu, device):
     check(max(devs["Ritz vectors fixed"]) <= 1e-4, f"transfer with fixed "
           f"Ritz vectors: the card differs from the CPU run by "
           f"{max(devs['Ritz vectors fixed']):.3e}")
-    return launches["all"]
+    return launches, gram_rows
 
 
 def dirichlet_reference(L, mask: np.ndarray, vals: np.ndarray) -> np.ndarray:
@@ -3335,8 +3531,7 @@ def kernel_counts(rolling, bsr, banded, reset: bool = False) -> dict:
         rolling.rolling_kernel_launches = 0
         for key in bsr.bsr_kernel_launches:
             bsr.bsr_kernel_launches[key] = 0
-        for key in banded.banded_kernel_launches:
-            banded.banded_kernel_launches[key] = 0
+        zero_banded_counts(banded)
     return {"K1": rolling.rolling_kernel_launches,
             "K2": bsr.bsr_kernel_launches["grouped"],
             "K3": bsr.bsr_kernel_launches["burst"],
@@ -3846,7 +4041,8 @@ def shard_block_row(banded, A, U: torch.Tensor, label: str) -> dict:
     err = rel_err(W, Wp)
     _, route_t = band_routes(
         label, lambda V, **grid: banded.banded_spmm_cuda(A, V, **grid),
-        A.band, A.occupancy, U, W, on_card=True)
+        A.band, A.occupancy, U, W, on_card=True, table=A.narrow,
+        window=A.band.shape[1])
     csr = band_csr(A)
     nnz = int(csr.values().numel())
     t = {"ms": median_ms(lambda: banded.banded_spmm_cuda(A, U)),
@@ -3910,6 +4106,7 @@ def shard_kernel_phase(banded, L, X, device) -> dict:
             rows["block"] = shard_block_row(banded, A, win, "shard 1 block")
             rows["transpose"] = shard_block_row(
                 banded, A.transpose_banded, g, "shard 1 transpose")
+            A1 = A
     single, _ = BandedELL.from_scipy(core_sp, reorder=False, device=device)
     W1 = banded.banded_spmm_cuda(single, U[:n].contiguous())
     assembled = rel_err(torch.cat(parts)[:n], W1)
@@ -3921,7 +4118,71 @@ def shard_kernel_phase(banded, L, X, device) -> dict:
           f"shard blocks: K4 rel err {errs}")
     check(assembled <= BANDED_TOL["W"],
           f"assembled shard products vs single device: {assembled:.3e}")
+    del parts, W, Wt, W1, single
+    # K4 on shard 1's block at the widths 16c's ranks launch it (the
+    # training at k = 20, the polish's K X and K S at 28 and 84) and on
+    # its transpose at the training's, by `shard_route_rows`: its route
+    # against the route it took before the blocks carried tables.
+    polish_k = DIRECT_K + POLISH_GUARD
+    rows["routes"] = {
+        "block": shard_route_rows(banded, "16c shard 1 block", A1,
+                                  (DIRECT_K, polish_k, 3 * polish_k), 31),
+        "transpose": shard_route_rows(banded, "16c shard 1 transpose",
+                                      A1.transpose_banded, (DIRECT_K,), 32)}
+    del A1
+    rows["routes_multigrid"] = multigrid_shard_rows(banded, device)
     return rows
+
+
+def multigrid_shard_rows(banded, device) -> dict:
+    """K4 on the sharded multigrid's blocks at the widths it launches
+    them: each level's K (its per-level RCM order) at k = N_MODES, and
+    its graph operator (the corrector's neighbour mean, in K's order) at
+    the corrector's MG_FEATURES input columns, as `MultigridTrainer`
+    shards them on SHARD_DEV shards (16c's ranks; shard 1's block and
+    transpose) and on one (the CLI under torchrun, 17c), by
+    `shard_route_rows`. Levels whose band crosses a shard take the
+    trainer's all-gather path, and a shard past a level's rows holds no
+    nonzero: neither runs K4. Returns {label: {k: row}}."""
+    from eigenpinns_torch.parallel import ShardedBanded
+    from eigenpinns_torch.sampling import build_hierarchy
+    from eigenpinns_torch.sparse.ops import neighbor_mean_scipy
+    from eigenpinns_torch.utils.fixtures import perturbed_icosphere
+
+    h = build_hierarchy(perturbed_icosphere(4), LEVELS, n_modes=N_MODES,
+                        operator_format="auto", device="cpu")
+    out = {}
+    for lv, (K_sp, n_l) in enumerate(zip(h.K_scipy, h.actual_hierarchy)):
+        G_sp = neighbor_mean_scipy(h.edge_index_list[lv], n_l)
+        for n_dev in (SHARD_DEV, 1):
+            shard = min(1, n_dev - 1)
+            try:
+                opK, perm = ShardedBanded.from_scipy(
+                    K_sp, n_dev, shards=(shard,), device=device)
+                opG, _ = ShardedBanded.from_scipy(
+                    G_sp[perm][:, perm].tocsr(), n_dev, reorder=False,
+                    shards=(shard,), device=device)
+            except ValueError:   # the trainer's all-gather path: no K4
+                continue
+            for op_name, op, k in (("K", opK, N_MODES),
+                                   ("G", opG, MG_FEATURES)):
+                A = op.block(shard, device)
+                if A.narrow.nnz == 0:   # a shard past the level's rows
+                    continue
+                for name, blk in (("block", A), ("transpose",
+                                                  A.transpose_banded)):
+                    label = (f"multigrid level {lv} {op_name}, {n_dev} "
+                             f"shard{'s' if n_dev > 1 else ''}, {name}")
+                    out[label] = shard_route_rows(banded, label, blk, (k,),
+                                                  40 + lv)
+    return out
+
+
+def zero_banded_counts(banded) -> None:
+    """Sets K4/K5's launch counts and the shard blocks' widths to 0."""
+    for key in banded.banded_kernel_launches:
+        banded.banded_kernel_launches[key] = 0
+    banded.banded_rect_widths.clear()
 
 
 def nccl_shared_card_rank() -> str:
@@ -3960,8 +4221,7 @@ def shard_rank(inputs: dict) -> dict:
     prob = prepare_sharded_problem(L, M, X=X, mesh=mesh)
     out["prepare_s"] = time.time() - t0
     out["kind"] = prob.kind
-    for key in banded.banded_kernel_launches:
-        banded.banded_kernel_launches[key] = 0
+    zero_banded_counts(banded)
     t0 = time.time()
     res = train_joint_sharded(L, M, X, mesh=mesh, problem=prob,
                               **SHARD_16C_CFG)
@@ -3978,13 +4238,17 @@ def shard_rank(inputs: dict) -> dict:
     out["polish_s"] = time.time() - t0
     out["polished"] = np.sort(vals)[:DIRECT_K]
     out["launches"] = dict(banded.banded_kernel_launches)
+    out["widths"] = dict(banded.banded_rect_widths)
     del prob
     torch.cuda.empty_cache()
     h = Hierarchy.load(inputs["h"], operator_format="auto",
                        device=mesh.device)
+    zero_banded_counts(banded)
     t0 = time.time()
     mg = MultigridTrainer(Config(**inputs["mg_cfg"])).train(h, mesh=mesh)
     out["mg_s"] = time.time() - t0
+    out["mg_launches"] = dict(banded.banded_kernel_launches)
+    out["mg_widths"] = dict(banded.banded_rect_widths)
     out["mg_loss"], out["mg_lam"] = mg.history["loss"], mg.eigenvalues
     out["mg_rate"] = chunk_rate([mg.chunk_times])
     return out
@@ -4052,12 +4316,39 @@ def sharded_xl_phase(banded, L, m_diag, X, oracle, mesh, device) -> tuple:
           f"{tuple(prob.core.band_t.shape)}", flush=True)
     gen = torch.Generator("cuda").manual_seed(17)
     U = torch.randn((prob.n_pad, DIRECT_K), generator=gen, device=device)
-    row_1m = shard_block_row(banded, prob.core.block(0, device),
-                             window_of(U, 0, prob.per, prob.core.B),
+    torch.cuda.synchronize()
+    t0 = time.time()
+    A = prob.core.block(0, device)
+    torch.cuda.synchronize()
+    tables_s = time.time() - t0
+    print(f"[shard xl] the 1M block and its transpose with their nonzero "
+          f"tables in {tables_s:.3f} s: "
+          + ", ".join(f"{name} {t.val.numel()} entries for {t.nnz} "
+                      f"nonzeros, {(t.val.nbytes + t.idx.nbytes + t.slice_start.nbytes) / 1e6:.1f} MB"
+                      for name, t in (("block", A.narrow), (
+                          "transpose", A.transpose_banded.narrow))),
+          flush=True)
+    row_1m = shard_block_row(banded, A, window_of(U, 0, prob.per,
+                                                  prob.core.B),
                              "1M split core, one shard")
     del U
-    for key in banded.banded_kernel_launches:
-        banded.banded_kernel_launches[key] = 0
+    # K4 on the block at every width 16b launches (the training at k =
+    # 20, the polish's K X and K S at 28 and 84, the spectral basis's X
+    # and S at 20 and 60), the transpose at the training's k = 20.
+    polish_k = DIRECT_K + POLISH_GUARD
+    row_1m["routes"] = {
+        "block": shard_route_rows(
+            banded, "16b 1M split core, one shard, block", A,
+            (DIRECT_K, polish_k, SPEC_K + 10, 3 * polish_k), 33,
+            plain_ks=(DIRECT_K,)),
+        "transpose": shard_route_rows(
+            banded, "16b 1M split core, one shard, transpose",
+            A.transpose_banded, (DIRECT_K,), 34)}
+    row_1m["tables_s"] = tables_s
+    n_tiles, window = A.band.shape[0] // 128, A.band.shape[1]
+    del A
+    torch.cuda.empty_cache()
+    zero_banded_counts(banded)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
     res = train_joint_sharded(L, M, X, mesh=mesh, problem=prob, **SHARD_CFG)
@@ -4079,6 +4370,7 @@ def sharded_xl_phase(banded, L, m_diag, X, oracle, mesh, device) -> tuple:
                              if key != "operator_format"})
     spec_s = time.time() - t0
     launches = dict(banded.banded_kernel_launches)
+    widths = dict(banded.banded_rect_widths)
     peak = torch.cuda.max_memory_allocated(device) / 2**20
 
     vals = oracle.result()
@@ -4102,8 +4394,8 @@ def sharded_xl_phase(banded, L, m_diag, X, oracle, mesh, device) -> tuple:
           f"{float(np.max(resid[:k])):.3e}); spectral_basis(n_devices=1) "
           f"{spec_s:.3f} s, timings "
           f"{ {key: round(v, 3) for key, v in spec.timings.items()} }; K4 "
-          f"launches {launches}; peak device memory {peak:.1f} MiB",
-          flush=True)
+          f"launches {launches}, on shard blocks by width {widths}; peak "
+          f"device memory {peak:.1f} MiB", flush=True)
     print(f"[shard xl] polished max rel err of modes 1..{k - 1} vs eigsh "
           f"{rel.max():.3e} (bar {XL_BAR}); vs the single-device 1M "
           f"phase's polished eigenvalues (modes 1+): max rel "
@@ -4113,37 +4405,34 @@ def sharded_xl_phase(banded, L, m_diag, X, oracle, mesh, device) -> tuple:
           f"{orth:.3e}; vs the single-device 1M spectral basis (modes 1+): "
           f"max rel {d_sb.max():.3e}", flush=True)
     check(launches["spmm_rect"] > 0, "16b launched K4 on no shard block")
+    # Every shard-block launch at a width where `band_grid` takes the
+    # block's window (FULL_ROWS_K; the transpose's window is the same
+    # 1024 columns) is on the row-wise route, and no other.
+    from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
+
+    on_rows = sum(c for k, c in widths.items() if band_grid(
+        n_tiles, k, torch.float32, sm_count(device), rows=True,
+        window=window)[0] == "rows")
+    check(launches["spmm_rect"] == sum(widths.values())
+          and launches["rows"] == on_rows > 0,
+          f"16b: {launches['rows']} row-wise launches of {widths}")
     check(bool(np.isfinite(loss).all() and np.isfinite(lam).all()
                and np.isfinite(sb).all()), "non-finite 16b results")
     check(rel.max() <= XL_BAR, f"16b polished max rel err {rel.max():.3e}")
     check(rel_sb.max() <= MAX_REL_ERR,
           f"16b spectral basis max rel err {rel_sb.max():.3e}")
     check(orth <= 1e-3, f"16b spectral basis not M-orthonormal: {orth:.3e}")
+    row_1m["widths"] = widths
+    row_1m["launches_rows"] = launches["rows"]
     return launches["spmm_rect"], row_1m
 
 
-def shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl, oracle, oracle_xl,
-                device) -> tuple:
-    """Step 16: 16a, then 16c's 4 ranks beside 16b and the single-device
-    and world-size-1 runs 16c is held to. Returns (K4 rectangular
-    launches of 16b, the rows)."""
+def start_16c(L, m_diag, X) -> tuple:
+    """16c's 4 ranks on the 300k cloud, started (`start_shard_ranks`) in
+    a thread ahead of steps 14-15, whose host-bound work their gloo
+    polish and multigrid overlap; `shard_slice` collects them. Returns
+    (pool, job, inputs, workdir, the multigrid's config)."""
     import tempfile
-
-    import scipy.sparse as sp
-    import torch.distributed as dist
-
-    from eigenpinns_torch.configs import Config
-    from eigenpinns_torch.parallel import make_mesh
-    from eigenpinns_torch.sampling import Hierarchy
-    from eigenpinns_torch.solvers import (
-        MultigridTrainer,
-        prepare_sharded_problem,
-        train_joint_sharded,
-    )
-
-    t_all = time.time()
-    rows = shard_kernel_phase(banded, L, X, device)
-    print(f"[time] 16a: {time.time() - t_all:.2f} s", flush=True)
 
     mg_cfg = dict(n_modes=N_MODES, hierarchy=LEVELS, hidden_layers=[256] * 6,
                   epochs=SHARD_MG_EPOCHS, scan_chunk=100,
@@ -4162,6 +4451,31 @@ def shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl, oracle, oracle_xl,
     print(f"[shard] 16c inputs written in {time.time() - t0:.2f} s; 4 "
           "ranks on one card over gloo (host-staged collectives) started",
           flush=True)
+    return pool, job, inputs, workdir, mg_cfg
+
+
+def shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl, oracle, oracle_xl,
+                device, ranks_16c) -> tuple:
+    """Step 16: 16a, then 16b and the single-device and world-size-1 runs
+    16c is held to, beside 16c's 4 ranks (`start_16c`, started before
+    step 14), which it collects. Returns (K4 rectangular launches of
+    16b, the rows)."""
+    import scipy.sparse as sp
+    import torch.distributed as dist
+
+    from eigenpinns_torch.configs import Config
+    from eigenpinns_torch.parallel import make_mesh
+    from eigenpinns_torch.sampling import Hierarchy
+    from eigenpinns_torch.solvers import (
+        MultigridTrainer,
+        prepare_sharded_problem,
+        train_joint_sharded,
+    )
+
+    t_all = time.time()
+    rows = shard_kernel_phase(banded, L, X, device)
+    print(f"[time] 16a: {time.time() - t_all:.2f} s", flush=True)
+    pool, job, inputs, workdir, mg_cfg = ranks_16c
 
     t0 = time.time()
     dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl1",
@@ -4249,7 +4563,10 @@ def shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl, oracle, oracle_xl,
           f"{r0['polish_s']:.3f} s, multigrid {r0['mg_s']:.3f} s "
           f"({r0['mg_rate']:.2f} steps/s; single device "
           f"{chunk_rate([mg1.chunk_times]):.2f}); K4 launches per rank "
-          f"{[r['launches'] for r in ranks]}", flush=True)
+          f"{[r['launches'] for r in ranks]}, on shard blocks by width "
+          f"{[r['widths'] for r in ranks]}; in the multigrid "
+          f"{[r['mg_launches'] for r in ranks]}, by width "
+          f"{[r['mg_widths'] for r in ranks]}", flush=True)
     print(f"[shard] 16c vs world size 1: loss history max rel "
           f"{d_loss.max():.3e} (bar {SHARD_LOSS_REL}), eigenvalues max rel "
           f"{d_lam.max():.3e} (bar {SHARD_LAM_REL}); polished max rel err "
@@ -4262,6 +4579,12 @@ def shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl, oracle, oracle_xl,
     check(same, "16c ranks returned different results")
     check(all(r["launches"]["spmm_rect"] > 0 for r in ranks),
           "16c: a rank launched K4 on no shard block")
+    # Every width 16c's ranks launch (k = 20, 28 and 84 in the training
+    # and polish; 10 and 19 in the multigrid) lies in FULL_ROWS_K.
+    check(all(r["launches"]["rows"] == r["launches"]["spmm_rect"] > 0
+              and r["mg_launches"]["rows"] == r["mg_launches"]["spmm_rect"]
+              for r in ranks),
+          "16c: a rank launched K4 off a shard block's row-wise route")
     check(d_loss.max() <= SHARD_LOSS_REL, f"16c loss rel {d_loss.max():.3e}")
     check(d_lam.max() <= SHARD_LAM_REL, f"16c eigenvalues rel "
           f"{d_lam.max():.3e}")
@@ -4275,6 +4598,9 @@ def shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl, oracle, oracle_xl,
     print(f"[time] step 16: {time.time() - t_all:.2f} s", flush=True)
     rows["1m"] = row_1m
     rows["launches_4_ranks"] = [r["launches"]["spmm_rect"] for r in ranks]
+    rows["launches_4_ranks_rows"] = [r["launches"]["rows"] for r in ranks]
+    rows["widths_4_ranks"] = [r["widths"] for r in ranks]
+    rows["launches_4_ranks_multigrid"] = [r["mg_launches"] for r in ranks]
     return k4_rect, rows
 
 
@@ -4550,7 +4876,10 @@ def finish_torchrun_cli(procs: dict, t_start: float) -> dict:
     check(dev_lam <= TORCHRUN_EIG_TOL,
           f"CLI under torchrun: eigenvalues rel {dev_lam:.3e}")
     check(vtus == ["out.vtu"], f"CLI under torchrun wrote {vtus}")
-    check(counts["banded_spmm_rect"] > 0 and counts["rolling"] > 0,
+    # The sharded multigrid's shard blocks (k = 10 and 19) take K4's
+    # row-wise route.
+    check(counts["banded_spmm_rect"] > 0 and counts["rolling"] > 0
+          and counts["banded_rows"] == counts["banded_spmm_rect"],
           f"CLI under torchrun: kernel launches {counts}")
     return counts
 
@@ -4573,7 +4902,8 @@ def surface_slice(rolling, L, m_diag, X, oracle, L_xl, m_xl, X_xl,
     phases.done("step 17a (minibatched train_joint)")
     print(f"[time] step 17: {time.time() - t_all:.2f} s", flush=True)
     return {"k1_smooth": k1_smooth, "k1_torchrun": cli_counts["rolling"],
-            "k4_torchrun": cli_counts["banded_spmm_rect"]}
+            "k4_torchrun": cli_counts["banded_spmm_rect"],
+            "k4_torchrun_rows": cli_counts["banded_rows"]}
 
 
 def main() -> int:
@@ -4663,6 +4993,10 @@ def smoke(oracles: list) -> int:
     row = check_kernel(rolling, "K_blk", K_blk, K_blk_sp, N_MODES, seed=0)
     check_kernel(rolling, "K_finest", K_fine, h_cpu.K_scipy[-1],
                  3 * (N_MODES + 3), seed=1)
+    # K1 with the Gram at the loss's width on the row-wise route's Gram
+    # against the walk's (the transfer phase's Gram launches).
+    row_kblk_gram = gram_route_row(rolling, "K_blk", K_blk.with_precision(
+        "high"), K_blk_sp, N_MODES, seed=2)
     del K_blk, K_fine
     phases.done("K1 checks")
 
@@ -4673,8 +5007,7 @@ def smoke(oracles: list) -> int:
         weight_residual=1000.0, weight_orthogonal=10.0, log_every=0,
         early_stop_patience=10**9, plateau_patience=2000, polish_iters=100)
     torch.cuda.reset_peak_memory_stats(device)
-    rolling.rolling_kernel_launches = rolling.rolling_gram_launches = 0
-    rolling.rolling_rows_launches = 0
+    zero_rolling_counts(rolling)
     t0 = time.time()
     h = build_hierarchy(mesh, LEVELS, n_modes=N_MODES,
                         operator_format="auto", device=device)
@@ -4849,7 +5182,8 @@ def smoke(oracles: list) -> int:
     phases.done("joint family phase")
     upscaler_phase(device)
     phases.done("upscaler phase")
-    k1_transfer = transfer_phase(rolling, mesh, h_cpu, device)
+    k1_transfer, rows_transfer_gram = transfer_phase(rolling, mesh, h_cpu,
+                                                     device)
     phases.done("transfer phase")
     pde_run_counts = finish_pde_runs(pde_workers)
     phases.done("step 15's trainings (E1, E2, E3, S1, S2; started with "
@@ -4870,9 +5204,9 @@ def smoke(oracles: list) -> int:
     phases.done("burst slice")
 
     # 7b. The rolling-band slice: K1 with the fused Gram at 300k.
-    k1_train, k1_polished, row_300k, k1_rows = rolling_slice(
-        rolling, L, m_diag, X, oracle, device)
-    k1_polish = k1_polished["all"]
+    (k1_trained, k1_polished, row_300k, k1_rows, row_300k_bf16_rows,
+     row_300k_gram) = rolling_slice(rolling, L, m_diag, X, oracle, device)
+    k1_train, k1_polish = k1_trained["all"], k1_polished["all"]
     torch.cuda.empty_cache()
     phases.done("rolling-band slice")
 
@@ -4901,6 +5235,10 @@ def smoke(oracles: list) -> int:
     k2_xl, row_1m, k4_xl, band_rows_1m = xl_phases(
         bsr, banded, X_xl, L_xl, m_xl, oracle_xl, device, phases)
 
+    # 16c's 4 ranks (gloo, host-bound) start here and run beside steps
+    # 14-16b; step 16 collects them.
+    ranks_16c = start_16c(L, m_diag, X)
+
     # 14. The CLI's two runs, after every host stage and oracle.
     k1_cli, rows_fem, k2_cli, k3_cli, row_cli = cli_phase(
         rolling, bsr, banded, device, phases)
@@ -4911,7 +5249,7 @@ def smoke(oracles: list) -> int:
     # 16. The sharded path: K4 on shard blocks, world size 1 over NCCL at
     # 1M, 4 ranks on the card over gloo at 300k.
     k4_rect, shard_rows = shard_slice(banded, L, m_diag, X, L_xl, m_xl, X_xl,
-                                      oracle, oracle_xl, device)
+                                      oracle, oracle_xl, device, ranks_16c)
     phases.done("step 16 (sharded path)")
 
     # 17. The rest of the public surface: the smoother on the 300k
@@ -4930,7 +5268,7 @@ def smoke(oracles: list) -> int:
          "launches_300k_polish": k1_polish,
          "launches_300k_polish_rows": k1_polished["rows"],
          "row_300k": row_300k, "rows_300k_highest": k1_rows,
-         "launches_transfer": k1_transfer, "launches_cli_a": k1_cli,
+         "launches_transfer": k1_transfer["all"], "launches_cli_a": k1_cli,
          "row_cli_fem_K_blk": rows_fem["K"],
          "row_cli_fem_M_blk": rows_fem["M"],
          "launches_smoother": surface["k1_smooth"],
@@ -5011,9 +5349,34 @@ def smoke(oracles: list) -> int:
          "replaces": "eigenpinns_tpu/sparse/banded.py:455",
          "launches": k4_rect, **shard_rows["block"],
          "row_transpose": shard_rows["transpose"],
-         "row_1m": shard_rows["1m"],
+         "row_1m": {key: v for key, v in shard_rows["1m"].items()
+                    if key != "routes"},
          "launches_4_ranks": shard_rows["launches_4_ranks"],
-         "launches_cli_torchrun": surface["k4_torchrun"]}]}))
+         "launches_cli_torchrun": surface["k4_torchrun"]},
+        {"name": "banded_spmm_rect_rows", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/banded.py:455",
+         "launches": shard_rows["1m"]["launches_rows"],
+         **shard_rows["1m"]["routes"]["block"][DIRECT_K],
+         "widths_1m": shard_rows["1m"]["widths"],
+         "rows_1m": shard_rows["1m"]["routes"],
+         "rows_16c": shard_rows["routes"],
+         "rows_multigrid": shard_rows["routes_multigrid"],
+         "launches_4_ranks": shard_rows["launches_4_ranks_rows"],
+         "widths_4_ranks": shard_rows["widths_4_ranks"],
+         "launches_4_ranks_multigrid":
+             shard_rows["launches_4_ranks_multigrid"],
+         "launches_cli_torchrun": surface["k4_torchrun_rows"]},
+        {"name": "rolling_spmm_rows_gram", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/rolling.py:344",
+         "launches": k1_trained["rows_gram"], **row_300k_gram,
+         "launches_transfer": k1_transfer["rows_gram"],
+         "row_k_blk": row_kblk_gram, "rows_transfer": rows_transfer_gram},
+        {"name": "rolling_spmm_rows_bf16", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/rolling.py:344",
+         "launches": k1_trained["rows_bf16"], **row_300k_bf16_rows}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

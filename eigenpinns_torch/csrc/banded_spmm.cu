@@ -15,15 +15,24 @@
 //       <-  eigenpinns_tpu/sparse/rolling.py::_rolling_kernel_call (K1,
 //           public there as rolling_spmm_pallas / rolling_spmm_gram_pallas)
 //   nz::rows_kernel (nonzero_spmm.cuh) over the band's nonzero table
-//       <-  _rolling_kernel_call, on an fp32 rolling band (k = 9 to 128
-//           without the Gram: the polish's K X and K S), and
+//       <-  _rolling_kernel_call, on a rolling band (fp32 at k = 9 to 128
+//           without the Gram: the polish's K X and K S; bf16 at k = 12
+//           to 84: the 300k training's products), and
+//   nz::rows_gram_kernel, the same with each 128-row tile's Gram
+//   partial, then gram_reduce_kernel
+//       <-  _rolling_kernel_call with the Gram (fp32 at k = 10 to 20:
+//           the multigrid and transfer losses; bf16 at k = 20 to 28: the
+//           300k training's forward pass), and
+//   nz::rows_kernel
 //       <-  banded_spmm_pallas, on a full-window band with its table
-//           (BandedELL.narrow): fp32 at k = 20 to 84, from 33 to 64
+//           (BandedELL.narrow, and ShardedBanded.block's blocks and
+//           transposes): fp32 at k = 6 to 84, from 33 to 64
 //           on windows of 1024 columns or more (the spectral basis's
 //           products on the cluster core, the fused-Gram polish's K X
-//           and K S on the Hilbert core), bf16 at k = 20 to 28 (the
-//           fused-Gram training's backward pass), through
-//           nz::round_kernel's bf16 copy of U
+//           and K S on the Hilbert core, the sharded paths' blocks),
+//           bf16 at k = 20 to 28 (the fused-Gram training's backward
+//           pass); a bf16 table through nz::round_kernel's bf16 copy
+//           of U
 // The three kernels are three routes to the same sums (below); the
 // wrapper picks one by shape (sparse/occupancy.py::band_grid). The
 // row-wise route reads a sliced ELL of the band's nonzeros
@@ -807,6 +816,30 @@ int epk_banded_spmm_rows(const void* val, int val_is_bf16, const int* idx,
   return (int)nz::launch_rows(val, val_is_bf16, idx, slice_start, U,
                               static_cast<nz::bf16_bits*>(U_bf16), W, n, n_u,
                               k, sms, static_cast<cudaStream_t>(stream));
+}
+
+// The same with the Gram of a rolling band (K1 on the row-wise route):
+// W (n, k) = A U and G (k, k) = U^T W, from each 128-row tile's partial
+// (partial (n_tiles, k, k) fp32, n_tiles >= ceil(n / 128); the walk's
+// order, nonzero_spmm.cuh) summed by gram_reduce_kernel; U (n, k),
+// 1 <= k <= 128, the partials in the product's blocks. Returns
+// cudaGetLastError() after the launches.
+int epk_banded_spmm_rows_gram(const void* val, int val_is_bf16,
+                              const int* idx, const long long* slice_start,
+                              const float* U, void* U_bf16, float* W,
+                              float* partial, float* G, int n, int k,
+                              int n_tiles, int sms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (partial == nullptr || G == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = nz::launch_rows_impl(
+      val, val_is_bf16, idx, slice_start, U,
+      static_cast<nz::bf16_bits*>(U_bf16), W, partial, n, n, k, n_tiles,
+      sms, s);
+  if (err != cudaSuccess) return (int)err;
+  const int kk = k * k;
+  gram_reduce_kernel<<<(kk + kRedX - 1) / kRedX, dim3(kRedX, kRedY), 0, s>>>(
+      partial, G, n_tiles, kk);
+  return (int)cudaGetLastError();
 }
 
 const char* epk_banded_error_string(int err) {

@@ -70,6 +70,13 @@
 // counted (at k = 20 on the 300k K 0.0516 against 0.0638 ms; PERF.md), so
 // it is the one feed. At k = 20 the copy is 14.4 MB at 300k and 48 MB at
 // 1M (k padded to 24), within the card's 50 MB L2.
+//
+// The Gram (a rolling band's fused G = U^T A U, rows_gram_kernel): a
+// block owns one 128-row tile, runs the product over its rows in passes,
+// keeps the tile's W rows in shared memory beside its U rows, and writes
+// the tile's k x k partial summed as the walk's occ::tile_gram sums it;
+// banded_spmm.cu's gram_reduce_kernel then adds the partials in the
+// walk's order. So on an fp32 table G has the walk's bits as W does.
 
 #pragma once
 
@@ -223,23 +230,19 @@ __device__ __forceinline__ float frag_value(const uint4& w, int j) {
 }
 
 // ValT: the table's values, fp32 or bf16. UT: fp32 U (an fp32 table) or
-// U's bf16 copy (a bf16 table). A lane owns kC
-// adjacent output columns: 4 on fp32 U (one 16-byte load), 8 on the bf16
-// copy (one 16-byte load of its padded row). kVecU: 16-byte U loads (fp32
-// U: k % 4 == 0 and U 16-byte aligned; the copy: always). kVecW: 16-byte
-// W stores (k % 4 == 0, W 16-byte aligned). A product of a bf16 value and
-// a bf16-rounded U value is exact in fp32, so a bf16 table's FFMA chain
-// rounds once a step, as an fp32 table's does.
-template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC>
-__global__ void __launch_bounds__(kRowsThreads, 2)
-rows_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
-            const long long* __restrict__ slice_start,
-            const UT* __restrict__ U, int ld, float* __restrict__ W, int n,
-            int n_u, int k, int lanes) {
-  const int rows_per_block = blockDim.x / lanes;
-  const int row = blockIdx.x * rows_per_block + threadIdx.x / lanes;
-  const int c0 = kC * (threadIdx.x % lanes);
-  if (row >= n) return;
+// U's bf16 copy (a bf16 table). A lane owns kC adjacent output columns: 4
+// on fp32 U (one 16-byte load), 8 on the bf16 copy (one 16-byte load of
+// its padded row). kVecU: 16-byte U loads (fp32 U: k % 4 == 0 and U
+// 16-byte aligned; the copy: always). A product of a bf16 value and a
+// bf16-rounded U value is exact in fp32, so a bf16 table's FFMA chain
+// rounds once a step, as an fp32 table's does. acc: row `row`'s outputs
+// c0 .. c0 + kC - 1, one FFMA chain each over the row's entries in the
+// table's order.
+template <typename ValT, typename UT, bool kVecU, int kC>
+__device__ __forceinline__ void row_sum(
+    const ValT* __restrict__ val, const int* __restrict__ idx,
+    const long long* __restrict__ slice_start, const UT* __restrict__ U,
+    int ld, int row, int n_u, int k, int c0, float (&acc)[kC]) {
   const int slice = row / kSlice;
   const long long e0 = slice_start[slice];
   const int width = (int)((slice_start[slice + 1] - e0) / kSlice);
@@ -257,7 +260,6 @@ rows_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
     }
   };
 
-  float acc[kC];
 #pragma unroll
   for (int j = 0; j < kC; ++j) acc[j] = 0.f;
   if (width > 0) fetch(0);
@@ -281,6 +283,14 @@ rows_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
       }
     }
   }
+}
+
+// W[row, c0 ..] = acc, the columns below k. kVecW: 16-byte stores (k % 4
+// == 0, W 16-byte aligned).
+template <bool kVecW, int kC>
+__device__ __forceinline__ void store_row(float* __restrict__ W, int row,
+                                          int k, int c0,
+                                          const float (&acc)[kC]) {
   float* wp = W + (size_t)row * k + c0;
 #pragma unroll
   for (int h = 0; h < kC / 4; ++h) {
@@ -294,6 +304,128 @@ rows_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
         if (c0 + j < k) wp[j] = acc[j];
     }
   }
+}
+
+template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+rows_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
+            const long long* __restrict__ slice_start,
+            const UT* __restrict__ U, int ld, float* __restrict__ W, int n,
+            int n_u, int k, int lanes) {
+  const int rows_per_block = blockDim.x / lanes;
+  const int row = blockIdx.x * rows_per_block + threadIdx.x / lanes;
+  const int c0 = kC * (threadIdx.x % lanes);
+  if (row >= n) return;
+  float acc[kC];
+  row_sum<ValT, UT, kVecU, kC>(val, idx, slice_start, U, ld, row, n_u, k, c0,
+                               acc);
+  store_row<kVecW, kC>(W, row, k, c0, acc);
+}
+
+// ---- the Gram on the row-wise route ------------------------------------
+//
+// G = U^T W for a square operator, in the walk's order (occ::tile_gram,
+// then banded_spmm.cu's gram_reduce_kernel): per 128-row tile t,
+// partial[t][i][j] = the FFMA chain from 0 over the tile's rows in order
+// of U[r, i] * W[r, j], from the unrounded fp32 U and the fp32 W, rows
+// past n zero; then the tiles' sum in the reduce's fixed order. Where W
+// has the walk's bits (an fp32 table), the partials and G have them too.
+// One block owns a tile's whole partial; no atomics.
+
+constexpr int kGramTile = 128;    // rows of a partial (the walk's tile)
+
+// Row stride of the staged U tile: k rounded up to 4 values, so that a
+// thread reads 4 Gram rows' U values in one 16-byte load.
+__host__ __device__ __forceinline__ int gram_ldu(int k) {
+  return (k + 3) / 4 * 4;
+}
+
+// out[i k + j] = sum over r = 0 .. 127 in order of fmaf(us[r][i],
+// ws[r][j]) for i, j < k: us (128, ldu) holds the tile's U rows (zero past
+// n and in the pad columns), ws (128, ldw) its W rows. Thread item q owns
+// Gram rows 4 (q / k) .. + 3 and column q % k, the block's threads
+// striding the items: per row one 16-byte load of U (shared by the k
+// items of a quad) and one load of W feed 4 FFMA.
+__device__ __forceinline__ void gram_from_smem(const float* __restrict__ us,
+                                               int ldu,
+                                               const float* __restrict__ ws,
+                                               int ldw, int k,
+                                               float* __restrict__ out) {
+  const int items = (k + 3) / 4 * k;
+  for (int q = threadIdx.x; q < items; q += blockDim.x) {
+    const int i0 = 4 * (q / k), j = q % k;
+    float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < kGramTile; ++r) {
+      const float4 u = *reinterpret_cast<const float4*>(us + r * ldu + i0);
+      const float w = ws[r * ldw + j];
+      g0 = fmaf(u.x, w, g0);
+      g1 = fmaf(u.y, w, g1);
+      g2 = fmaf(u.z, w, g2);
+      g3 = fmaf(u.w, w, g3);
+    }
+    out[(size_t)i0 * k + j] = g0;
+    if (i0 + 1 < k) out[(size_t)(i0 + 1) * k + j] = g1;
+    if (i0 + 2 < k) out[(size_t)(i0 + 2) * k + j] = g2;
+    if (i0 + 3 < k) out[(size_t)(i0 + 3) * k + j] = g3;
+  }
+}
+
+// The tile's U rows (n x k fp32) into us (128, ldu), zero past n and in
+// the pad columns.
+__device__ __forceinline__ void stage_u_tile(const float* __restrict__ U,
+                                             size_t row0, int n, int k,
+                                             float* __restrict__ us) {
+  const int ldu = gram_ldu(k);
+  for (int e = threadIdx.x; e < kGramTile * ldu; e += blockDim.x) {
+    const int r = e / ldu, c = e % ldu;
+    us[e] = row0 + r < (size_t)n && c < k ? __ldg(U + (row0 + r) * k + c)
+                                          : 0.f;
+  }
+}
+
+// The product with the Gram: block t owns tile t, its rows in passes of
+// blockDim.x / lanes (the row-wise kernel's rows a block), each row's
+// outputs written to W and kept in shared memory, then the tile's partial
+// from them and the staged U rows (Uf, the unrounded fp32 U). This beat
+// a second kernel that read the fresh W back from L2 tile by tile at
+// every shape timed, fp32 and bf16 (on the card, NVIDIA H100 80GB HBM3,
+// 700 W, polish_products.py --gram: K_blk at k = 10 0.0100 against 0.0128
+// ms, the 300k rolling band at k = 20 0.0741 against 0.0968 in fp32,
+// 0.0973 against 0.1031 in bf16), by the launch and the W and U tile
+// reads it saves.
+template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+rows_gram_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
+                 const long long* __restrict__ slice_start,
+                 const UT* __restrict__ U, int ld,
+                 const float* __restrict__ Uf, float* __restrict__ W,
+                 float* __restrict__ partial, int n, int k, int lanes) {
+  extern __shared__ float4 gram_smem4[];
+  float* us = reinterpret_cast<float*>(gram_smem4);
+  const int ldw = lanes * kC;
+  float* ws = us + kGramTile * gram_ldu(k);
+  const int rows = blockDim.x / lanes;
+  const int c0 = kC * (threadIdx.x % lanes);
+  const int row0 = blockIdx.x * kGramTile;
+  for (int p = 0; p < kGramTile; p += rows) {
+    const int r = p + threadIdx.x / lanes;
+    float acc[kC];
+    if (row0 + r < n) {
+      row_sum<ValT, UT, kVecU, kC>(val, idx, slice_start, U, ld, row0 + r,
+                                   n, k, c0, acc);
+      store_row<kVecW, kC>(W, row0 + r, k, c0, acc);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kC; ++j) acc[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kC; ++j) ws[r * ldw + c0 + j] = acc[j];
+  }
+  stage_u_tile(Uf, (size_t)row0, n, k, us);
+  __syncthreads();
+  gram_from_smem(us, gram_ldu(k), ws, ldw, k,
+                 partial + (size_t)blockIdx.x * k * k);
 }
 
 // U's bf16 copy: out (n_u, ld) with out[r, c] = U[r, c] rounded to
@@ -346,15 +478,58 @@ inline bool aligned(const void* p, size_t bytes) {
 // Row stride of U's bf16 copy: k rounded up to 8 values (16 bytes).
 inline int copy_ld(int k) { return (k + 7) / 8 * 8; }
 
+// Widest product whose Gram the row-wise route takes: a tile's U and W
+// rows in shared memory, 128 KB at k = 128.
+constexpr int kRowsGramMaxK = 128;
+
+// A kernel's dynamic shared memory above the default 48 KB needs the
+// attribute, once per kernel (`granted`: the most granted so far).
+template <typename Kernel>
+cudaError_t grant_smem(Kernel kernel, size_t bytes, size_t& granted) {
+  if (bytes <= granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) granted = bytes;
+  return err;
+}
+
+template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC>
+cudaError_t launch_rows_gram_t(const ValT* val, const int* idx,
+                               const long long* slice_start, const UT* U,
+                               int ld, const float* Uf, float* W,
+                               float* partial, int n, int k, int lanes,
+                               int rows, int n_tiles, cudaStream_t s) {
+  auto kernel = rows_gram_kernel<ValT, UT, kVecU, kVecW, kC>;
+  static size_t granted = 48 * 1024;
+  const size_t bytes = sizeof(float) * kGramTile * (gram_ldu(k) + lanes * kC);
+  const cudaError_t err = grant_smem(kernel, bytes, granted);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)n_tiles, rows * lanes, bytes, s>>>(
+      val, idx, slice_start, U, ld, Uf, W, partial, n, k, lanes);
+  return cudaGetLastError();
+}
+
+// The product, and with `partial` the tiles' Gram partials from the fp32
+// U (Uf), in the product's blocks.
 template <typename ValT, typename UT, bool kVecU, int kC>
 cudaError_t launch_rows_t(const void* val, const int* idx,
                           const long long* slice_start, const UT* U, int ld,
-                          float* W, int n, int n_u, int k, cudaStream_t s) {
+                          const float* Uf, float* W, float* partial, int n,
+                          int n_u, int k, int n_tiles, cudaStream_t s) {
   const int lanes = (k + kC - 1) / kC;
   const int rows = rows_per_block(lanes);
   const unsigned grid = (unsigned)((n + rows - 1) / rows);
   const ValT* v = static_cast<const ValT*>(val);
-  if (k % 4 == 0 && aligned(W, 16))
+  const bool vec_w = k % 4 == 0 && aligned(W, 16);
+  if (partial != nullptr) {
+    return vec_w ? launch_rows_gram_t<ValT, UT, kVecU, true, kC>(
+                       v, idx, slice_start, U, ld, Uf, W, partial, n, k,
+                       lanes, rows, n_tiles, s)
+                 : launch_rows_gram_t<ValT, UT, kVecU, false, kC>(
+                       v, idx, slice_start, U, ld, Uf, W, partial, n, k,
+                       lanes, rows, n_tiles, s);
+  }
+  if (vec_w)
     rows_kernel<ValT, UT, kVecU, true, kC>
         <<<grid, rows * lanes, 0, s>>>(v, idx, slice_start, U, ld, W, n, n_u,
                                        k, lanes);
@@ -370,20 +545,31 @@ cudaError_t launch_rows_t(const void* val, const int* idx,
 // table (val_is_bf16 0) multiplies U as it is. A bf16 table multiplies U
 // rounded to bf16: round_kernel writes the rounded U into U_bf16 ((n_u,
 // copy_ld(k)), 2 bytes a value, 16-byte aligned) first, over at most 16
-// blocks an SM, and the product reads it, 8 columns a lane.
-inline cudaError_t launch_rows(const void* val, int val_is_bf16,
-                               const int* idx, const long long* slice_start,
-                               const float* U, bf16_bits* U_bf16, float* W,
-                               int n, int n_u, int k, int sms,
-                               cudaStream_t s) {
+// blocks an SM, and the product reads it, 8 columns a lane. With
+// `partial` ((n_tiles, k, k) fp32; a square operator, n_u == n, k <=
+// kRowsGramMaxK, n_tiles >= ceil(n / 128)) also each 128-row tile's
+// partial of U^T W, from the unrounded U.
+inline cudaError_t launch_rows_impl(const void* val, int val_is_bf16,
+                                    const int* idx,
+                                    const long long* slice_start,
+                                    const float* U, bf16_bits* U_bf16,
+                                    float* W, float* partial, int n, int n_u,
+                                    int k, int n_tiles, int sms,
+                                    cudaStream_t s) {
   if (k < 1 || k > kRowsMaxK || n < 1 || n_u < 1 || sms < 1)
+    return cudaErrorInvalidValue;
+  if (partial != nullptr
+      && (n_u != n || k > kRowsGramMaxK
+          || (size_t)n_tiles * kGramTile < (size_t)n))
     return cudaErrorInvalidValue;
   const bool vec_u = k % 4 == 0 && aligned(U, 16);
   if (!val_is_bf16) {
     return vec_u ? launch_rows_t<float, float, true, 4>(
-                       val, idx, slice_start, U, k, W, n, n_u, k, s)
+                       val, idx, slice_start, U, k, U, W, partial, n, n_u, k,
+                       n_tiles, s)
                  : launch_rows_t<float, float, false, 4>(
-                       val, idx, slice_start, U, k, W, n, n_u, k, s);
+                       val, idx, slice_start, U, k, U, W, partial, n, n_u, k,
+                       n_tiles, s);
   }
   if (U_bf16 == nullptr || !aligned(U_bf16, 16)) return cudaErrorInvalidValue;
   const int ld = copy_ld(k);
@@ -394,7 +580,17 @@ inline cudaError_t launch_rows(const void* val, int val_is_bf16,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_rows_t<bf16_bits, bf16_bits, true, 8>(
-      val, idx, slice_start, U_bf16, ld, W, n, n_u, k, s);
+      val, idx, slice_start, U_bf16, ld, U, W, partial, n, n_u, k, n_tiles,
+      s);
+}
+
+inline cudaError_t launch_rows(const void* val, int val_is_bf16,
+                               const int* idx, const long long* slice_start,
+                               const float* U, bf16_bits* U_bf16, float* W,
+                               int n, int n_u, int k, int sms,
+                               cudaStream_t s) {
+  return launch_rows_impl(val, val_is_bf16, idx, slice_start, U, U_bf16, W,
+                          nullptr, n, n_u, k, 0, sms, s);
 }
 
 }  // namespace nz

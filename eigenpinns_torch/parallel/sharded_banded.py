@@ -43,6 +43,7 @@ from eigenpinns_torch.sparse.banded import (
     _round_up,
     band_occupancy,
     banded_spmm,
+    full_band_table,
     scatter_band,
 )
 
@@ -141,21 +142,27 @@ class ShardedBanded:
 
     def block(self, shard: int, device) -> BandedELL:
         """Shard `shard`'s (per x win) block as a BandedELL on `device`,
-        its (win x per) transpose attached, with their occupancy
-        tables."""
+        its (win x per) transpose attached, with their occupancy tables
+        and nonzero tables (`full_band_table`, which K4's row-wise route
+        reads). The tables are built here, once per block: the sharded
+        SpMM takes its block once per closure (`sharded_banded_spmm`)."""
         if shard not in self.shards:
             raise ValueError(f"shard {shard} was not built (held: "
                              f"{self.shards})")
         j = self.shards.index(shard)
         dev = torch.device(device)
-        band, band_t = self.band[j].to(dev), self.band_t[j].to(dev)
-        A_t = BandedELL(band_t, self.starts_t[j].to(dev), n=self.win,
-                        n_cols=self.per, tile=self.tile,
-                        occupancy=band_occupancy(band_t, self.tile))
-        return BandedELL(band, self.starts[j].to(dev), n=self.per,
-                         n_cols=self.win, tile=self.tile,
-                         transpose_banded=A_t,
-                         occupancy=band_occupancy(band, self.tile))
+
+        def banded(band, starts, n, n_cols, transpose=None):
+            occ = band_occupancy(band, self.tile)
+            return BandedELL(band, starts, n=n, n_cols=n_cols,
+                             tile=self.tile, transpose_banded=transpose,
+                             occupancy=occ,
+                             narrow=full_band_table(band, occ, starts))
+
+        A_t = banded(self.band_t[j].to(dev), self.starts_t[j].to(dev),
+                     self.win, self.per)
+        return banded(self.band[j].to(dev), self.starts[j].to(dev),
+                      self.per, self.win, A_t)
 
     @classmethod
     def from_scipy(cls, A, n_dev: int, dtype=torch.float32, tile: int = 128,

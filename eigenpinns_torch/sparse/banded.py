@@ -50,6 +50,7 @@ from eigenpinns_torch.sparse.nonzeros import (
     band_table,
     check_table,
     launch_rows,
+    launch_rows_gram,
 )
 from eigenpinns_torch.sparse.occupancy import (
     band_grid,
@@ -65,6 +66,9 @@ from eigenpinns_torch.sparse.occupancy import (
 # took the row-wise route over an fp32 and a bf16 table.
 banded_kernel_launches = {"spmm": 0, "spmm_rect": 0, "spmm_gram": 0,
                           "rows": 0, "rows_bf16": 0}
+# K4's launches on a rectangular block by the product's width k: the
+# widths the sharded paths give their shard blocks.
+banded_rect_widths: dict[int, int] = {}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -116,9 +120,9 @@ class BandedELL:
             from the band as stored); the CUDA kernels need it
     narrow: the band's nonzeros as a sliced ELL in the band's type
             (`full_band_table`: each row in the walk's order of
-            summation), which K4's row-wise route reads; `from_scipy`
-            and `SplitBanded.from_scipy` build it, the shard blocks of
-            the sharded path carry none
+            summation), which K4's row-wise route reads; `from_scipy`,
+            `SplitBanded.from_scipy` and `ShardedBanded.block` (the
+            sharded path's blocks and their transposes) build it
     """
 
     band: torch.Tensor
@@ -257,6 +261,9 @@ def build_kernel() -> ctypes.CDLL:
     lib.epk_banded_spmm_rows.restype = i
     lib.epk_banded_spmm_rows.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
                                          p]
+    lib.epk_banded_spmm_rows_gram.restype = i
+    lib.epk_banded_spmm_rows_gram.argtypes = [p, i, p, p, p, p, p, p, p, i,
+                                              i, i, i, p]
     lib.epk_banded_error_string.restype = ctypes.c_char_p
     lib.epk_banded_error_string.argtypes = [i]
     return lib
@@ -273,7 +280,8 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
     their tile; U has n rows). The Gram takes U with n rows. The route
     and grid come from `band_grid` (`col_block`, `warps` and `route`
     force them); `table`, the band's nonzero table (values of the
-    band's type), makes the row-wise route available. Checks
+    band's type), makes the row-wise route available (on a rolling band
+    with the Gram too). Checks
     what both layouts share (the band, its occupancy table, U, the
     grid), allocates the outputs and raises when the launch fails.
     Returns (W, G, route); G is None without `with_gram`."""
@@ -314,13 +322,19 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
     if route == "rows":
         check_table(table, n, band.device, band.dtype)
         lib = build_kernel()
-        W, err = launch_rows(
-            lib.epk_banded_spmm_rows, table, U, n,
-            torch._C._cuda_getCurrentRawStream(U.device.index))
+        stream = torch._C._cuda_getCurrentRawStream(U.device.index)
+        G = None
+        if with_gram:
+            W, G, err = launch_rows_gram(
+                lib.epk_banded_spmm_rows_gram, table, U, n_pad // 128,
+                stream)
+        else:
+            W, err = launch_rows(lib.epk_banded_spmm_rows, table, U, n,
+                                 stream)
         if err != 0:
             raise RuntimeError("banded_spmm row-wise launch failed: "
                                + lib.epk_banded_error_string(err).decode())
-        return W, None, route
+        return W, G, route
     # One block per (tile, column block) or per (tile, warps stripes), on
     # the grid's x axis.
     if (n_pad // 128) * max(-(-k // col_block), 8 // warps) >= 2**31:
@@ -375,6 +389,9 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
                                      A.narrow)
     banded_kernel_launches["spmm_gram" if with_gram else
                            "spmm" if A.n == A.n_cols else "spmm_rect"] += 1
+    if A.n != A.n_cols:
+        k = U.shape[1]
+        banded_rect_widths[k] = banded_rect_widths.get(k, 0) + 1
     if route == "rows":
         banded_kernel_launches["rows" if band.dtype == torch.float32
                                else "rows_bf16"] += 1

@@ -24,7 +24,9 @@ the dense tensor, its occupancy table and where each 128 x 128 piece
 sits in the matrix; `band_table` gives a band's pieces (full window or
 rolling) and `bsr.narrow_table` the strips'. `table_spmm_plain` is the
 plain torch reader of a table, and `launch_rows` the row-wise kernel's
-launch, which both formats' wrappers share.
+launch, which both formats' wrappers share; `launch_rows_gram` adds a
+rolling band's Gram U^T W, in the order `gram_partials_plain` spells
+out.
 """
 
 from __future__ import annotations
@@ -33,7 +35,11 @@ import dataclasses
 
 import torch
 
-from eigenpinns_torch.sparse.occupancy import ROWS_KERNEL_MAX_K, sm_count
+from eigenpinns_torch.sparse.occupancy import (
+    ROWS_GRAM_MAX_K,
+    ROWS_KERNEL_MAX_K,
+    sm_count,
+)
 
 SLICE = 32        # rows of a slice of the table: one a lane
 
@@ -256,3 +262,70 @@ def launch_rows(fn, t: NarrowTable, U: torch.Tensor, n: int,
              None if copy is None else copy.data_ptr(), W.data_ptr(), n,
              U.shape[0], k, sm_count(U.device), stream)
     return W, err
+
+
+GRAM_TILE = 128   # rows of one partial of the Gram (the walk's tile)
+
+
+def gram_partials_plain(U: torch.Tensor, W: torch.Tensor, n_tiles: int):
+    """(partial, G): the Gram U^T W in the order in which the band
+    kernels sum it (`occ::tile_gram` on the walk, `nz::gram_from_smem` on
+    the row-wise route, then `gram_reduce_kernel`). partial[t][i][j] sums
+    U[r, i] W[r, j] over tile t's 128 rows in order from 0 (rows past U
+    zero); lane y of the reduce sums the partials of tiles y, y + 128,
+    ... in order, and G adds the 128 lane sums in order. In fp32, each
+    step rounded (the kernels fuse each multiply-add, so their bits may
+    differ by a rounding a step)."""
+    n, k = U.shape
+    if n_tiles * GRAM_TILE < n:
+        raise ValueError(f"{n_tiles} tiles do not cover {n} rows")
+    pad = n_tiles * GRAM_TILE - n
+    Ut = torch.nn.functional.pad(U.float(), (0, 0, 0, pad)).view(
+        n_tiles, GRAM_TILE, k)
+    Wt = torch.nn.functional.pad(W.float(), (0, 0, 0, pad)).view(
+        n_tiles, GRAM_TILE, k)
+    partial = torch.zeros((n_tiles, k, k), dtype=torch.float32,
+                          device=U.device)
+    for r in range(GRAM_TILE):
+        partial += Ut[:, r, :, None] * Wt[:, r, None, :]
+    lanes = -(-n_tiles // GRAM_TILE) * GRAM_TILE
+    by_lane = torch.nn.functional.pad(
+        partial, (0, 0, 0, 0, 0, lanes - n_tiles)).view(-1, GRAM_TILE, k, k)
+    sums = torch.zeros((GRAM_TILE, k, k), dtype=torch.float32,
+                       device=U.device)
+    for m in range(by_lane.shape[0]):
+        sums += by_lane[m]
+    G = torch.zeros((k, k), dtype=torch.float32, device=U.device)
+    for y in range(GRAM_TILE):
+        G += sums[y]
+    return partial, G
+
+
+def launch_rows_gram(fn, t: NarrowTable, U: torch.Tensor, n_tiles: int,
+                     stream: int):
+    """(W, G, err): `launch_rows` on a square operator (U has its n
+    rows) with the Gram G = U^T W from per-tile partials of 128 rows and
+    their ordered reduce (`fn`, a library's C entry of signature (val,
+    val_is_bf16, idx, slice_start, U, U_bf16, W, partial, G, n, k,
+    n_tiles, sms, stream)); `n_tiles` tiles cover the n rows.
+    The Gram takes the unrounded U, also where a bf16 table multiplies
+    its bf16 copy."""
+    n, k = U.shape
+    if not 1 <= k <= ROWS_GRAM_MAX_K:
+        raise ValueError(f"the row-wise route's Gram takes 1 <= k <= "
+                         f"{ROWS_GRAM_MAX_K}, got {k}")
+    if n_tiles * GRAM_TILE < n:
+        raise ValueError(f"{n_tiles} tiles do not cover {n} rows")
+    bf16 = t.val.dtype == torch.bfloat16
+    copy = (torch.empty((n, copy_ld(k)), dtype=torch.bfloat16,
+                        device=U.device) if bf16 else None)
+    W = torch.empty((n, k), dtype=torch.float32, device=U.device)
+    partial = torch.empty((n_tiles, k, k), dtype=torch.float32,
+                          device=U.device)
+    G = torch.empty((k, k), dtype=torch.float32, device=U.device)
+    err = fn(t.val.data_ptr(), int(bf16), t.idx.data_ptr(),
+             t.slice_start.data_ptr(), U.data_ptr(),
+             None if copy is None else copy.data_ptr(), W.data_ptr(),
+             partial.data_ptr(), G.data_ptr(), n, k, n_tiles,
+             sm_count(U.device), stream)
+    return W, G, err

@@ -105,6 +105,26 @@ BAND_ROUTES = ("staged", "walk", "rows")
 # route does from k = 9 (`bsr.strip_route`).
 BAND_ROWS_K = (9, 128)
 
+# The same for a bf16 rolling band (its table's values rounded,
+# `RollingBanded.with_precision`): the bf16 row-wise route beats the
+# tensor-core walk on the 300k rolling band at k = 12, 20, 28, 60 and 84
+# (0.0353 / 0.1029, 0.0514 / 0.1143, 0.0700 / 0.1318, 0.1374 / 0.2522,
+# 0.1810 / 0.3512 ms on the card, NVIDIA H100 80GB HBM3, 700.00 W,
+# polish_products.py --gram).
+BAND_BF16_ROWS_K = (12, 84)
+
+# Widths at which a rolling band with its table takes the row-wise route
+# with the Gram by default (the partials in the product's blocks, then
+# the walk's reduce), by the band's type, against the route it replaced
+# (polish_products.py --gram, as above). fp32: the multigrid K_blk and
+# the transfer path's level operators at k = 10 (0.0095-0.0099 /
+# 0.0132-0.0205 ms, the walk), the 300k rolling band at k = 10 and 20
+# (0.0528 / 0.2116, 0.0741 / 0.2201, the staged route; at k = 28 and 39,
+# which no path launches with the Gram, 0.1111 / 0.2284 and 0.1878 /
+# 0.3088). bf16: the 300k rolling band at k = 20 and 28 (0.0973 /
+# 0.1566, 0.1308 / 0.1821, the walk).
+BAND_GRAM_ROWS_K = {torch.float32: (10, 20), torch.bfloat16: (20, 28)}
+
 # Widths at which a full-window band with its nonzero table
 # (`BandedELL.narrow`) takes the row-wise route by default, without the
 # Gram, by the band's type: the span of the widths at which it beats the
@@ -114,10 +134,22 @@ BAND_ROWS_K = (9, 128)
 # 0.0739 / 0.1040, 0.1826 / 0.3460 ms (polish_products.py --tables); the
 # 300k and 1M cluster cores (window 1024) at k = 20 0.0451 / 0.1303 and
 # 0.1375 / 0.4110, at k = 60 0.1435 / 0.1641 and 0.4659 / 0.5304
-# (chip_smoke.py). bf16, against the tensor-core walk: the Hilbert core
-# at k = 20 and 28, 0.0513 / 0.0833 and 0.0691 / 0.0982
-# (polish_products.py --tables).
-FULL_ROWS_K = {torch.float32: (20, 84), torch.bfloat16: (20, 28)}
+# (chip_smoke.py); the sharded paths' shard blocks and transposes (their
+# tables since PR 16): 16c's 75008 x 82432 block at k = 20, 28, 60, 84
+# 0.0104 / 0.0518, 0.0149 / 0.0549, 0.0396 / 0.0681, 0.0492 / 0.1321, the
+# 1M split core at one shard (16b) 0.1377 / 0.4065, 0.2364 / 0.4086,
+# 0.4657 / 0.5254, 0.6009 / 1.4280, and at the spectral basis's narrower
+# blocks, k = 18 and 54, 0.1756 / 0.7562 and 0.5019 / 1.6027; at k = 10
+# every one of them: 16c's block 0.0101 / 0.0870, the 1M block 0.1055 /
+# 0.5915, the multigrid's level blocks (windows 128 to 384) 0.0037-0.0039
+# / 0.0094-0.0169 (its graph operator's, k = 19, 0.0056-0.0067 /
+# 0.0128-0.0392), the unsharded Hilbert and cluster cores 0.0346 / 0.1011
+# and 0.0358 / 0.1291; and at k = 6 16c's block 0.0081 / 0.0704, the 1M
+# block 0.0717 / 0.4960, the Hilbert and cluster cores 0.0228 / 0.0992
+# and 0.0247 / 0.1272 (polish_products.py --shards). bf16, against the
+# tensor-core walk: the Hilbert core at k = 20 and 28, 0.0513 / 0.0833
+# and 0.0691 / 0.0982 (polish_products.py --tables).
+FULL_ROWS_K = {torch.float32: (6, 84), torch.bfloat16: (20, 28)}
 
 # Narrowest window (band columns) on which an fp32 full-window band takes
 # the row-wise route where the staged route would run one block of 64
@@ -127,8 +159,10 @@ FULL_ROWS_K = {torch.float32: (20, 84), torch.bfloat16: (20, 28)}
 FULL_ROWS_MIN_WINDOW_64 = 1024
 
 # Widest product the row-wise kernel takes (csrc/nonzero_spmm.cuh,
-# kRowsMaxK).
+# kRowsMaxK), and the widest whose Gram it takes (kRowsGramMaxK: a tile's
+# U and W rows in shared memory).
 ROWS_KERNEL_MAX_K = 256
+ROWS_GRAM_MAX_K = 128
 
 
 def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
@@ -157,18 +191,21 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     k past the column block: k = 84 and 128 run two blocks of 64
     columns) takes the column-block walk, 8 stripes a block, one column
     block each. Before all of these, a band that carries a nonzero table
-    (`rows`) takes the row-wise route over it, ceil(k / 4) lanes a row,
-    without the Gram and where k lies in the widths of its kind: an fp32
-    rolling band in BAND_ROWS_K (the polish's K X and K S on the 300k
-    rolling band, k = 28 and 84), a full-window band (a `BandedELL`,
-    whose `window`, its band's columns, is given) in FULL_ROWS_K of its
-    type, in fp32 where the staged route would run one block of 64
-    columns only on a window of FULL_ROWS_MIN_WINDOW_64 columns or more;
-    unless a `col_block` or `warps` is given (they name a grid of the
-    block routes). On an fp32
-    band every choice sums each output in the same order, so W has the
-    same bits; on a bf16 band the row-wise route sums the exact products
-    in another order than the walk's tensor cores.
+    (`rows`) takes the row-wise route over it, ceil(k / 4) lanes a row
+    (8 columns a lane on a bf16 table), where k lies in the widths of
+    its kind: a rolling band in BAND_ROWS_K (fp32: the polish's K X and
+    K S on the 300k rolling band, k = 28 and 84) or BAND_BF16_ROWS_K
+    (bf16: the 300k training's products), with the Gram in
+    BAND_GRAM_ROWS_K of its type (per-tile partials of the walk's order,
+    then the same reduce); a full-window band (a `BandedELL`, whose
+    `window`, its band's columns, is given) without the Gram, in
+    FULL_ROWS_K of its type, in fp32 where the staged route would run
+    one block of 64 columns only on a window of FULL_ROWS_MIN_WINDOW_64
+    columns or more; unless a `col_block` or `warps` is given (they name
+    a grid of the block routes). On an fp32 band every choice sums each
+    output, and each Gram partial, in the same order, so W and G have
+    the same bits; on a bf16 band the row-wise route sums the exact
+    products in another order than the walk's tensor cores.
     `warps` and `route` force a choice (the card tests and
     chip_smoke.py use them); one the kernels cannot take raises."""
     blocks_given = col_block is not None or warps is not None
@@ -180,13 +217,16 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     small = n_tiles < 2 * sms
     if window is not None:
         lo, hi = FULL_ROWS_K.get(dtype, (1, 0))
-        if (can_stage and col_block == 64
+        if (with_gram or can_stage and col_block == 64
                 and window < FULL_ROWS_MIN_WINDOW_64):
             lo, hi = 1, 0
+    elif with_gram:
+        lo, hi = BAND_GRAM_ROWS_K.get(dtype, (1, 0))
     else:
-        lo, hi = BAND_ROWS_K if dtype == torch.float32 else (1, 0)
+        lo, hi = {torch.float32: BAND_ROWS_K,
+                  torch.bfloat16: BAND_BF16_ROWS_K}.get(dtype, (1, 0))
     if route is None:
-        if rows and not with_gram and not blocks_given and lo <= k <= hi:
+        if rows and not blocks_given and lo <= k <= hi:
             route = "rows"
         else:
             route = ("staged" if can_stage and not (
@@ -194,13 +234,15 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     if route not in BAND_ROUTES:
         raise ValueError(f"route must be one of {BAND_ROUTES}, got {route!r}")
     if route == "rows":
-        if not (rows and not with_gram and k <= ROWS_KERNEL_MAX_K
-                and warps is None):
+        gram_ok = window is None and k <= ROWS_GRAM_MAX_K
+        if not (rows and (gram_ok or not with_gram)
+                and k <= ROWS_KERNEL_MAX_K and warps is None):
             raise ValueError(
                 "the row-wise route takes a band with its nonzero table, "
-                f"no Gram, k <= {ROWS_KERNEL_MAX_K} and no warps (got "
-                f"{dtype}, table {rows}, with_gram={with_gram}, k = {k}, "
-                f"warps {warps})")
+                f"k <= {ROWS_KERNEL_MAX_K}, no warps, and the Gram only on "
+                f"a rolling band at k <= {ROWS_GRAM_MAX_K} (got {dtype}, "
+                f"table {rows}, with_gram={with_gram}, k = {k}, window "
+                f"{window}, warps {warps})")
         return route, col_block, 8
     if route == "staged" and not can_stage:
         raise ValueError("the staged route takes an fp32 band and k <= "

@@ -17,8 +17,11 @@ function, for CPU tensors. The kernel walks the band's occupancy table
 (`occupancy`, one 64-bit word per 128 x 128 piece of the rotated band:
 `sparse/occupancy.py`) and reads and multiplies only the 16 x 16
 sub-blocks that hold a nonzero: on the RCM-ordered Laplacian of a
-300k-point cloud that is 4% of a band of 1.15e9 elements. A CUDA tensor
-always reaches the kernel or raises.
+300k-point cloud that is 4% of a band of 1.15e9 elements. Where
+`band_grid` says so, it reads the band's nonzero table (`narrow`) instead,
+one row at a time: the fp32 or bf16 row-wise route, with the Gram too
+(per-tile partials in the walk's order). A CUDA tensor always reaches
+the kernel or raises.
 
 Autograd matches the JAX custom VJPs: the operator is a constant; the
 backward pass of A U applies A^T through the same kernel (the stored
@@ -41,11 +44,14 @@ from eigenpinns_torch.sparse.occupancy import default_col_block
 PRECISIONS = ("highest", "high", "bf16")
 
 # Launches of the CUDA kernel (one per wrapper call that reaches it), how
-# many of them asked for the fused Gram, and how many took the row-wise
-# route over the band's nonzero table.
+# many of them asked for the fused Gram, how many took the row-wise route
+# over the band's nonzero table, and of those how many over a bf16 table
+# and how many with the Gram.
 rolling_kernel_launches = 0
 rolling_gram_launches = 0
 rolling_rows_launches = 0
+rolling_rows_bf16_launches = 0
+rolling_rows_gram_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -70,10 +76,10 @@ class RollingBanded:
           of the rotated band holds a nonzero (`occupancy_mask(band)`,
           taken from the band as stored); the CUDA kernel needs it. None
           for a tile other than 128, which the kernel does not take.
-    narrow: the band's nonzeros as a sliced ELL (`nonzeros.band_table`:
-          each row in the kernel's order of summation), which the
-          row-wise route reads; built for an fp32 band with an
-          occupancy table, None otherwise
+    narrow: the band's nonzeros as a sliced ELL in the band's type
+          (`nonzeros.band_table`: each row in the kernel's order of
+          summation), which the row-wise route reads; built for a band
+          with an occupancy table, None otherwise
     """
 
     band: torch.Tensor
@@ -91,8 +97,10 @@ class RollingBanded:
         copy of the band; the other modes keep (or restore) fp32. The
         occupancy table is kept: rounding to bf16 can only turn a nonzero
         into a zero, so the source's table covers the copy's nonzeros.
-        The nonzero table goes with the band: kept with the same fp32
-        band, rebuilt from a converted fp32 band, None with a bf16 one."""
+        The nonzero table goes with the band: kept with the same band,
+        its values rounded with the band's to bf16 (`with_values`,
+        sharing its U rows and slices, as `BSRTile.with_precision` does),
+        rebuilt from a band converted back to fp32."""
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         t = (None if self.transpose_rolling is None
@@ -101,7 +109,9 @@ class RollingBanded:
         band = self.band.to(dtype)
         narrow = self.narrow
         if band is not self.band:
-            narrow = _narrow_of(band, self.occupancy, self.pre)
+            narrow = (self.narrow.with_values(dtype)
+                      if dtype == torch.bfloat16 and self.narrow is not None
+                      else _narrow_of(band, self.occupancy, self.pre))
         return dataclasses.replace(self, band=band, mxu_precision=precision,
                                    transpose_rolling=t, narrow=narrow)
 
@@ -174,9 +184,9 @@ class RollingBanded:
 
 def _narrow_of(band: torch.Tensor, occupancy: torch.Tensor | None,
                pre: int) -> NarrowTable | None:
-    """The nonzero table of an fp32 band with an occupancy table, else
-    None."""
-    if band.dtype != torch.float32 or occupancy is None:
+    """The nonzero table of a band with an occupancy table, in the band's
+    type, else None."""
+    if occupancy is None:
         return None
     return band_table(band, occupancy, pre=pre)
 
@@ -214,12 +224,15 @@ def rolling_spmm_cuda(A: RollingBanded, U: torch.Tensor,
     """Launch the rolling band kernel of csrc/banded_spmm.cu: W = A U, and
     G = U^T A U when `with_gram`. `col_block` (32 or 64 output columns
     per block), `warps` and `route` default to `band_grid`'s choice (the
-    row-wise route over `A.narrow` where it applies) and give the same
-    bits whatever they are. Raises on anything the kernel does not take:
+    row-wise route over `A.narrow` where it applies, with the Gram too)
+    and give the same bits whatever they are on an fp32 band; on a bf16
+    band the row-wise route sums in another order than the walk's tensor
+    cores. Raises on anything the kernel does not take:
     a tile other than 128 (the walk needs the rotation to move whole
     128-column pieces), no occupancy table, CPU tensors."""
     global rolling_kernel_launches, rolling_gram_launches
-    global rolling_rows_launches
+    global rolling_rows_launches, rolling_rows_bf16_launches
+    global rolling_rows_gram_launches
     band = A.band
     if A.tile != 128 or A.pre % 128 or A.win + 128 != band.shape[1]:
         raise ValueError("the rolling band kernel takes tile = 128, pre a "
@@ -230,13 +243,15 @@ def rolling_spmm_cuda(A: RollingBanded, U: torch.Tensor,
     if band.dtype != want:
         raise ValueError(f"'{A.mxu_precision}' needs a {want} band, got "
                          f"{band.dtype}")
-    table = A.narrow if band.dtype == torch.float32 else None
     W, G, route = launch_band_kernel(band, None, A.pre, A.occupancy, U, A.n,
                                      with_gram, col_block, warps, route,
-                                     table)
+                                     A.narrow)
+    rows = route == "rows"
     rolling_kernel_launches += 1
     rolling_gram_launches += int(with_gram)
-    rolling_rows_launches += int(route == "rows")
+    rolling_rows_launches += int(rows)
+    rolling_rows_bf16_launches += int(rows and band.dtype == torch.bfloat16)
+    rolling_rows_gram_launches += int(rows and with_gram)
     return (W, G) if with_gram else W
 
 

@@ -37,6 +37,38 @@ or the walk) by the same `route_row` rows:
 
 The cluster cores' K4 rows at k = 20 and 60 are chip_smoke.py's.
 
+With --shards it times instead K4 on the sharded paths' blocks
+(`ShardedBanded.block`, each with its nonzero table since PR 16) and
+their transposes by `chip_smoke.shard_route_rows`: the default route
+against the route the block took before it carried a table (the staged
+route, the walk past 64 columns), the row-wise route forced, the library
+and the bound, W the same bits on all three:
+
+  the 300k cloud's 4-shard operator (step 16c), shard 1's block and
+      transpose at k = 6, 10, 20, 28, 60 and 84;
+  the multigrid hierarchy's level operators and graph operators (16c's
+      ranks and the CLI under torchrun, 17c), on 4 shards (shard 1) and
+      on one, at the widths the sharded multigrid launches them
+      (`chip_smoke.multigrid_shard_rows`);
+  the unsharded full-window bands at k = 6, 10 and 20 (the Hilbert core,
+      window 512; the 300k cluster core, window 1024), which the same
+      rule routes;
+  the 1M split core at one shard (16b) and its transpose at k = 6, 10,
+      18, 20, 28, 54, 60 and 84 (every width 16b's launch record shows);
+      it prints the tables' build time and bytes.
+
+With --gram it times instead K1's products on the row-wise route that
+PR 16 added, by `chip_smoke.gram_route_row` and `band_route_rows`: with
+the Gram (the partials in the product's blocks) against the route it
+replaced (the walk; the staged route at the 300k band's fp32 widths up
+to 32), on the multigrid K_blk ('high', k = 10), the transfer path's
+level operators (k = 10), the 300k rolling band in fp32 at k = 10, 20,
+28 and 39 and in 'bf16' at k = 20 and 28; without the Gram, the 300k
+band in 'bf16' at k = 12, 20, 28, 60 and 84 on the bf16 row-wise route
+against the tensor-core walk. Every width is put on the row-wise route
+for it (`occupancy.BAND_GRAM_ROWS_K` and `BAND_BF16_ROWS_K` widened in
+the process).
+
 With --polish it also times the guarded LOBPCG polish an iteration (k =
 28 columns, tol 0, so every iteration runs) on the 300k and 1M strip-BSR
 K and the 300k rolling band, on the routes before this route existed
@@ -46,7 +78,8 @@ before, after, after, before.
 
 Run on a machine with one NVIDIA GPU from the root of a checkout:
 
-    python3 polish_products.py [--skip-1m] [--polish | --tables]
+    python3 polish_products.py [--skip-1m] [--polish | --tables |
+                                            --shards | --gram]
 
 Exits non-zero without a card. The 1M host stage (cloud and native
 Laplacian) takes 1-2 minutes of it.
@@ -101,16 +134,17 @@ def polish_turns(label, K, M, seed) -> None:
     print(f"[polish] {label}: an iteration " + ", ".join(out), flush=True)
 
 
-def ptxas_report() -> None:
-    """The row-wise and rounding kernels' registers and spills, from the
-    nvcc -Xptxas -v log of the build (printed when this process builds
-    the library, not when it finds it built)."""
+def ptxas_report(source: str = "bsr_spmm",
+                 kernels=("rows_kernel", "round_kernel")) -> None:
+    """The registers and spills of the kernels of `source` whose names
+    hold one of `kernels`, from the nvcc -Xptxas -v log of the build
+    (printed when this process builds the library, not when it finds it
+    built)."""
     from eigenpinns_torch.utils import cuda_build
 
-    lines = cuda_build.build_logs.get("bsr_spmm", "").splitlines()
+    lines = cuda_build.build_logs.get(source, "").splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and ("rows_kernel" in line
-                                          or "round_kernel" in line):
+        if "Compiling entry" in line and any(k in line for k in kernels):
             print("[ptxas] " + " | ".join(x.strip() for x in lines[i:i + 4]
                                           if "Compile time" not in x),
                   flush=True)
@@ -157,6 +191,115 @@ def table_routes(L, X, device, skip_1m: bool) -> None:
         k2_rows("1M", L1, (20, 28, 84), seed=5)
 
 
+def shard_routes(L, X, device, skip_1m: bool) -> None:
+    """The --shards rows (see the module's docstring)."""
+    import chip_smoke as cs
+    from eigenpinns_torch.geometry import point_cloud_laplacian
+    from eigenpinns_torch.parallel import build_sharded_operator
+    from eigenpinns_torch.sparse import SplitBanded, banded
+    from eigenpinns_torch.utils.fixtures import make_cloud
+
+    def blocks(tag, core, shard, ks, seed):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        A = core.block(shard, device)
+        torch.cuda.synchronize()
+        if A.narrow.nnz == 0:   # a shard past the operator's rows
+            print(f"[shard] {tag}: no nonzeros", flush=True)
+            return
+        mb = sum(t.val.nbytes + t.idx.nbytes + t.slice_start.nbytes
+                 for t in (A.narrow, A.transpose_banded.narrow)) / 1e6
+        print(f"[shard] {tag}: block {A.n} x {A.n_cols} and its transpose "
+              f"with their tables in {time.time() - t0:.3f} s; the two "
+              f"tables {mb:.1f} MB (nnz {A.narrow.nnz} and "
+              f"{A.transpose_banded.narrow.nnz})", flush=True)
+        for name, op in (("block", A), ("transpose", A.transpose_banded)):
+            cs.shard_route_rows(banded, f"{tag} {name}", op, ks, seed,
+                                plain_ks=ks[:1])
+        del A
+        torch.cuda.empty_cache()
+
+    _, (core, _), _ = build_sharded_operator(L, cs.SHARD_DEV, X=X,
+                                             shards=(1,), device=device)
+    blocks("300k, 4 shards, shard 1", core, 1, (6, 10, 20, 28, 60, 84), 11)
+    del core
+    cs.multigrid_shard_rows(banded, device)
+    for name, order, window in (("Hilbert", "hilbert", cs.HILBERT_WINDOW),
+                                ("cluster", "cluster", 1024)):
+        K_s, _ = SplitBanded.from_scipy(L, X=X, window=window, order=order,
+                                        device=device)
+        core = K_s.core
+        csr = cs.band_csr(core)
+        cs.band_route_rows(
+            f"K4 300k {name} core (unsharded)",
+            lambda U, **grid: banded.banded_spmm_cuda(core, U, **grid),
+            core.band, core.starts, 0, core.occupancy, core.narrow, core.n,
+            csr, int(csr.values().numel()), (6, 10, 20), seed=13)
+        del K_s, core, csr
+        torch.cuda.empty_cache()
+    if not skip_1m:
+        t0 = time.time()
+        X1 = make_cloud(cs.XL_N)
+        L1, _ = point_cloud_laplacian(X1, n_neighbors=15, use_native=True)
+        print(f"[host] 1M Laplacian in {time.time() - t0:.2f} s, nnz "
+              f"{L1.nnz}", flush=True)
+        _, (core, _), _ = build_sharded_operator(L1, 1, X=X1, device=device)
+        blocks("1M split core, one shard", core, 0,
+               (6, 10, 18, 20, 28, 54, 60, 84), 14)
+
+
+def gram_routes(L, device) -> None:
+    """The --gram rows (see the module's docstring)."""
+    import chip_smoke as cs
+    import scipy.sparse as sp
+    from eigenpinns_torch.sampling import build_hierarchy
+    from eigenpinns_torch.sparse import (
+        RollingBanded,
+        banded,
+        occupancy,
+        rolling,
+    )
+    from eigenpinns_torch.utils.fixtures import perturbed_icosphere
+
+    h = build_hierarchy(perturbed_icosphere(4), cs.LEVELS,
+                        n_modes=cs.N_MODES, operator_format="auto",
+                        device="cpu")
+    K_blk_sp = sp.block_diag([K.tocsr() for K in h.K_scipy], format="csr")
+    K_blk = RollingBanded.from_scipy(K_blk_sp, device=device,
+                                     reorder=False)[0]
+    Kr, perm = RollingBanded.from_scipy(L, max_bandwidth=8192,
+                                        device=device)
+    Lr = L[perm][:, perm].tocsr()
+    cases = [("K_blk high", K_blk.with_precision("high"), K_blk_sp,
+              (cs.N_MODES,))]
+    # The transfer path's level operators, as the hierarchy builds them
+    # on the card.
+    h_dev = build_hierarchy(perturbed_icosphere(4), cs.LEVELS,
+                            n_modes=cs.N_MODES, operator_format="auto",
+                            device=device)
+    for lv, (K_op, K_sp) in enumerate(zip(h_dev.K_ops, h_dev.K_scipy)):
+        if isinstance(K_op, RollingBanded):   # K_sp in the band's order
+            cases.append((f"level {lv} K {K_op.mxu_precision}", K_op, K_sp,
+                          (cs.N_MODES,)))
+    cases += [("K_300k highest", Kr, Lr, (10, 20, 28, 39)),
+              ("K_300k bf16", Kr.with_precision("bf16"), Lr, (20, 28))]
+    # Every width on the row-wise route, to time it where the default
+    # does not take it.
+    occupancy.BAND_GRAM_ROWS_K = {torch.float32: (1, 128),
+                                  torch.bfloat16: (1, 128)}
+    occupancy.BAND_BF16_ROWS_K = (1, 256)
+    for label, A, A_sp, ks in cases:
+        for k in ks:
+            cs.gram_route_row(rolling, label, A, A_sp, k, seed=k)
+    Kb = Kr.with_precision("bf16")
+    cs.band_route_rows(
+        "K1 300k rolling band bf16",
+        lambda U, **grid: rolling.rolling_spmm_cuda(Kb, U, **grid), Kb.band,
+        None, Kb.pre, Kb.occupancy, Kb.narrow, Kb.n,
+        cs.torch_csr(Lr, device), Lr.nnz, (12, 20, 28, 60, 84), seed=15,
+        plain=lambda V: rolling.rolling_spmm_plain(Kb, V))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-1m", action="store_true",
@@ -166,6 +309,10 @@ def main() -> int:
     ap.add_argument("--tables", action="store_true",
                     help="time the bf16 strip-BSR and full-band K4 routes "
                          "over the nonzero table instead")
+    ap.add_argument("--shards", action="store_true",
+                    help="time K4 on the sharded paths' blocks instead")
+    ap.add_argument("--gram", action="store_true",
+                    help="time K1's row-wise Gram and bf16 routes instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("polish_products: no CUDA device", file=sys.stderr)
@@ -212,6 +359,15 @@ def main() -> int:
     if args.tables:
         ptxas_report()
         table_routes(L, X, device, args.skip_1m)
+        print(smi, flush=True)
+        return 0
+    if args.shards or args.gram:
+        if args.gram:
+            ptxas_report("banded_spmm", ("rows_gram_kernel",
+                                         "gram_tiles_kernel"))
+            gram_routes(L, device)
+        if args.shards:
+            shard_routes(L, X, device, args.skip_1m)
         print(smi, flush=True)
         return 0
 

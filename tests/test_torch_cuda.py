@@ -15,7 +15,11 @@ plain version rounds U exactly as the kernels do. The full-window band
 rel 1e-4, with an fp32 or a bf16 band (the plain version rounds U as the
 kernels do). The bf16 row-wise route (bf16 strips, a bf16 band): rel 1e-4
 of the plain version, which rounds U as the kernel does; its bits are
-its own, not the tensor-core walk's.
+its own, not the tensor-core walk's. A bf16 rolling band on that route
+(and with its Gram, from the unrounded U) is held to the same 1e-4; the
+row-wise route's Gram on an fp32 rolling band gives the walk's W and G
+bit for bit, as the shard blocks' row-wise route gives the staged
+route's W.
 """
 
 import dataclasses
@@ -46,8 +50,10 @@ def _need_card():
 
 def _check_rolling(op, U, tol):
     """K1 on one operator: W and G vs the plain version, one launch
-    counted per call, W the same bits from both column blocks, with and
-    without the Gram and from a second launch, G from a second launch."""
+    counted per call, W the same bits from both column blocks (the
+    walk's; on a bf16 band the row-wise route, where it is the default,
+    sums in another order), with and without the Gram and from a second
+    launch, G from a second launch."""
     before = trolling.rolling_kernel_launches
     W, G = tsparse.rolling_spmm_cuda(op, U, with_gram=True)
     torch.cuda.synchronize()
@@ -55,11 +61,19 @@ def _check_rolling(op, U, tol):
     Wp, Gp = tsparse.rolling_spmm_gram_plain(op, U)
     assert _rel(W.cpu(), Wp.cpu()) < tol
     assert _rel(G.cpu(), Gp.cpu()) < tol
+    Wn = tsparse.rolling_spmm_cuda(op, U)
+    if op.band.dtype == torch.float32:
+        assert torch.equal(Wn, W)
+        Wb = W
+    else:   # with and without the Gram the default routes may differ
+        assert _rel(Wn.cpu(), W.cpu()) < 1e-4
+        Wb = tsparse.rolling_spmm_cuda(op, U, route="walk")
     for cb in (32, 64):
-        assert torch.equal(tsparse.rolling_spmm_cuda(op, U, col_block=cb), W)
+        assert torch.equal(tsparse.rolling_spmm_cuda(op, U, col_block=cb),
+                           Wb)
         W2, G2 = tsparse.rolling_spmm_cuda(op, U, with_gram=True,
                                            col_block=cb)
-        assert torch.equal(W2, W)
+        assert torch.equal(W2, Wb)
         assert _rel(G2.cpu(), Gp.cpu()) < tol
     assert torch.equal(tsparse.rolling_spmm_cuda(op, U, with_gram=True)[1], G)
     return W, G, Wp
@@ -420,8 +434,10 @@ def test_banded_cuda_rectangular_shard_blocks(shard_blocks, which, dtype, k):
     """K4 on a shard's rectangular block against its halo window (U of
     per + 2B rows) and on the block's transpose (W of win rows from a U
     of per rows, the rows past U's end read as zero), vs the plain
-    version; W the same bits from both column blocks. K5 refuses a
-    rectangular operator."""
+    version; W the same bits from both column blocks (the walk's: on a
+    bf16 block the row-wise route, where it is the default, sums in
+    another order), counted under "spmm_rect" and by its width. K5
+    refuses a rectangular operator."""
     _need_card()
     A = shard_blocks[dtype].block(1, "cuda")
     if which == "transpose":
@@ -429,11 +445,15 @@ def test_banded_cuda_rectangular_shard_blocks(shard_blocks, which, dtype, k):
     gen = torch.Generator("cuda").manual_seed(k)
     U = torch.randn((A.n_cols, k), generator=gen, device="cuda")
     before = tbanded.banded_kernel_launches["spmm_rect"]
+    width = tbanded.banded_rect_widths.get(k, 0)
     W = tbanded.banded_spmm_cuda(A, U)
     torch.cuda.synchronize()
     assert tbanded.banded_kernel_launches["spmm_rect"] == before + 1
+    assert tbanded.banded_rect_widths[k] == width + 1
     assert W.shape == (A.n, k)
     assert _rel(W.cpu(), tbanded.banded_spmm_plain(A, U).cpu()) < 1e-5
+    if dtype == torch.bfloat16:
+        W = tbanded.banded_spmm_cuda(A, U, route="walk")
     for cb in (32, 64):
         assert torch.equal(tbanded.banded_spmm_cuda(A, U, col_block=cb), W)
     with pytest.raises(ValueError, match="square"):
@@ -668,8 +688,8 @@ def _band_cases():
     their own tables; a split core whose clamped windows reach past n
     and a nonsymmetric band and its transpose, with the tables their
     builds give them (`BandedELL.narrow`), and a shard's rectangular
-    block and its transpose (U rows past U's end read as zero), which
-    carry none, with a table from `band_table`."""
+    block and its transpose (U rows past U's end read as zero), with the
+    tables `ShardedBanded.block` gives them (`band_table`'s)."""
     from eigenpinns_torch.parallel import build_sharded_operator
     from eigenpinns_torch.sparse.nonzeros import band_table
     from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
@@ -692,9 +712,10 @@ def _band_cases():
                asym.transpose_banded):
         out.append(("full", op, op.narrow))
     for op in (block, block.transpose_banded):
-        assert op.narrow is None
-        out.append(("full", op, band_table(op.band, op.occupancy,
-                                           op.starts)))
+        fresh = band_table(op.band, op.occupancy, op.starts)
+        assert torch.equal(op.narrow.val, fresh.val)
+        assert torch.equal(op.narrow.idx, fresh.idx)
+        out.append(("full", op, op.narrow))
     return out
 
 
@@ -759,16 +780,29 @@ def test_band_rows_route_matches_the_walk(k):
 
 @pytest.mark.cuda
 def test_band_rows_route_raises_where_it_cannot_run():
-    """No fallback: the row-wise route refuses a bf16 band, the Gram, and
-    a band without its table."""
+    """No fallback: the row-wise route refuses a band without its table
+    (an fp32 or a bf16 one, with the Gram or without), the Gram past
+    ROWS_GRAM_MAX_K, and the Gram on a full-window band (K5 keeps the
+    block routes)."""
+    from eigenpinns_torch.sparse.occupancy import ROWS_GRAM_MAX_K
+
     _need_card()
     op = _rolling_cloud_op()
     U = torch.zeros((op.n, 84), device="cuda")
-    for bad, kw in ((op.with_precision("bf16"), {}),
-                    (op, {"with_gram": True}),
-                    (dataclasses.replace(op, narrow=None), {})):
+    wide = torch.zeros((op.n, ROWS_GRAM_MAX_K + 1), device="cuda")
+    for bad, V, kw in (
+            (dataclasses.replace(op, narrow=None), U, {}),
+            (dataclasses.replace(op, narrow=None), U, {"with_gram": True}),
+            (dataclasses.replace(op.with_precision("bf16"), narrow=None), U,
+             {}),
+            (op, wide, {"with_gram": True})):
         with pytest.raises(ValueError, match="row-wise"):
-            tsparse.rolling_spmm_cuda(bad, U, route="rows", **kw)
+            tsparse.rolling_spmm_cuda(bad, V, route="rows", **kw)
+    band = _banded_op("asym800", torch.float32)
+    with pytest.raises(ValueError, match="row-wise"):
+        tbanded.banded_spmm_cuda(band, torch.zeros((band.n, 84),
+                                                   device="cuda"),
+                                 with_gram=True, route="rows")
 
 
 # ---- the bf16 row-wise route -------------------------------------------
@@ -862,3 +896,156 @@ def test_band_bf16_rows_route_matches_plain(case, k):
     At = op.transpose_banded if op.transpose_banded is not None else op
     assert _rel(Ut.grad.cpu(),
                 tbanded.banded_spmm_plain(At, g).cpu()) < 1e-4
+
+
+# ---- the shard blocks' tables, the rolling band's Gram and bf16 rows ----
+
+SHARD_KS = [10, 20, 28, 60, 84]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SHARD_KS)
+@pytest.mark.parametrize("which", ["block", "transpose"])
+def test_band_rows_route_on_shard_blocks(shard_blocks, which, k):
+    """K4 on a shard's block and its transpose over the table that
+    `ShardedBanded.block` gives them: the row-wise route gives the
+    walk's bits and the staged route's (where it runs, k <= 64), a
+    second launch the same bits, W within 1e-5 of the plain version; the
+    default route (`band_grid` with the block's window) is counted under
+    "rows" where it is the row-wise one."""
+    _need_card()
+    A = shard_blocks[torch.float32].block(1, "cuda")
+    if which == "transpose":
+        A = A.transpose_banded
+    assert A.narrow is not None
+    U = torch.from_numpy(np.random.default_rng(k).normal(
+        size=(A.n_cols, k)).astype(np.float32)).cuda()
+    W = tbanded.banded_spmm_cuda(A, U, route="rows")
+    torch.cuda.synchronize()
+    assert W.shape == (A.n, k)
+    assert torch.equal(tbanded.banded_spmm_cuda(A, U, route="rows"), W)
+    assert torch.equal(tbanded.banded_spmm_cuda(A, U, route="walk"), W)
+    if k <= 64:
+        assert torch.equal(tbanded.banded_spmm_cuda(A, U, route="staged"),
+                           W)
+    rows = band_grid(A.band.shape[0] // 128, k, torch.float32,
+                     sm_count(U.device), rows=True,
+                     window=A.band.shape[1])[0] == "rows"
+    before = tbanded.banded_kernel_launches["rows"]
+    assert torch.equal(tbanded.banded_spmm_cuda(A, U), W)
+    assert tbanded.banded_kernel_launches["rows"] == before + int(rows)
+    assert _rel(W.cpu(), tbanded.banded_spmm_plain(A, U).cpu()) < 1e-5
+
+
+def _rolling_gram_ops(case, precision):
+    """A rolling band and its stored transpose (if any) in `precision`:
+    the 500-point cloud band, or the adversarial operator (windows before
+    row 0 and past n, n not a multiple of 128)."""
+    if case == "cloud":
+        op = _rolling_cloud_op()
+    else:
+        op = tsparse.RollingBanded.from_scipy(adversarial_rolling_matrix(),
+                                              reorder=False,
+                                              device="cuda")[0]
+    op = op.with_precision(precision)
+    return [o for o in (op, op.transpose_rolling) if o is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 10, 20, 28, 39, 84, 128])
+@pytest.mark.parametrize("case", ["cloud", "adversarial"])
+def test_rolling_rows_gram_matches_the_walk(case, k):
+    """K1 with the Gram on the row-wise route (forced; by default at
+    BAND_GRAM_ROWS_K, counted in rolling_rows_gram_launches) on an fp32
+    band: W and G the walk's bits (each tile's partial summed in the
+    walk's order, then the same reduce), the same bits from a second
+    launch, both within 1e-5 of the plain version; the stored transpose
+    too."""
+    from eigenpinns_torch.sparse.occupancy import BAND_GRAM_ROWS_K
+
+    _need_card()
+    lo, hi = BAND_GRAM_ROWS_K[torch.float32]
+    for op in _rolling_gram_ops(case, "high"):
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n, k)).astype(np.float32)).cuda()
+        W, G = tsparse.rolling_spmm_cuda(op, U, with_gram=True, route="rows")
+        W2, G2 = tsparse.rolling_spmm_cuda(op, U, with_gram=True,
+                                           route="rows")
+        Ww, Gw = tsparse.rolling_spmm_cuda(op, U, with_gram=True,
+                                           route="walk")
+        torch.cuda.synchronize()
+        assert W.shape == (op.n, k) and G.shape == (k, k)
+        for a, b in ((W2, W), (G2, G), (Ww, W), (Gw, G)):
+            assert torch.equal(a, b)
+        Wp, Gp = tsparse.rolling_spmm_gram_plain(op, U)
+        assert _rel(W.cpu(), Wp.cpu()) < 1e-5
+        assert _rel(G.cpu(), Gp.cpu()) < 1e-5
+        before = trolling.rolling_rows_gram_launches
+        Wd, Gd = tsparse.rolling_spmm_cuda(op, U, with_gram=True)
+        assert trolling.rolling_rows_gram_launches == before + int(
+            lo <= k <= hi)
+        assert torch.equal(Wd, W) and torch.equal(Gd, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", BF16_KS)
+@pytest.mark.parametrize("case", ["cloud", "adversarial"])
+def test_rolling_bf16_rows_route_matches_plain(case, k):
+    """K1 on a bf16 rolling band over the bf16 table `with_precision`
+    gives it, by the bf16 row-wise route (by default at BAND_BF16_ROWS_K,
+    counted in rolling_rows_bf16_launches): W within 1e-4 of the plain
+    version, which rounds U as the kernel does, the same bits from a
+    second launch; with the Gram (by default at BAND_GRAM_ROWS_K[bf16])
+    W the same bits as without it, G within 1e-4 of the plain version's
+    (from the unrounded U) and the same bits from a second launch; the
+    gradient through the fused Gram within 1e-4 of the plain version's;
+    the stored transpose too."""
+    from eigenpinns_torch.sparse.occupancy import (
+        BAND_BF16_ROWS_K,
+        BAND_GRAM_ROWS_K,
+    )
+
+    _need_card()
+    lo, hi = BAND_BF16_ROWS_K
+    glo, ghi = BAND_GRAM_ROWS_K[torch.bfloat16]
+    ops = _rolling_gram_ops(case, "bf16")
+    for op in ops:
+        assert op.narrow.val.dtype == torch.bfloat16
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n, k)).astype(np.float32)).cuda()
+        W = tsparse.rolling_spmm_cuda(op, U, route="rows")
+        torch.cuda.synchronize()
+        assert torch.equal(tsparse.rolling_spmm_cuda(op, U, route="rows"), W)
+        assert _rel(W.cpu(), tsparse.rolling_spmm_plain(op, U).cpu()) < 1e-4
+        before = trolling.rolling_rows_bf16_launches
+        Wd = tsparse.rolling_spmm_cuda(op, U)
+        assert trolling.rolling_rows_bf16_launches == before + int(
+            lo <= k <= hi)
+        if lo <= k <= hi:
+            assert torch.equal(Wd, W)
+        Wg, G = tsparse.rolling_spmm_cuda(op, U, with_gram=True,
+                                          route="rows")
+        Wg2, G2 = tsparse.rolling_spmm_cuda(op, U, with_gram=True,
+                                            route="rows")
+        torch.cuda.synchronize()
+        assert torch.equal(Wg, W) and torch.equal(Wg2, W)
+        assert torch.equal(G2, G)
+        _, Gp = tsparse.rolling_spmm_gram_plain(op, U)
+        assert _rel(G.cpu(), Gp.cpu()) < 1e-4
+        before = trolling.rolling_rows_gram_launches
+        tsparse.rolling_spmm_cuda(op, U, with_gram=True)
+        assert trolling.rolling_rows_gram_launches == before + int(
+            glo <= k <= ghi)
+    op = ops[0]
+    U = torch.from_numpy(np.random.default_rng(k).normal(
+        size=(op.n, k)).astype(np.float32)).cuda()
+    gen = torch.Generator("cuda").manual_seed(k)
+    gW = torch.randn((op.n, k), generator=gen, device="cuda")
+    gG = torch.randn((k, k), generator=gen, device="cuda")
+    Uk = U.clone().requires_grad_(True)
+    Wk, Gk = tsparse.rolling_spmm_gram(op, Uk)
+    ((Wk * gW).sum() + (Gk * gG).sum()).backward()
+    At = op.transpose_rolling if op.transpose_rolling is not None else op
+    Wp = tsparse.rolling_spmm_plain(op, U)
+    ref = tsparse.rolling_spmm_plain(At, gW + U @ gG) + Wp @ gG.T
+    assert _rel(Uk.grad.cpu(), ref.cpu()) < 1e-4

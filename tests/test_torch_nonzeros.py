@@ -42,8 +42,18 @@ from eigenpinns_torch import sparse as tsparse
 from eigenpinns_torch.geometry import point_cloud_laplacian
 from eigenpinns_torch.sparse import banded as tbanded
 from eigenpinns_torch.sparse import bsr as tbsr
-from eigenpinns_torch.sparse.nonzeros import band_table, table_spmm_plain
-from eigenpinns_torch.sparse.occupancy import BAND_ROWS_K, band_grid
+from eigenpinns_torch.sparse.nonzeros import (
+    band_table,
+    gram_partials_plain,
+    table_spmm_plain,
+)
+from eigenpinns_torch.sparse.occupancy import (
+    BAND_BF16_ROWS_K,
+    BAND_GRAM_ROWS_K,
+    BAND_ROWS_K,
+    ROWS_GRAM_MAX_K,
+    band_grid,
+)
 from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
 
 torch.set_num_threads(2)
@@ -202,12 +212,18 @@ def test_full_band_carries_its_table(ops, name):
 
 
 def test_rolling_table_follows_with_precision(ops):
-    """A bf16 band carries no table; the upcast back to fp32 rebuilds it
-    from the rounded band (transpose too); the same fp32 band keeps
-    its own."""
+    """A bf16 band carries the fp32 table with its values rounded to
+    nearest even (`with_values`: the same U rows and slices, transpose
+    too), which the bf16 row-wise route reads; the upcast back to fp32
+    rebuilds it from the rounded band (transpose too); the same fp32
+    band keeps its own; a bf16 build lists its own band's nonzeros."""
     _, _, top, _ = ops["rolling-asym"]
     b = top.with_precision("bf16")
-    assert b.narrow is None and b.transpose_rolling.narrow is None
+    for o, f in ((b, top), (b.transpose_rolling, top.transpose_rolling)):
+        assert o.narrow.val.dtype == torch.bfloat16
+        assert o.narrow.idx is f.narrow.idx
+        assert o.narrow.slice_start is f.narrow.slice_start
+        assert torch.equal(o.narrow.val, f.narrow.val.bfloat16())
     h = b.with_precision("highest")
     for o in (h, h.transpose_rolling):
         fresh = band_table(o.band, o.occupancy, pre=o.pre)
@@ -223,7 +239,113 @@ def test_rolling_table_follows_with_precision(ops):
     bf = tsparse.RollingBanded.from_scipy(_asym800(), reorder=False,
                                           dtype=torch.bfloat16,
                                           device="cpu")[0]
-    assert bf.narrow is None
+    fresh = band_table(bf.band, bf.occupancy, pre=bf.pre)
+    assert bf.narrow.val.dtype == torch.bfloat16
+    for a, c in ((bf.narrow.val, fresh.val), (bf.narrow.idx, fresh.idx),
+                 (bf.narrow.slice_start, fresh.slice_start)):
+        assert torch.equal(a, c)
+
+
+# The sharded paths' blocks, as their paths launch them: (tiles, window).
+SHARD_SHAPES = {
+    "16c block": (586, 3712), "16c transpose": (644, 3584),
+    "1M core, one shard": (7813, 1024), "1M transpose": (7829, 1024),
+    "multigrid level 3, 4 shards": (6, 384),
+    "multigrid level 3, one shard": (21, 384)}
+
+
+@pytest.mark.parametrize("k", [5, 6, 10, 19, 20, 28, 54, 60, 84, 85])
+@pytest.mark.parametrize("shape", list(SHARD_SHAPES))
+def test_band_grid_routes_the_shard_blocks(shape, k):
+    """The sharded paths' blocks and transposes, with the tables
+    `ShardedBanded.block` gives them, take the row-wise route at every
+    width their paths launch (16c's training and polish at k = 20, 28
+    and 84, 16b's also at 6, 18, 54 and 60, the multigrid's at 10 and
+    19), as far as FULL_ROWS_K reaches (k = 6 to 84; from 33 to 64 on
+    windows of 1024 columns or more, which the multigrid's 384 is not);
+    a given
+    col_block keeps the block routes, and without a table a block takes
+    the route it took before."""
+    n_tiles, window = SHARD_SHAPES[shape]
+    cb = 32 if k <= 32 else 64
+    got = band_grid(n_tiles, k, torch.float32, 132, rows=True,
+                    window=window)
+    before = band_grid(n_tiles, k, torch.float32, 132, window=window)
+    rows = 6 <= k <= 84 and not (32 < k <= 64 and window < 1024)
+    assert got == (("rows", cb, 8) if rows else before)
+    assert before[0] == ("staged" if k <= 64 else "walk")
+    assert band_grid(n_tiles, k, torch.float32, 132, col_block=cb,
+                     rows=True, window=window)[0] == before[0]
+
+
+ROLLING = [name for name in CASES if CASES[name][0] == "rolling"]
+
+
+@pytest.mark.parametrize("k", [5, 20, 30])
+@pytest.mark.parametrize("name", ROLLING)
+def test_bf16_rolling_table_plain_reader_matches_plain_and_jax(ops, name,
+                                                               k):
+    """A bf16 rolling band's table (`with_precision("bf16")`), read by its
+    plain reader (bf16 values, U rounded to bf16, fp32 sums), against
+    `rolling_spmm_plain` in 'bf16' and the JAX package's Pallas kernel
+    in interpret mode, which round U too, at rel 1e-5 (sums in another
+    order), and against JAX's `rolling_spmm_reference` in 'bf16', which
+    does not round U, at rel 4e-3 (as tests/test_torch_rolling.py
+    holds the walk); the stored transpose too."""
+    layout, Ap, top, jop = ops[name]
+    b, jb = top.with_precision("bf16"), jop.with_precision("bf16")
+    U = np.random.default_rng(k).normal(size=(b.n, k)).astype(np.float32)
+    Ut, Uj = torch.from_numpy(U), jnp.asarray(U)
+    for op, t, j_op, _ in _pairs(layout, b, jb, Ap):
+        assert t.val.dtype == torch.bfloat16
+        W = table_spmm_plain(t, Ut, op.n).numpy()
+        for other, tol in (
+                (tsparse.rolling_spmm_plain(op, Ut).numpy(), 1e-5),
+                (np.asarray(jsparse.rolling_spmm_pallas(j_op, Uj,
+                                                        interpret=True)),
+                 1e-5),
+                (np.asarray(jsparse.rolling.rolling_spmm_reference(j_op,
+                                                                   Uj)),
+                 4e-3)):
+            assert np.abs(W - other).max() <= tol * np.abs(other).max()
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+@pytest.mark.parametrize("k", [3, 20])
+@pytest.mark.parametrize("name", ROLLING)
+def test_rows_gram_plain_matches_plain_and_pallas(ops, name, k, precision):
+    """The row-wise route's Gram as its kernels sum it
+    (`gram_partials_plain`: per 128-row tile partials of U^T W, rows in
+    order, then the reduce's order), with W from the band's table and
+    the unrounded U: each tile's partial and G against float64 sums at
+    rel 1e-6; G against `rolling_spmm_gram_plain` at rel 1e-6 and
+    against the JAX package's `rolling_spmm_gram_pallas(interpret=True)`
+    at rel 1e-5 (sums in another order); the stored transpose too."""
+    layout, Ap, top, jop = ops[name]
+    top, jop = top.with_precision(precision), jop.with_precision(precision)
+    U = np.random.default_rng(k).normal(size=(top.n, k)).astype(np.float32)
+    Ut, Uj = torch.from_numpy(U), jnp.asarray(U)
+    for op, t, j_op, _ in _pairs(layout, top, jop, Ap):
+        n_tiles = op.band.shape[0] // 128
+        W = table_spmm_plain(t, Ut, op.n)
+        partial, G = gram_partials_plain(Ut, W, n_tiles)
+        assert partial.shape == (n_tiles, k, k) and G.shape == (k, k)
+        U64 = np.zeros((n_tiles * 128, k))
+        W64 = np.zeros((n_tiles * 128, k))
+        U64[:op.n], W64[:op.n] = U, W.numpy()
+        tiles = np.einsum("tri,trj->tij", U64.reshape(n_tiles, 128, k),
+                          W64.reshape(n_tiles, 128, k))
+        assert _rel_np(partial.numpy(), tiles) < 1e-6
+        assert _rel_np(G.numpy(), tiles.sum(axis=0)) < 1e-6
+        _, Gp = tsparse.rolling_spmm_gram_plain(op, Ut)
+        assert _rel_np(G.numpy(), Gp.numpy()) < 1e-6
+        _, Gj = jsparse.rolling_spmm_gram_pallas(j_op, Uj, interpret=True)
+        assert _rel_np(G.numpy(), np.asarray(Gj)) < 1e-5
+
+
+def _rel_np(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
 
 
 @pytest.fixture(scope="module")
@@ -335,19 +457,47 @@ def test_strip_route_refuses_what_the_kernels_cannot_take():
     (2344, 28, torch.float32, True, True, ("staged", 32, 8)),
     (2344, 84, torch.float32, False, False, ("walk", 64, 8)),
     (2344, 28, torch.float32, False, False, ("staged", 32, 8)),
-    (2344, 84, torch.bfloat16, False, True, ("walk", 32, 8))])
+    (2344, 84, torch.bfloat16, False, True, ("rows", 32, 8)),
+    (34, 10, torch.float32, True, True, ("rows", 32, 8)),       # K_blk, G
+    (34, BAND_GRAM_ROWS_K[torch.float32][0] - 1, torch.float32, True, True,
+     ("walk", 32, 8)),
+    (2344, BAND_GRAM_ROWS_K[torch.float32][1] + 1, torch.float32, True,
+     True, ("staged", 32, 8)),
+    (34, 10, torch.float32, True, False, ("walk", 32, 8)),
+    (2344, 20, torch.bfloat16, False, True, ("rows", 32, 8)),   # training
+    (2344, 20, torch.bfloat16, True, True, ("rows", 32, 8)),    # with G
+    (2344, BAND_BF16_ROWS_K[1], torch.bfloat16, False, True,
+     ("rows", 32, 8)),
+    (2344, BAND_BF16_ROWS_K[0] - 1, torch.bfloat16, False, True,
+     ("walk", 32, 8)),
+    (2344, BAND_BF16_ROWS_K[1] + 1, torch.bfloat16, False, True,
+     ("walk", 32, 8)),
+    (2344, BAND_GRAM_ROWS_K[torch.bfloat16][1] + 1, torch.bfloat16, True,
+     True, ("walk", 32, 8)),
+    (2344, 20, torch.bfloat16, True, False, ("walk", 32, 8))])
 def test_band_grid_takes_the_rows_route(n_tiles, k, dtype, gram, rows,
                                         want):
-    """An fp32 band with a nonzero table takes the row-wise route in
-    BAND_ROWS_K without the Gram; everything else is routed as before."""
+    """A rolling band with a nonzero table takes the row-wise route in
+    BAND_ROWS_K (fp32) or BAND_BF16_ROWS_K (bf16) without the Gram, and
+    in BAND_GRAM_ROWS_K of its type with it; everything else (no table,
+    other widths) is routed as before."""
     assert band_grid(n_tiles, k, dtype, 132, gram, rows=rows) == want
 
 
 def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
-    """A forced row-wise route needs an fp32 band with its table, no Gram,
-    no warps and k <= ROWS_KERNEL_MAX_K; a given col_block or warps names
-    a grid of the block routes, which the default then keeps."""
+    """A forced row-wise route needs a band with its table, no warps and
+    k <= ROWS_KERNEL_MAX_K, and takes the Gram on a rolling band only, at
+    k <= ROWS_GRAM_MAX_K; a given col_block or warps names a grid of the
+    block routes, which the default then keeps."""
     f32, bf16 = torch.float32, torch.bfloat16
+    assert band_grid(34, 10, f32, 132, True, col_block=32,
+                     rows=True) == ("walk", 32, 8)
+    assert band_grid(2344, 20, bf16, 132, True, col_block=32,
+                     rows=True) == ("walk", 32, 8)
+    assert band_grid(2344, 84, f32, 132, True, route="rows",
+                     rows=True) == ("rows", 64, 8)
+    assert band_grid(2344, ROWS_GRAM_MAX_K, bf16, 132, True, route="rows",
+                     rows=True) == ("rows", 32, 8)
     assert band_grid(2344, 28, f32, 132, col_block=32,
                      rows=True) == ("staged", 32, 8)
     assert band_grid(2344, 84, f32, 132, col_block=64,
@@ -359,7 +509,11 @@ def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
     assert band_grid(2344, 84, bf16, 132, route="rows", rows=True,
                      window=512) == ("rows", 32, 8)
     for kw in (dict(dtype=bf16, rows=False), dict(dtype=f32, rows=False),
-               dict(dtype=f32, rows=True, with_gram=True),
+               dict(dtype=f32, rows=True, with_gram=True, window=1024),
+               dict(dtype=bf16, rows=True, with_gram=True, window=512,
+                    k=20),
+               dict(dtype=f32, rows=True, with_gram=True,
+                    k=ROWS_GRAM_MAX_K + 1),
                dict(dtype=f32, rows=True, warps=2),
                dict(dtype=f32, rows=True, k=257)):
         kw = {"k": 84, **kw}
@@ -373,7 +527,9 @@ def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
     (28, torch.float32, False, True, 1024, ("rows", 32, 8)),
     (60, torch.float32, False, True, 1024, ("rows", 64, 8)),   # spectral S
     (84, torch.float32, False, True, 1024, ("rows", 64, 8)),
-    (19, torch.float32, False, True, 1024, ("staged", 32, 8)),
+    (6, torch.float32, False, True, 1024, ("rows", 32, 8)),
+    (10, torch.float32, False, True, 384, ("rows", 32, 8)),
+    (5, torch.float32, False, True, 1024, ("staged", 32, 8)),
     (85, torch.float32, False, True, 1024, ("walk", 64, 8)),
     (84, torch.float32, True, True, 1024, ("walk", 64, 8)),
     (28, torch.float32, True, True, 1024, ("staged", 32, 8)),
@@ -397,14 +553,15 @@ def test_band_grid_takes_the_rows_route_on_full_bands(k, dtype, gram, rows,
                                                       window, want):
     """A full-window band with its table (`BandedELL.narrow`) takes the
     row-wise route in FULL_ROWS_K of its type, without the Gram: fp32 at
-    k = 20 to 84, bf16 at k = 20 to 28; in fp32 where the staged route
+    k = 6 to 84, bf16 at k = 20 to 28; in fp32 where the staged route
     would run one block of 64 columns (32 < k <= 64) only on a window of
     FULL_ROWS_MIN_WINDOW_64 (1024) columns or more (the cluster cores,
     not the Hilbert core's 512); elsewhere, with the Gram or without a
     table, the routes it took before. A rolling band of the same type and
-    width keeps its own widths."""
+    width keeps its own widths (with the Gram too)."""
     assert band_grid(2344, k, dtype, 132, gram, rows=rows,
                      window=window) == want
     rolling = band_grid(2344, k, dtype, 132, gram, rows=rows)
-    if dtype == torch.bfloat16:
-        assert rolling[0] == "walk"
+    lo, hi = (BAND_GRAM_ROWS_K[dtype] if gram else BAND_ROWS_K
+              if dtype == torch.float32 else BAND_BF16_ROWS_K)
+    assert (rolling[0] == "rows") == (rows and lo <= k <= hi)

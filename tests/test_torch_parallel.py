@@ -16,6 +16,10 @@ checked:
   * `banded_spmm_plain` on a rectangular block read against a U longer
     than N_pad + B (a halo window) equals JAX's `banded_spmm_reference`
     to 1e-6 (it cropped that U before);
+  * each shard block and transpose that `ShardedBanded.block` gives
+    carries its nonzero table, whose plain reader equals
+    `banded_spmm_plain` to 1e-6 and JAX's `banded_spmm_reference` on the
+    JAX host tables to rel 1e-5, for 1 and 4 shards;
   * on 8 ranks, forward pass and VJP of `all_gather_spmm`, `halo_spmm`,
     `psum_gram`, `sharded_banded_spmm` and `sharded_split_spmm`, and the
     ring and the Gram on a 4 x 2 mesh, equal JAX's to rel 1e-5;
@@ -161,6 +165,49 @@ def test_banded_spmm_plain_reads_a_longer_u():
         out = banded_spmm_plain(A_t, torch.as_tensor(U))
         assert out.shape == (n, U.shape[1])
         assert _rel(out.numpy(), ref) < 1e-6
+
+
+@pytest.mark.parametrize("name", ["cloud", "ico3"])
+@pytest.mark.parametrize("n_dev", [1, 4])
+def test_shard_blocks_carry_their_tables(operators, name, n_dev):
+    """`ShardedBanded.block` gives each shard's block and its transpose
+    the nonzero table of its band (`full_band_table`), which K4's
+    row-wise route reads. Read by its plain reader (`table_spmm_plain`),
+    each table gives `banded_spmm_plain`'s product on its block to rel
+    1e-6, and JAX's `banded_spmm_reference` on the JAX package's host
+    tables of the same block (a U of the halo window's rows for the
+    block, of the shard's rows for the transpose) to REL."""
+    import jax.numpy as jnp
+
+    from eigenpinns_torch.sparse.nonzeros import band_table, table_spmm_plain
+    from eigenpinns_tpu.parallel import sharded_banded as jsb
+    from eigenpinns_tpu.sparse.banded import BandedELL as JBandedELL
+    from eigenpinns_tpu.sparse.banded import banded_spmm_reference
+
+    A, X = operators[name]
+    _, (jcore, _), _ = jsb.build_sharded_operator(A, n_dev, X=X)
+    _, (core, _), _ = P.build_sharded_operator(A, n_dev, X=X, device="cpu")
+    rng = np.random.default_rng(n_dev)
+    for s in range(n_dev):
+        blk = core.block(s, "cpu")
+        jblocks = (JBandedELL(jcore.band[s], jcore.starts[s], jcore.per,
+                              jcore.win, jcore.tile),
+                   JBandedELL(jcore.band_t[s], jcore.starts_t[s], jcore.win,
+                              jcore.per, jcore.tile))
+        for op, jop in zip((blk, blk.transpose_banded), jblocks):
+            fresh = band_table(op.band, op.occupancy, op.starts)
+            for a, b in ((op.narrow.val, fresh.val),
+                         (op.narrow.idx, fresh.idx),
+                         (op.narrow.slice_start, fresh.slice_start)):
+                assert torch.equal(a, b)
+            assert op.narrow.nnz == int(torch.count_nonzero(op.band))
+            U = rng.normal(size=(op.n_cols, K_COLS)).astype(np.float32)
+            W = table_spmm_plain(op.narrow, torch.from_numpy(U), op.n)
+            assert W.shape == (op.n, K_COLS)
+            assert _rel(W.numpy(), banded_spmm_plain(
+                op, torch.from_numpy(U)).numpy()) < 1e-6
+            assert _rel(W.numpy(), banded_spmm_reference(
+                jop, jnp.asarray(U))) < REL
 
 
 # ---- the collectives on 8 gloo ranks ---------------------------------------
