@@ -105,6 +105,11 @@ present or the package is not beside it. On the card it:
      Hilbert core at the fused-Gram polish's widths, k = 28 (the staged
      route before) and 84 (the walk), the bf16 Hilbert core at k = 20
      (the walk), the cluster core at k = 20 and 60 (the staged route);
+     and `[rows] K5` lines (`gram_route_row`) for K5 on its default
+     route (the row-wise route with the Gram, where `band_grid` sends
+     it) against the route it replaced, U^T torch.sparse.mm and the
+     bound: the bf16 Hilbert core at k = 20 (the walk) and the cluster
+     core at k = 60 (the staged route);
   6b. runs the solver family at the widths of the JAX package's examples
      and notebooks, on the stand-ins, while the 300k oracle works:
      `solve_deflation` and `solve_deflation_adaptive` on the bunny
@@ -188,8 +193,9 @@ present or the package is not beside it. On the card it:
      on the bf16 row-wise route), then the guarded polish on its fp32
      twin (K4 on the fp32 row-wise route; its wall printed beside the
      routes' it replaced), counting K5's and K4's launches
-     from zero; the polished modes 1..19 must be within 1e-3 of the
-     oracle;
+     from zero; every K5 launch of the training must take the bf16
+     row-wise route with the Gram; the polished modes 1..19 must be
+     within 1e-3 of the oracle;
  10. holds K3 against the plain version on each member's padded
      operator of the family of three 20k-point clouds (zero pad rows and
      pad chunks, no group tables) at the widths its solve gives it (W rel
@@ -215,7 +221,9 @@ present or the package is not beside it. On the card it:
  12. runs the 1M spectral basis: K4 and K5 against their plain version on
      the 1M cluster core (window 1024) at k = 20 and 60 (its nonzero
      table's size and build time printed; `[rows]` lines for K4's
-     row-wise route against the staged route), then
+     row-wise route against the staged route, a `[rows] K5` line for K5
+     at k = 60 on the row-wise route with the Gram against the staged
+     route), then
      `spectral_basis` with step 8's configuration on the same cloud and
      L, counting K4's launches from zero; modes 1..49 within 1e-3 of the
      oracle (the JAX package's 1M figure, 3.1e-4, is printed beside),
@@ -240,7 +248,10 @@ present or the package is not beside it. On the card it:
      on the Hilbert core at k = 84 and 28 and the cluster cores, its
      launches in the fused-Gram polish and the spectral bases;
      `banded_spmm_rows_bf16`, the bf16 Hilbert core's k = 20 row and its
-     launches in the fused-Gram training), K2, K1 and K4 with their
+     launches in the fused-Gram training; `banded_spmm_rows_gram`, K5
+     on the row-wise route with the Gram, the bf16 Hilbert core's k =
+     20 row, the cluster cores' k = 60 rows and its launches in the
+     fused-Gram training), K2, K1 and K4 with their
      `[rows]` rows at the polish's widths, K3 with its family rows;
      every row timed by launch and on the card (`device_ms`), the
      library too; and the bound:
@@ -889,15 +900,16 @@ def bound(n_bytes: float, flops: dict) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def full_rows(core, k: int) -> bool:
+def full_rows(core, k: int, with_gram: bool = False) -> bool:
     """Whether the full-window band `core` (a BandedELL) takes the
     row-wise route over its nonzero table for a product of width k
-    without the Gram (`band_grid`)."""
+    (K4; K5 `with_gram`) by `band_grid`."""
     from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
 
     band = core.band
     return band_grid(band.shape[0] // 128, k, band.dtype,
-                     sm_count(band.device), rows=core.narrow is not None,
+                     sm_count(band.device), with_gram,
+                     rows=core.narrow is not None,
                      window=band.shape[1])[0] == "rows"
 
 
@@ -1555,32 +1567,39 @@ def shard_route_rows(banded, label, A, ks, seed, plain_ks=()):
     return out
 
 
-def gram_route_row(rolling, label, A, A_sp, k, seed):
-    """K1 with the Gram on the rolling band `A` at width k on its default
-    route (`band_grid`: the row-wise route over `A.narrow` where it takes
-    the Gram) against the route it took before (`band_grid` without the
+def gram_route_row(mod, label, A, A_sp, k, seed):
+    """K1 (`mod` the rolling module, `A` a RollingBanded) or K5 (`mod` the
+    banded module, `A` a BandedELL, which takes its window to
+    `band_grid`) with the Gram at width k on its default route
+    (`band_grid`: the row-wise route over `A.narrow` where it takes the
+    Gram) against the route it took before (`band_grid` without the
     table: the walk, or the staged route), both timed on the card and by
     launch, beside U^T torch.sparse.mm(A) (`A_sp`, A's scipy matrix in
-    its own order) and the bound with the Gram. W and G bit-identical
-    between two launches; on an fp32 band the parent's bits (W and G);
-    on a bf16 band within BSR_TOL['bf16'] of the plain version (the Gram
-    from the unrounded U). Returns the row."""
+    its own order; None: `band_csr(A)`) and the bound with the Gram. W
+    and G bit-identical between two launches; on an fp32 band the
+    parent's bits (W and G); on a bf16 band within BSR_TOL['bf16'] of
+    the plain version (the Gram from the unrounded U). Returns the
+    row."""
     from eigenpinns_torch.sparse.nonzeros import gram_partials_plain
     from eigenpinns_torch.sparse.occupancy import band_grid, sm_count
 
+    full = hasattr(A, "starts")
+    spmm = mod.banded_spmm_cuda if full else mod.rolling_spmm_cuda
+    plain = mod.banded_spmm_gram_plain if full else mod.rolling_spmm_gram_plain
+    window = A.band.shape[1] if full else None
     gen = torch.Generator("cuda").manual_seed(seed)
     U = torch.randn((A.n, k), generator=gen, device="cuda")
     dtype = A.band.dtype
     n_tiles, sms = A.band.shape[0] // 128, sm_count(U.device)
     route = band_grid(n_tiles, k, dtype, sms, True,
-                      rows=A.narrow is not None)[0]
+                      rows=A.narrow is not None, window=window)[0]
     parent = band_grid(n_tiles, k, dtype, sms, True)[0]
-    W, G = rolling.rolling_spmm_cuda(A, U, with_gram=True)
-    W2, G2 = rolling.rolling_spmm_cuda(A, U, with_gram=True)
-    Ww, Gw = rolling.rolling_spmm_cuda(A, U, with_gram=True, route=parent)
+    W, G = spmm(A, U, with_gram=True)
+    W2, G2 = spmm(A, U, with_gram=True)
+    Ww, Gw = spmm(A, U, with_gram=True, route=parent)
     check(torch.equal(W2, W) and torch.equal(G2, G),
           f"{label} k={k}: W or G differs between two launches")
-    Wp, Gp = rolling.rolling_spmm_gram_plain(A, U)
+    Wp, Gp = plain(A, U)
     _, Gt = gram_partials_plain(U, W, A.band.shape[0] // 128)
     torch.cuda.synchronize()
     errs = {"W": rel_err(W, Wp), "G": rel_err(G, Gp),
@@ -1593,24 +1612,24 @@ def gram_route_row(rolling, label, A, A_sp, k, seed):
         tol = BSR_TOL["bf16"]
     check(max(errs.values()) <= tol,
           f"{label} k={k}: rel err {errs} > {tol}")
-    csr = torch_csr(A_sp, U.device)
+    csr = band_csr(A) if A_sp is None else torch_csr(A_sp, U.device)
     nnz = int(csr.values().numel())
     kind = "bf16" if dtype == torch.bfloat16 else "fp32"
 
     def launch():
-        return rolling.rolling_spmm_cuda(A, U, with_gram=True)
+        return spmm(A, U, with_gram=True)
 
     def was():
-        return rolling.rolling_spmm_cuda(A, U, with_gram=True, route=parent)
+        return spmm(A, U, with_gram=True, route=parent)
 
     def library():
         return U.T @ torch.sparse.mm(csr, U)
 
     t0 = time.time()
-    rolling.rolling_spmm_gram_plain(A, U)
+    plain(A, U)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
-    row = {"k": k, "route": route, "parent_route": parent,
+    row = {"k": k, "band_route": route, "parent_route": parent,
            "ms": median_ms(launch, 5, 5),
            "device_ms": device_ms(launch, 3, 10),
            "parent_ms": median_ms(was, 5, 5),
@@ -1623,7 +1642,8 @@ def gram_route_row(rolling, label, A, A_sp, k, seed):
            **bound(least_bytes(nnz, A.band.element_size(), A.n, k,
                                gram=True),
                    {kind: 2 * nnz * k, "fp32": 2 * A.n * k * k})}
-    print(f"[rows gram] {label} {tuple(A.band.shape)} {kind} k={k} with "
+    print(f"{'[rows] K5' if full else '[rows gram]'} {label} "
+          f"{tuple(A.band.shape)} {kind} k={k} with "
           f"the Gram ({route} route, was {parent}): on the card "
           f"{row['device_ms']:.4f} ms (by launch {row['ms']:.4f}), the "
           f"{parent} route {row['parent_device_ms']:.4f} (by launch "
@@ -2174,13 +2194,15 @@ def check_banded_kernels(banded, bsr, cores, K, seed):
         # column block and K5 give the same W bit for bit, K5 again the
         # same G.
         # The block routes' W: on a bf16 core the row-wise route (the
-        # default where it applies) sums in another order than the walk.
+        # default where it applies, K4's and K5's alike, one FFMA chain
+        # a row over the same table) sums in another order than the walk.
         Wb = (W if core.band.dtype == torch.float32
               else banded.banded_spmm_cuda(core, U, route="walk"))
+        W5 = W if full_rows(core, k, with_gram=True) else Wb
         check(torch.equal(banded.banded_spmm_cuda(core, U), W)
               and torch.equal(
                   banded.banded_spmm_cuda(core, U, col_block=other), Wb)
-              and torch.equal(W2, Wb) and torch.equal(W3, Wb),
+              and torch.equal(W2, W5) and torch.equal(W3, Wb),
               f"{name} k={k}: W differs between launches, column blocks or "
               "K4 and K5")
         del W3, G3
@@ -2404,6 +2426,13 @@ def gram_slice(banded, K_h, K_f, M, X, oracle):
           f"{BEFORE_ROW_ROUTES['gram_polish_s']} s)", flush=True)
     device_report("gram", prof, "smoke.train_joint", steps=res.epochs_run)
     check(train_launches["spmm_gram"] > 0, "train_joint launched K5 0 times")
+    # K5 (the loss's forward pass, k = 20 on the bf16 core) on the
+    # row-wise route with the Gram where `band_grid` sends it.
+    check(train_launches["gram_rows"] == 0
+          and train_launches["gram_rows_bf16"] == (
+              train_launches["spmm_gram"]
+              * full_rows(K_h.core, DIRECT_K, with_gram=True)),
+          f"K5's row-wise launches in training: {train_launches}")
     check(train_launches["spmm"] > 0,
           "train_joint's backward pass launched K4 0 times")
     check(polish_launches["spmm"] > 0, "the polish launched K4 0 times")
@@ -2614,6 +2643,10 @@ def xl_phases(bsr, banded, X, L, m_diag, oracle, device, phases):
         core.band, core.starts, 0, core.occupancy, t, core.n, csr,
         int(csr.values().numel()), (DIRECT_K, SPEC_K + 10), seed=25,
         plain=lambda V: banded.banded_spmm_plain(core, V))
+    # K5 at k = 60 on its default route (the row-wise route with the
+    # Gram) against the staged route it took before.
+    band_rows_1m["gram_rows"] = gram_route_row(
+        banded, "1M cluster core", core, None, SPEC_K + 10, seed=29)
     del K_c, core, t, csr
     torch.cuda.empty_cache()
     k4_xl = spectral_slice(banded, X, L, m_diag, oracle, device,
@@ -5165,6 +5198,15 @@ def smoke(oracles: list) -> int:
             csr, int(csr.values().numel()), ks, seed=seed,
             plain=lambda V, core=core: banded.banded_spmm_plain(core, V))
         del csr
+    # K5 on its default route (the row-wise route with the Gram over the
+    # core's table, where `band_grid` sends it) against the route it took
+    # before: the bf16 Hilbert core at the training's k = 20 (the walk),
+    # the cluster core at k = 60 (the staged route).
+    banded_rows["gram_rows"] = {
+        key: gram_route_row(banded, label, core, None, k, seed=seed)
+        for key, label, core, k, seed in (
+            ("hilbert_bf16", "Hilbert core", K_h.core, DIRECT_K, 27),
+            ("cluster", "cluster core", K_c.core, SPEC_K + 10, 28))}
     del K_c, core
     torch.cuda.empty_cache()
     phases.done("split builds and K4/K5 checks")
@@ -5344,6 +5386,13 @@ def smoke(oracles: list) -> int:
          "launches": k5_launches, **banded_rows["banded_spmm_gram"],
          "row_cluster_k60": banded_rows["banded_spmm_gram_cluster"],
          "row_1m_cluster_k60": band_rows_1m["banded_spmm_gram_cluster"]},
+        {"name": "banded_spmm_rows_gram", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
+         "replaces": "eigenpinns_tpu/sparse/banded.py:382",
+         "launches": k4_gram_train["gram_rows_bf16"],
+         **banded_rows["gram_rows"]["hilbert_bf16"],
+         "row_cluster_k60": banded_rows["gram_rows"]["cluster"],
+         "row_1m_cluster_k60": band_rows_1m["gram_rows"]},
         {"name": "banded_spmm_rect", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
          "replaces": "eigenpinns_tpu/sparse/banded.py:455",

@@ -23,6 +23,9 @@
 //       <-  _rolling_kernel_call with the Gram (fp32 at k = 10 to 20:
 //           the multigrid and transfer losses; bf16 at k = 20 to 28: the
 //           300k training's forward pass), and
+//       <-  banded_spmm_gram_pallas, on a full-window band with its table
+//           (the fused-Gram training's forward pass on the Hilbert core
+//           in bf16, k = 20; the cluster cores in fp32), and
 //   nz::rows_kernel
 //       <-  banded_spmm_pallas, on a full-window band with its table
 //           (BandedELL.narrow, and ShardedBanded.block's blocks and
@@ -606,8 +609,10 @@ size_t staged_smem_bytes(int k, int depth) {
 
 // G[e] = sum over tiles t of partial[t, e]. Block (8 x 128): lane x owns
 // element e, lane y sums tiles y, y + 128, ... in order; the 128 sums are
-// then added in y order. Fixed order throughout: G is reproducible.
-constexpr int kRedX = 8, kRedY = 128;
+// then added in y order. Fixed order throughout: G is reproducible. A
+// lane loads kRedBatch of its partials before it adds them, in order, so
+// that as many loads are in flight.
+constexpr int kRedX = 8, kRedY = 128, kRedBatch = 8;
 
 __global__ void gram_reduce_kernel(const float* __restrict__ partial,
                                    float* __restrict__ G, int n_tiles,
@@ -616,8 +621,18 @@ __global__ void gram_reduce_kernel(const float* __restrict__ partial,
   const int x = threadIdx.x, y = threadIdx.y;
   const int e = blockIdx.x * kRedX + x;
   float s = 0.f;
-  if (e < kk)
-    for (int t = y; t < n_tiles; t += kRedY) s += partial[(size_t)t * kk + e];
+  if (e < kk) {
+    int t = y;
+    for (; t + (kRedBatch - 1) * kRedY < n_tiles; t += kRedBatch * kRedY) {
+      float v[kRedBatch];
+#pragma unroll
+      for (int b = 0; b < kRedBatch; ++b)
+        v[b] = __ldg(partial + (size_t)(t + b * kRedY) * kk + e);
+#pragma unroll
+      for (int b = 0; b < kRedBatch; ++b) s += v[b];
+    }
+    for (; t < n_tiles; t += kRedY) s += partial[(size_t)t * kk + e];
+  }
   red[y][x] = s;
   __syncthreads();
   if (y == 0 && e < kk) {
@@ -818,8 +833,9 @@ int epk_banded_spmm_rows(const void* val, int val_is_bf16, const int* idx,
                               k, sms, static_cast<cudaStream_t>(stream));
 }
 
-// The same with the Gram of a rolling band (K1 on the row-wise route):
-// W (n, k) = A U and G (k, k) = U^T W, from each 128-row tile's partial
+// The same with the Gram of a square band (K1 on a rolling band, K5 on a
+// full-window one, on the row-wise route): W (n, k) = A U and G (k, k) =
+// U^T W, from each 128-row tile's partial
 // (partial (n_tiles, k, k) fp32, n_tiles >= ceil(n / 128); the walk's
 // order, nonzero_spmm.cuh) summed by gram_reduce_kernel; U (n, k),
 // 1 <= k <= 128, the partials in the product's blocks. Returns

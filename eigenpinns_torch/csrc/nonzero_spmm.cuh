@@ -71,12 +71,14 @@
 // it is the one feed. At k = 20 the copy is 14.4 MB at 300k and 48 MB at
 // 1M (k padded to 24), within the card's 50 MB L2.
 //
-// The Gram (a rolling band's fused G = U^T A U, rows_gram_kernel): a
-// block owns one 128-row tile, runs the product over its rows in passes,
-// keeps the tile's W rows in shared memory beside its U rows, and writes
-// the tile's k x k partial summed as the walk's occ::tile_gram sums it;
-// banded_spmm.cu's gram_reduce_kernel then adds the partials in the
-// walk's order. So on an fp32 table G has the walk's bits as W does.
+// The Gram (the fused G = U^T A U of a square band, rolling or full
+// window, rows_gram_kernel): a block owns a 128-row tile, runs the
+// product over its rows in passes, keeps the tile's W rows in shared
+// memory beside its U rows (copied in while the product runs), and writes
+// the tile's k x k partial summed as the walk's occ::tile_gram sums it, from
+// a register-tiled epilogue; banded_spmm.cu's gram_reduce_kernel then
+// adds the partials in the walk's order. So on an fp32 table G has the
+// walk's bits as W does.
 
 #pragma once
 
@@ -330,84 +332,191 @@ rows_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
 // of U[r, i] * W[r, j], from the unrounded fp32 U and the fp32 W, rows
 // past n zero; then the tiles' sum in the reduce's fixed order. Where W
 // has the walk's bits (an fp32 table), the partials and G have them too.
-// One block owns a tile's whole partial; no atomics.
+// A block owns a tile's whole partial; no atomics.
+//
+// The epilogue is register-tiled: a thread owns a kTI x 4 block of a
+// tile's partial (kTI = 1, 2 or 4 Gram rows, 4 Gram columns) and, per row
+// of the tile, reads its kTI U values (one 4-, 8- or 16-byte shared load)
+// and its 4 W values (one 16-byte load) for kTI x 4 FFMA, each output still
+// one chain over the tile's rows 0 .. 127 in order. The lanes of a warp
+// take neighbouring blocks, column blocks fastest, so a warp's U load is
+// a few broadcast words and its W load one or two 128-byte wavefronts: at
+// 4 x 4 the epilogue is bound by the FFMA pipes, where a 4 x 1 strip a
+// thread (a 16-byte and a 4-byte load for 4 FFMA) was bound by
+// shared-memory wavefronts, two a row for each warp. On the 1M cluster
+// core at k = 60 the kernel takes 0.6814 ms at 4 x 4, 0.8319 at 2 x 4,
+// 1.1194 at 1 x 4 and 0.8755 with the 4 x 1 strip; fewer rows a thread
+// win where the tile's items would leave most of the block idle: on
+// K_blk at k = 10 1 x 4 0.0100 against 2 x 4 0.0104, at k = 20 2 x 4 and
+// 4 x 4 0.0669 and 0.0687 on the 300k cluster core (gram_thread_rows).
+// The tile's U rows reach shared memory by cp.async issued before the
+// product, so their latency hides behind it, where element-by-element
+// loads after the product each waited for global memory in turn: without
+// its multiply-adds the kernel takes 0.0674 ms on the 300k Hilbert core
+// in bf16 at k = 20, against 0.0883 with those loads and 0.0509 for the
+// product alone (on the card, NVIDIA H100 80GB HBM3, 700 W,
+// gram_epilogue_variants.py).
 
 constexpr int kGramTile = 128;    // rows of a partial (the walk's tile)
 
 // Row stride of the staged U tile: k rounded up to 4 values, so that a
-// thread reads 4 Gram rows' U values in one 16-byte load.
+// thread reads 2 or 4 Gram rows' U values in one 8- or 16-byte load.
 __host__ __device__ __forceinline__ int gram_ldu(int k) {
   return (k + 3) / 4 * 4;
 }
 
-// out[i k + j] = sum over r = 0 .. 127 in order of fmaf(us[r][i],
-// ws[r][j]) for i, j < k: us (128, ldu) holds the tile's U rows (zero past
-// n and in the pad columns), ws (128, ldw) its W rows. Thread item q owns
-// Gram rows 4 (q / k) .. + 3 and column q % k, the block's threads
-// striding the items: per row one 16-byte load of U (shared by the k
-// items of a quad) and one load of W feed 4 FFMA.
-__device__ __forceinline__ void gram_from_smem(const float* __restrict__ us,
-                                               int ldu,
-                                               const float* __restrict__ ws,
-                                               int ldw, int k,
-                                               float* __restrict__ out) {
-  const int items = (k + 3) / 4 * k;
-  for (int q = threadIdx.x; q < items; q += blockDim.x) {
-    const int i0 = 4 * (q / k), j = q % k;
-    float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < kGramTile; ++r) {
-      const float4 u = *reinterpret_cast<const float4*>(us + r * ldu + i0);
-      const float w = ws[r * ldw + j];
-      g0 = fmaf(u.x, w, g0);
-      g1 = fmaf(u.y, w, g1);
-      g2 = fmaf(u.z, w, g2);
-      g3 = fmaf(u.w, w, g3);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from src into shared memory without waiting, or as
+// many zero bytes when !live (source size 0; src is not read).
+__device__ __forceinline__ void copy16_async(void* dst, const void* src,
+                                             bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4_async(void* dst, const void* src,
+                                            bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// Waits for this thread's copies (the block still needs a barrier before
+// it reads the others').
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Starts the copies of U rows row0 .. row0 + rows - 1 (U: n x k fp32) into
+// us (rows, gram_ldu(k)), zero past n and in the pad columns. `vec` (k %
+// 4 == 0 and U 16-byte aligned: the rows are one contiguous run and ldu ==
+// k): 16 bytes a copy; otherwise 4.
+__device__ __forceinline__ void stage_u_async(const float* __restrict__ U,
+                                              int row0, int rows, int n,
+                                              int k, bool vec,
+                                              float* __restrict__ us) {
+  if (vec) {
+    const long long live = row0 < n ? (long long)(n - row0) * k : 0;
+    const float* base = U + (size_t)row0 * k;
+    for (int c = 4 * threadIdx.x; c < rows * k; c += 4 * blockDim.x) {
+      const bool in = c < live;
+      copy16_async(us + c, in ? base + c : U, in);
     }
-    out[(size_t)i0 * k + j] = g0;
-    if (i0 + 1 < k) out[(size_t)(i0 + 1) * k + j] = g1;
-    if (i0 + 2 < k) out[(size_t)(i0 + 2) * k + j] = g2;
-    if (i0 + 3 < k) out[(size_t)(i0 + 3) * k + j] = g3;
+  } else {  // element e = r ldu + c, (r, c) stepped without a division
+    const int ldu = gram_ldu(k);
+    const int dr = blockDim.x / ldu, dc = blockDim.x % ldu;
+    int r = threadIdx.x / ldu, c = threadIdx.x % ldu;
+    for (int e = threadIdx.x; e < rows * ldu; e += blockDim.x) {
+      const bool in = row0 + r < n && c < k;
+      copy4_async(us + e, in ? U + (size_t)(row0 + r) * k + c : U, in);
+      r += dr;
+      c += dc;
+      if (c >= ldu) {
+        c -= ldu;
+        ++r;
+      }
+    }
   }
 }
 
-// The tile's U rows (n x k fp32) into us (128, ldu), zero past n and in
-// the pad columns.
-__device__ __forceinline__ void stage_u_tile(const float* __restrict__ U,
-                                             size_t row0, int n, int k,
-                                             float* __restrict__ us) {
-  const int ldu = gram_ldu(k);
-  for (int e = threadIdx.x; e < kGramTile * ldu; e += blockDim.x) {
-    const int r = e / ldu, c = e % ldu;
-    us[e] = row0 + r < (size_t)n && c < k ? __ldg(U + (row0 + r) * k + c)
-                                          : 0.f;
+// A tile's partial (k x k, at out) from shared memory: its U rows in us
+// (128, ldu; zero past n and in the pad columns), its W rows in ws (128,
+// ldw). Thread item q owns Gram rows i0 .. i0 + kTI - 1 and columns j0 ..
+// j0 + 3, the block's threads striding the items, column blocks fastest.
+// `vec_out`: 16-byte stores (k % 4 == 0, out 16-byte aligned).
+template <int kTI>
+__device__ __forceinline__ void gram_tile(const float* __restrict__ us,
+                                          int ldu,
+                                          const float* __restrict__ ws,
+                                          int ldw, int k, bool vec_out,
+                                          float* __restrict__ out) {
+  static_assert(kTI == 1 || kTI == 2 || kTI == 4,
+                "a thread owns 1, 2 or 4 Gram rows");
+  const int bj = (k + 3) / 4;
+  for (int q = threadIdx.x; q < (k + kTI - 1) / kTI * bj; q += blockDim.x) {
+    const int i0 = kTI * (q / bj), j0 = 4 * (q % bj);
+    const float* up = us + i0;
+    const float* wp = ws + j0;
+    float g[kTI][4];
+#pragma unroll
+    for (int a = 0; a < kTI; ++a)
+      g[a][0] = g[a][1] = g[a][2] = g[a][3] = 0.f;
+#pragma unroll(kTI == 1 ? 8 : 4)
+    for (int r = 0; r < kGramTile; ++r) {
+      float u[kTI];
+      if constexpr (kTI == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(up + r * ldu);
+        u[0] = v.x; u[1] = v.y; u[2] = v.z; u[3] = v.w;
+      } else if constexpr (kTI == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(up + r * ldu);
+        u[0] = v.x; u[1] = v.y;
+      } else {
+        u[0] = up[r * ldu];
+      }
+      const float4 w = *reinterpret_cast<const float4*>(wp + r * ldw);
+#pragma unroll
+      for (int a = 0; a < kTI; ++a) {
+        g[a][0] = fmaf(u[a], w.x, g[a][0]);
+        g[a][1] = fmaf(u[a], w.y, g[a][1]);
+        g[a][2] = fmaf(u[a], w.z, g[a][2]);
+        g[a][3] = fmaf(u[a], w.w, g[a][3]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kTI; ++a) {
+      const int i = i0 + a;
+      if (i >= k) continue;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(out + (size_t)i * k + j0) =
+            make_float4(g[a][0], g[a][1], g[a][2], g[a][3]);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (j0 + b < k) out[(size_t)i * k + j0 + b] = g[a][b];
+      }
+    }
   }
 }
 
-// The product with the Gram: block t owns tile t, its rows in passes of
+// The product with the Gram: block t owns tile t. It starts the copies
+// of the tile's U rows (Uf, the unrounded fp32 U; `stage_vec` as for
+// stage_u_async), runs the product over its rows in passes of
 // blockDim.x / lanes (the row-wise kernel's rows a block), each row's
-// outputs written to W and kept in shared memory, then the tile's partial
-// from them and the staged U rows (Uf, the unrounded fp32 U). This beat
-// a second kernel that read the fresh W back from L2 tile by tile at
-// every shape timed, fp32 and bf16 (on the card, NVIDIA H100 80GB HBM3,
-// 700 W, polish_products.py --gram: K_blk at k = 10 0.0100 against 0.0128
-// ms, the 300k rolling band at k = 20 0.0741 against 0.0968 in fp32,
-// 0.0973 against 0.1031 in bf16), by the launch and the W and U tile
-// reads it saves.
-template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC>
+// outputs written to W and kept in shared memory, then waits for the
+// copies and computes the tile's partial from both. Two tiles a block
+// (their products, then their partials: twice the epilogue's items) won
+// 4% on the 300k cluster core at k = 20 (0.0648 against 0.0672 ms) and
+// lost at k = 60 (0.3089 against 0.2205: twice the shared memory, one
+// block an SM) and on K_blk at k = 10 (0.0132 against 0.0096: half the
+// blocks; on the card, NVIDIA H100 80GB HBM3, 700 W,
+// gram_epilogue_variants.py). Keeping W in the product's blocks beat a
+// second kernel that read the fresh W back from L2 tile by tile at every
+// shape timed, fp32 and bf16 (on the card, NVIDIA H100 80GB HBM3, 700 W,
+// polish_products.py --gram: K_blk at k = 10 0.0100 against 0.0128 ms,
+// the 300k rolling band at k = 20 0.0741 against 0.0968 in fp32, 0.0973
+// against 0.1031 in bf16), by the launch and the W and U tile reads it
+// saves.
+template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC,
+          int kTI>
 __global__ void __launch_bounds__(kRowsThreads, 2)
 rows_gram_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
                  const long long* __restrict__ slice_start,
                  const UT* __restrict__ U, int ld,
                  const float* __restrict__ Uf, float* __restrict__ W,
-                 float* __restrict__ partial, int n, int k, int lanes) {
+                 float* __restrict__ partial, int n, int k, int lanes,
+                 bool stage_vec, bool vec_out) {
   extern __shared__ float4 gram_smem4[];
   float* us = reinterpret_cast<float*>(gram_smem4);
-  const int ldw = lanes * kC;
-  float* ws = us + kGramTile * gram_ldu(k);
+  const int ldu = gram_ldu(k), ldw = lanes * kC;
+  float* ws = us + (size_t)kGramTile * ldu;
+  const int row0 = blockIdx.x * kGramTile;
+  stage_u_async(Uf, row0, kGramTile, n, k, stage_vec, us);
   const int rows = blockDim.x / lanes;
   const int c0 = kC * (threadIdx.x % lanes);
-  const int row0 = blockIdx.x * kGramTile;
   for (int p = 0; p < kGramTile; p += rows) {
     const int r = p + threadIdx.x / lanes;
     float acc[kC];
@@ -419,12 +528,15 @@ rows_gram_kernel(const ValT* __restrict__ val, const int* __restrict__ idx,
 #pragma unroll
       for (int j = 0; j < kC; ++j) acc[j] = 0.f;
     }
+    float4* wr = reinterpret_cast<float4*>(ws + (size_t)r * ldw + c0);
 #pragma unroll
-    for (int j = 0; j < kC; ++j) ws[r * ldw + c0 + j] = acc[j];
+    for (int h = 0; h < kC / 4; ++h)
+      wr[h] = make_float4(acc[4 * h], acc[4 * h + 1], acc[4 * h + 2],
+                          acc[4 * h + 3]);
   }
-  stage_u_tile(Uf, (size_t)row0, n, k, us);
+  copies_wait();
   __syncthreads();
-  gram_from_smem(us, gram_ldu(k), ws, ldw, k,
+  gram_tile<kTI>(us, ldu, ws, ldw, k, vec_out,
                  partial + (size_t)blockIdx.x * k * k);
 }
 
@@ -482,6 +594,9 @@ inline int copy_ld(int k) { return (k + 7) / 8 * 8; }
 // rows in shared memory, 128 KB at k = 128.
 constexpr int kRowsGramMaxK = 128;
 
+// Gram rows a thread owns in the epilogue (gram_tile's kTI), by k.
+inline int gram_thread_rows(int k) { return k > 32 ? 4 : k > 16 ? 2 : 1; }
+
 // A kernel's dynamic shared memory above the default 48 KB needs the
 // attribute, once per kernel (`granted`: the most granted so far).
 template <typename Kernel>
@@ -493,20 +608,43 @@ cudaError_t grant_smem(Kernel kernel, size_t bytes, size_t& granted) {
   return err;
 }
 
-template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC>
+template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC,
+          int kTI>
 cudaError_t launch_rows_gram_t(const ValT* val, const int* idx,
                                const long long* slice_start, const UT* U,
                                int ld, const float* Uf, float* W,
                                float* partial, int n, int k, int lanes,
                                int rows, int n_tiles, cudaStream_t s) {
-  auto kernel = rows_gram_kernel<ValT, UT, kVecU, kVecW, kC>;
+  auto kernel = rows_gram_kernel<ValT, UT, kVecU, kVecW, kC, kTI>;
   static size_t granted = 48 * 1024;
   const size_t bytes = sizeof(float) * kGramTile * (gram_ldu(k) + lanes * kC);
   const cudaError_t err = grant_smem(kernel, bytes, granted);
   if (err != cudaSuccess) return err;
+  const bool stage_vec = k % 4 == 0 && aligned(Uf, 16);
+  const bool vec_out = k % 4 == 0 && aligned(partial, 16);
   kernel<<<(unsigned)n_tiles, rows * lanes, bytes, s>>>(
-      val, idx, slice_start, U, ld, Uf, W, partial, n, k, lanes);
+      val, idx, slice_start, U, ld, Uf, W, partial, n, k, lanes, stage_vec,
+      vec_out);
   return cudaGetLastError();
+}
+
+template <typename ValT, typename UT, bool kVecU, bool kVecW, int kC>
+cudaError_t launch_rows_gram_k(const ValT* val, const int* idx,
+                               const long long* slice_start, const UT* U,
+                               int ld, const float* Uf, float* W,
+                               float* partial, int n, int k, int lanes,
+                               int rows, int n_tiles, cudaStream_t s) {
+#define EPK_GRAM_ARGS \
+  val, idx, slice_start, U, ld, Uf, W, partial, n, k, lanes, rows, n_tiles, s
+  switch (gram_thread_rows(k)) {
+    case 4:
+      return launch_rows_gram_t<ValT, UT, kVecU, kVecW, kC, 4>(EPK_GRAM_ARGS);
+    case 2:
+      return launch_rows_gram_t<ValT, UT, kVecU, kVecW, kC, 2>(EPK_GRAM_ARGS);
+    default:
+      return launch_rows_gram_t<ValT, UT, kVecU, kVecW, kC, 1>(EPK_GRAM_ARGS);
+  }
+#undef EPK_GRAM_ARGS
 }
 
 // The product, and with `partial` the tiles' Gram partials from the fp32
@@ -522,10 +660,10 @@ cudaError_t launch_rows_t(const void* val, const int* idx,
   const ValT* v = static_cast<const ValT*>(val);
   const bool vec_w = k % 4 == 0 && aligned(W, 16);
   if (partial != nullptr) {
-    return vec_w ? launch_rows_gram_t<ValT, UT, kVecU, true, kC>(
+    return vec_w ? launch_rows_gram_k<ValT, UT, kVecU, true, kC>(
                        v, idx, slice_start, U, ld, Uf, W, partial, n, k,
                        lanes, rows, n_tiles, s)
-                 : launch_rows_gram_t<ValT, UT, kVecU, false, kC>(
+                 : launch_rows_gram_k<ValT, UT, kVecU, false, kC>(
                        v, idx, slice_start, U, ld, Uf, W, partial, n, k,
                        lanes, rows, n_tiles, s);
   }

@@ -20,7 +20,9 @@ source holds the rolling band's kernel (`sparse/rolling.py`), which
 launches through `launch_band_kernel` here. Both
 walk the band's occupancy table (`occupancy`, one 64-bit word per
 128 x 128 piece of a tile's window: `sparse/occupancy.py`) and read and
-multiply only the 16 x 16 sub-blocks that hold a nonzero. CPU tensors
+multiply only the 16 x 16 sub-blocks that hold a nonzero, or read the
+band's nonzero table (`narrow`) on the row-wise route, K5 with its Gram
+in the same blocks (`band_grid` picks the route by width). CPU tensors
 take `banded_spmm_plain` / `banded_spmm_gram_plain`, the plain
 torch version of the same functions. A CUDA tensor always reaches a
 kernel or raises.
@@ -63,9 +65,11 @@ from eigenpinns_torch.sparse.occupancy import (
 # Launches of each CUDA kernel (one per wrapper call that reaches it):
 # K4 on a square operator, K4 on a rectangular block (a shard of the
 # sharded path), K5; "rows" and "rows_bf16" count those of K4's that
-# took the row-wise route over an fp32 and a bf16 table.
+# took the row-wise route over an fp32 and a bf16 table, "gram_rows"
+# and "gram_rows_bf16" those of K5's.
 banded_kernel_launches = {"spmm": 0, "spmm_rect": 0, "spmm_gram": 0,
-                          "rows": 0, "rows_bf16": 0}
+                          "rows": 0, "rows_bf16": 0, "gram_rows": 0,
+                          "gram_rows_bf16": 0}
 # K4's launches on a rectangular block by the product's width k: the
 # widths the sharded paths give their shard blocks.
 banded_rect_widths: dict[int, int] = {}
@@ -120,9 +124,10 @@ class BandedELL:
             from the band as stored); the CUDA kernels need it
     narrow: the band's nonzeros as a sliced ELL in the band's type
             (`full_band_table`: each row in the walk's order of
-            summation), which K4's row-wise route reads; `from_scipy`,
-            `SplitBanded.from_scipy` and `ShardedBanded.block` (the
-            sharded path's blocks and their transposes) build it
+            summation), which K4's and K5's row-wise route reads;
+            `from_scipy`, `SplitBanded.from_scipy` and
+            `ShardedBanded.block` (the sharded path's blocks and their
+            transposes) build it
     """
 
     band: torch.Tensor
@@ -280,8 +285,8 @@ def launch_band_kernel(band: torch.Tensor, starts: torch.Tensor | None,
     their tile; U has n rows). The Gram takes U with n rows. The route
     and grid come from `band_grid` (`col_block`, `warps` and `route`
     force them); `table`, the band's nonzero table (values of the
-    band's type), makes the row-wise route available (on a rolling band
-    with the Gram too). Checks
+    band's type), makes the row-wise route available (with the Gram
+    too, where U has the band's n rows). Checks
     what both layouts share (the band, its occupancy table, U, the
     grid), allocates the outputs and raises when the launch fails.
     Returns (W, G, route); G is None without `with_gram`."""
@@ -393,8 +398,8 @@ def banded_spmm_cuda(A: BandedELL, U: torch.Tensor, with_gram: bool = False,
         k = U.shape[1]
         banded_rect_widths[k] = banded_rect_widths.get(k, 0) + 1
     if route == "rows":
-        banded_kernel_launches["rows" if band.dtype == torch.float32
-                               else "rows_bf16"] += 1
+        banded_kernel_launches[("gram_" if with_gram else "") + (
+            "rows" if band.dtype == torch.float32 else "rows_bf16")] += 1
     return (W, G) if with_gram else W
 
 

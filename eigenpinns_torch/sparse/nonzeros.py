@@ -25,8 +25,8 @@ sits in the matrix; `band_table` gives a band's pieces (full window or
 rolling) and `bsr.narrow_table` the strips'. `table_spmm_plain` is the
 plain torch reader of a table, and `launch_rows` the row-wise kernel's
 launch, which both formats' wrappers share; `launch_rows_gram` adds a
-rolling band's Gram U^T W, in the order `gram_partials_plain` spells
-out.
+square band's Gram U^T W (K1's on a rolling band, K5's on a full-window
+one), in the order `gram_partials_plain` spells out.
 """
 
 from __future__ import annotations
@@ -269,7 +269,7 @@ GRAM_TILE = 128   # rows of one partial of the Gram (the walk's tile)
 
 def gram_partials_plain(U: torch.Tensor, W: torch.Tensor, n_tiles: int):
     """(partial, G): the Gram U^T W in the order in which the band
-    kernels sum it (`occ::tile_gram` on the walk, `nz::gram_from_smem` on
+    kernels sum it (`occ::tile_gram` on the walk, `nz::gram_tile` on
     the row-wise route, then `gram_reduce_kernel`). partial[t][i][j] sums
     U[r, i] W[r, j] over tile t's 128 rows in order from 0 (rows past U
     zero); lane y of the reduce sums the partials of tiles y, y + 128,

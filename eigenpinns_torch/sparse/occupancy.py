@@ -151,6 +151,22 @@ BAND_GRAM_ROWS_K = {torch.float32: (10, 20), torch.bfloat16: (20, 28)}
 # and 0.0691 / 0.0982 (polish_products.py --tables).
 FULL_ROWS_K = {torch.float32: (6, 84), torch.bfloat16: (20, 28)}
 
+# Widths at which a full-window band with its table takes the row-wise
+# route with the Gram (K5: the partials in the product's blocks, then the
+# walk's reduce), by the band's type: the span of the widths timed, at
+# each of which it beats the route it replaces (on the card, NVIDIA H100
+# 80GB HBM3, 700.00 W, polish_products.py --gram). fp32, against the
+# staged route (the walk at 84): the 300k cluster core (window 1024) at
+# k = 10, 20, 28, 39, 60, 84 0.0494 / 0.1972, 0.0670 / 0.2048, 0.0980 /
+# 0.2119, 0.1526 / 0.2933, 0.2222 / 0.3409, 0.3978 / 0.7545 ms; the fp32
+# Hilbert core (window 512) at k = 20, 28, 60, 84 0.0665 / 0.1747, 0.0974
+# / 0.1809, 0.2209 / 0.2995, 0.3939 / 0.6634; the 1M cluster core at k =
+# 60 0.6837 / 1.1002 (chip_smoke.py). bf16, against the tensor-core
+# walk: the Hilbert core at k = 12, 20, 28 0.0542 / 0.1019, 0.0790 /
+# 0.1212, 0.1072 / 0.1443 (k = 20: the fused-Gram training's 300
+# launches).
+FULL_GRAM_ROWS_K = {torch.float32: (10, 84), torch.bfloat16: (12, 28)}
+
 # Narrowest window (band columns) on which an fp32 full-window band takes
 # the row-wise route where the staged route would run one block of 64
 # columns (32 < k <= 64): there the route wins on the cluster cores
@@ -201,8 +217,9 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     `window`, its band's columns, is given) without the Gram, in
     FULL_ROWS_K of its type, in fp32 where the staged route would run
     one block of 64 columns only on a window of FULL_ROWS_MIN_WINDOW_64
-    columns or more; unless a `col_block` or `warps` is given (they name
-    a grid of the block routes). On an fp32 band every choice sums each
+    columns or more, and with the Gram (K5) in FULL_GRAM_ROWS_K of its
+    type; unless a `col_block` or `warps` is given (they name a grid of
+    the block routes). On an fp32 band every choice sums each
     output, and each Gram partial, in the same order, so W and G have
     the same bits; on a bf16 band the row-wise route sums the exact
     products in another order than the walk's tensor cores.
@@ -215,10 +232,11 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
         raise ValueError(f"col_block must be 32 or 64, got {col_block}")
     can_stage = dtype == torch.float32 and k <= col_block
     small = n_tiles < 2 * sms
-    if window is not None:
+    if window is not None and with_gram:
+        lo, hi = FULL_GRAM_ROWS_K.get(dtype, (1, 0))
+    elif window is not None:
         lo, hi = FULL_ROWS_K.get(dtype, (1, 0))
-        if (with_gram or can_stage and col_block == 64
-                and window < FULL_ROWS_MIN_WINDOW_64):
+        if can_stage and col_block == 64 and window < FULL_ROWS_MIN_WINDOW_64:
             lo, hi = 1, 0
     elif with_gram:
         lo, hi = BAND_GRAM_ROWS_K.get(dtype, (1, 0))
@@ -234,15 +252,14 @@ def band_grid(n_tiles: int, k: int, dtype: torch.dtype, sms: int,
     if route not in BAND_ROUTES:
         raise ValueError(f"route must be one of {BAND_ROUTES}, got {route!r}")
     if route == "rows":
-        gram_ok = window is None and k <= ROWS_GRAM_MAX_K
-        if not (rows and (gram_ok or not with_gram)
+        if not (rows and (k <= ROWS_GRAM_MAX_K or not with_gram)
                 and k <= ROWS_KERNEL_MAX_K and warps is None):
             raise ValueError(
                 "the row-wise route takes a band with its nonzero table, "
-                f"k <= {ROWS_KERNEL_MAX_K}, no warps, and the Gram only on "
-                f"a rolling band at k <= {ROWS_GRAM_MAX_K} (got {dtype}, "
-                f"table {rows}, with_gram={with_gram}, k = {k}, window "
-                f"{window}, warps {warps})")
+                f"k <= {ROWS_KERNEL_MAX_K}, no warps, and the Gram at k <= "
+                f"{ROWS_GRAM_MAX_K} (got {dtype}, table {rows}, "
+                f"with_gram={with_gram}, k = {k}, window {window}, warps "
+                f"{warps})")
         return route, col_block, 8
     if route == "staged" and not can_stage:
         raise ValueError("the staged route takes an fp32 band and k <= "

@@ -65,9 +65,14 @@ to 32), on the multigrid K_blk ('high', k = 10), the transfer path's
 level operators (k = 10), the 300k rolling band in fp32 at k = 10, 20,
 28 and 39 and in 'bf16' at k = 20 and 28; without the Gram, the 300k
 band in 'bf16' at k = 12, 20, 28, 60 and 84 on the bf16 row-wise route
-against the tensor-core walk. Every width is put on the row-wise route
-for it (`occupancy.BAND_GRAM_ROWS_K` and `BAND_BF16_ROWS_K` widened in
-the process).
+against the tensor-core walk; and K5 with the Gram on the row-wise
+route (`chip_smoke.gram_route_row`) against the route it replaced (the
+staged route up to 64 columns, the walk past them and in bf16) on the
+300k cluster core (fp32, window 1024) at k = 10, 20, 28, 39, 60 and 84,
+the Hilbert core (window 512) in fp32 at k = 20, 28, 60 and 84 and in
+bf16 at k = 12, 20 and 28. Every width is put on the row-wise route for
+it (`occupancy.BAND_GRAM_ROWS_K`, `BAND_BF16_ROWS_K` and
+`FULL_GRAM_ROWS_K` widened in the process).
 
 With --polish it also times the guarded LOBPCG polish an iteration (k =
 28 columns, tol 0, so every iteration runs) on the 300k and 1M strip-BSR
@@ -248,13 +253,14 @@ def shard_routes(L, X, device, skip_1m: bool) -> None:
                (6, 10, 18, 20, 28, 54, 60, 84), 14)
 
 
-def gram_routes(L, device) -> None:
+def gram_routes(L, X, device) -> None:
     """The --gram rows (see the module's docstring)."""
     import chip_smoke as cs
     import scipy.sparse as sp
     from eigenpinns_torch.sampling import build_hierarchy
     from eigenpinns_torch.sparse import (
         RollingBanded,
+        SplitBanded,
         banded,
         occupancy,
         rolling,
@@ -298,6 +304,23 @@ def gram_routes(L, device) -> None:
         None, Kb.pre, Kb.occupancy, Kb.narrow, Kb.n,
         cs.torch_csr(Lr, device), Lr.nnz, (12, 20, 28, 60, 84), seed=15,
         plain=lambda V: rolling.rolling_spmm_plain(Kb, V))
+    del Kr, Kb
+    # K5 on the split cores, every width on the row-wise route with the
+    # Gram.
+    occupancy.FULL_GRAM_ROWS_K = {torch.float32: (1, 128),
+                                  torch.bfloat16: (1, 128)}
+    cores = (
+        ("cluster core", dict(window=1024), (10, 20, 28, 39, 60, 84)),
+        ("Hilbert core", dict(window=cs.HILBERT_WINDOW, order="hilbert"),
+         (20, 28, 60, 84)),
+        ("Hilbert core", dict(window=cs.HILBERT_WINDOW, order="hilbert",
+                              dtype=torch.bfloat16), (12, 20, 28)))
+    for label, kw, ks in cores:
+        core = SplitBanded.from_scipy(L, X=X, device=device, **kw)[0].core
+        for k in ks:
+            cs.gram_route_row(banded, label, core, None, k, seed=k)
+        del core
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -363,9 +386,8 @@ def main() -> int:
         return 0
     if args.shards or args.gram:
         if args.gram:
-            ptxas_report("banded_spmm", ("rows_gram_kernel",
-                                         "gram_tiles_kernel"))
-            gram_routes(L, device)
+            ptxas_report("banded_spmm", ("rows_gram_kernel",))
+            gram_routes(L, X, device)
         if args.shards:
             shard_routes(L, X, device, args.skip_1m)
         print(smi, flush=True)

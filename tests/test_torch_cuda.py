@@ -16,10 +16,11 @@ rel 1e-4, with an fp32 or a bf16 band (the plain version rounds U as the
 kernels do). The bf16 row-wise route (bf16 strips, a bf16 band): rel 1e-4
 of the plain version, which rounds U as the kernel does; its bits are
 its own, not the tensor-core walk's. A bf16 rolling band on that route
-(and with its Gram, from the unrounded U) is held to the same 1e-4; the
-row-wise route's Gram on an fp32 rolling band gives the walk's W and G
-bit for bit, as the shard blocks' row-wise route gives the staged
-route's W.
+(and with its Gram, from the unrounded U) is held to the same 1e-4, as
+is a bf16 full-window band's (K5), whose W is K4's row-wise W bit for
+bit; the row-wise route's Gram on an fp32 band, rolling or full window,
+gives the walk's W and G bit for bit, as the shard blocks' row-wise
+route gives the staged route's W.
 """
 
 import dataclasses
@@ -363,7 +364,8 @@ def _banded_op(case, dtype):
 def test_banded_cuda_kernels_match_plain(case, k, dtype):
     """K4 and K5 vs the plain version: a split core whose windows reach
     past n, and a nonsymmetric band whose gradient applies the stored
-    transpose."""
+    transpose; each launch counted, by route (K4's and K5's row-wise
+    launches apart)."""
     _need_card()
     op = _banded_op(case, dtype)
     gen = torch.Generator("cuda").manual_seed(k)
@@ -374,20 +376,25 @@ def test_banded_cuda_kernels_match_plain(case, k, dtype):
     Wd = tbanded.banded_spmm_cuda(op, U)
     W2, G = tbanded.banded_spmm_cuda(op, U, with_gram=True)
     torch.cuda.synchronize()
-    rows = int(band_grid(op.band.shape[0] // 128, k, dtype,
-                         sm_count(U.device), rows=op.narrow is not None,
-                         window=op.band.shape[1])[0] == "rows")
+    rows, gram_rows = (int(band_grid(
+        op.band.shape[0] // 128, k, dtype, sm_count(U.device), gram,
+        rows=op.narrow is not None, window=op.band.shape[1])[0] == "rows")
+        for gram in (False, True))
     bf16 = dtype == torch.bfloat16
     assert tbanded.banded_kernel_launches == {
         "spmm": before["spmm"] + 1, "spmm_rect": before["spmm_rect"],
         "spmm_gram": before["spmm_gram"] + 1,
         "rows": before["rows"] + rows * (not bf16),
-        "rows_bf16": before["rows_bf16"] + rows * bf16}
+        "rows_bf16": before["rows_bf16"] + rows * bf16,
+        "gram_rows": before["gram_rows"] + gram_rows * (not bf16),
+        "gram_rows_bf16": before["gram_rows_bf16"] + gram_rows * bf16}
     Wp, Gp = tbanded.banded_spmm_gram_plain(op, U)
     assert _rel(Wd.cpu(), Wp.cpu()) < 1e-5
-    # The block routes' bits (on an fp32 band every route's).
+    # The block routes' bits (on an fp32 band every route's); K5 on the
+    # bf16 row-wise route has K4's row-wise bits.
     W = tbanded.banded_spmm_cuda(op, U, route="walk") if bf16 else Wd
-    assert torch.equal(W, W2)
+    assert torch.equal(W2, tbanded.banded_spmm_cuda(op, U, route="rows")
+                       if bf16 and gram_rows else W)
     for cb in (32, 64):
         assert torch.equal(tbanded.banded_spmm_cuda(op, U, col_block=cb), W)
         W3, G3 = tbanded.banded_spmm_cuda(op, U, with_gram=True,
@@ -781,9 +788,8 @@ def test_band_rows_route_matches_the_walk(k):
 @pytest.mark.cuda
 def test_band_rows_route_raises_where_it_cannot_run():
     """No fallback: the row-wise route refuses a band without its table
-    (an fp32 or a bf16 one, with the Gram or without), the Gram past
-    ROWS_GRAM_MAX_K, and the Gram on a full-window band (K5 keeps the
-    block routes)."""
+    (an fp32 or a bf16 one, rolling or full window, with the Gram or
+    without) and the Gram past ROWS_GRAM_MAX_K on either band."""
     from eigenpinns_torch.sparse.occupancy import ROWS_GRAM_MAX_K
 
     _need_card()
@@ -798,11 +804,17 @@ def test_band_rows_route_raises_where_it_cannot_run():
             (op, wide, {"with_gram": True})):
         with pytest.raises(ValueError, match="row-wise"):
             tsparse.rolling_spmm_cuda(bad, V, route="rows", **kw)
-    band = _banded_op("asym800", torch.float32)
-    with pytest.raises(ValueError, match="row-wise"):
-        tbanded.banded_spmm_cuda(band, torch.zeros((band.n, 84),
-                                                   device="cuda"),
-                                 with_gram=True, route="rows")
+    for dtype in (torch.float32, torch.bfloat16):
+        band = _banded_op("asym800", dtype)
+        U = torch.zeros((band.n, 84), device="cuda")
+        wide = torch.zeros((band.n, ROWS_GRAM_MAX_K + 1), device="cuda")
+        for bad, V, kw in (
+                (dataclasses.replace(band, narrow=None), U, {}),
+                (dataclasses.replace(band, narrow=None), U,
+                 {"with_gram": True}),
+                (band, wide, {"with_gram": True})):
+            with pytest.raises(ValueError, match="row-wise"):
+                tbanded.banded_spmm_cuda(bad, V, route="rows", **kw)
 
 
 # ---- the bf16 row-wise route -------------------------------------------
@@ -985,6 +997,130 @@ def test_rolling_rows_gram_matches_the_walk(case, k):
         assert trolling.rolling_rows_gram_launches == before + int(
             lo <= k <= hi)
         assert torch.equal(Wd, W) and torch.equal(Gd, G)
+
+
+def _full_gram_ops(case, dtype):
+    """A full-window band (the split cloud core, whose clamped windows
+    reach past n, or the nonsymmetric band) with its table, and its
+    stored transpose (if any)."""
+    op = _banded_op(case, dtype)
+    return [o for o in (op, op.transpose_banded) if o is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 10, 20, 28, 39, 60, 84, 128])
+@pytest.mark.parametrize("case", ["cloud", "asym800"])
+def test_band_rows_gram_matches_the_walk(case, k):
+    """K5 with the Gram on the row-wise route (forced; by default at
+    FULL_GRAM_ROWS_K[fp32], counted under "gram_rows") on an fp32
+    full-window band with its table: W and G the walk's bits (and the
+    staged route's, k <= 64: each tile's partial in the walk's order,
+    then the same reduce), the same bits from a second launch, W the
+    same bits as K4's row-wise route, both within 1e-5 of the plain
+    version; the stored transpose too; the gradient through
+    `banded_spmm_gram` within 1e-4 of torch autograd on the plain
+    version."""
+    from eigenpinns_torch.sparse.occupancy import FULL_GRAM_ROWS_K
+
+    _need_card()
+    lo, hi = FULL_GRAM_ROWS_K[torch.float32]
+    ops = _full_gram_ops(case, torch.float32)
+    for op in ops:
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n, k)).astype(np.float32)).cuda()
+        W, G = tbanded.banded_spmm_cuda(op, U, with_gram=True, route="rows")
+        W2, G2 = tbanded.banded_spmm_cuda(op, U, with_gram=True,
+                                          route="rows")
+        Ww, Gw = tbanded.banded_spmm_cuda(op, U, with_gram=True,
+                                          route="walk")
+        torch.cuda.synchronize()
+        assert W.shape == (op.n, k) and G.shape == (k, k)
+        for a, b in ((W2, W), (G2, G), (Ww, W), (Gw, G)):
+            assert torch.equal(a, b)
+        if k <= 64:
+            Ws, Gs = tbanded.banded_spmm_cuda(op, U, with_gram=True,
+                                              route="staged")
+            assert torch.equal(Ws, W) and torch.equal(Gs, G)
+        assert torch.equal(tbanded.banded_spmm_cuda(op, U, route="rows"), W)
+        Wp, Gp = tbanded.banded_spmm_gram_plain(op, U)
+        assert _rel(W.cpu(), Wp.cpu()) < 1e-5
+        assert _rel(G.cpu(), Gp.cpu()) < 1e-5
+        before = dict(tbanded.banded_kernel_launches)
+        Wd, Gd = tbanded.banded_spmm_cuda(op, U, with_gram=True)
+        after = tbanded.banded_kernel_launches
+        assert after["gram_rows"] == before["gram_rows"] + int(
+            lo <= k <= hi)
+        assert after["spmm_gram"] == before["spmm_gram"] + 1
+        assert after["rows"] == before["rows"]
+        assert torch.equal(Wd, W) and torch.equal(Gd, G)
+    op = ops[0]
+    gen = torch.Generator("cuda").manual_seed(k)
+    U = torch.randn((op.n, k), generator=gen, device="cuda")
+    gW = torch.randn((op.n, k), generator=gen, device="cuda")
+    gG = torch.randn((k, k), generator=gen, device="cuda")
+    grads = []
+    for fn in (tbanded.banded_spmm_gram, tbanded.banded_spmm_gram_plain):
+        Uk = U.clone().requires_grad_(True)
+        Wk, Gk = fn(op, Uk)
+        ((Wk * gW).sum() + (Gk * gG).sum()).backward()
+        grads.append(Uk.grad)
+    assert _rel(grads[0].cpu(), grads[1].cpu()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", BF16_KS)
+@pytest.mark.parametrize("case", ["cloud", "asym800"])
+def test_band_bf16_rows_gram_matches_plain(case, k):
+    """K5 on a bf16 full-window band over its bf16 table, on the
+    row-wise route with the Gram (forced; by default at
+    FULL_GRAM_ROWS_K[bf16], counted under "gram_rows_bf16"): W the same
+    bits as K4's bf16 row-wise route (one FFMA chain a row over the same
+    table), W and G within 1e-4 of the plain version (which rounds U as
+    the kernel does; G from the unrounded U), both the same bits from a
+    second launch; the stored transpose too; the gradient through
+    `banded_spmm_gram` within 1e-4 of the plain version's dU = A^T (gW +
+    U gG) + W gG^T, which rounds the cotangent as K4's bf16 route does
+    (torch autograd through the plain version rounds A^T's output
+    instead)."""
+    from eigenpinns_torch.sparse.occupancy import FULL_GRAM_ROWS_K
+
+    _need_card()
+    lo, hi = FULL_GRAM_ROWS_K[torch.bfloat16]
+    ops = _full_gram_ops(case, torch.bfloat16)
+    for op in ops:
+        assert op.narrow.val.dtype == torch.bfloat16
+        U = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(op.n, k)).astype(np.float32)).cuda()
+        W, G = tbanded.banded_spmm_cuda(op, U, with_gram=True, route="rows")
+        W2, G2 = tbanded.banded_spmm_cuda(op, U, with_gram=True,
+                                          route="rows")
+        torch.cuda.synchronize()
+        assert W.shape == (op.n, k) and G.shape == (k, k)
+        assert torch.equal(W2, W) and torch.equal(G2, G)
+        assert torch.equal(tbanded.banded_spmm_cuda(op, U, route="rows"), W)
+        Wp, Gp = tbanded.banded_spmm_gram_plain(op, U)
+        assert _rel(W.cpu(), Wp.cpu()) < 1e-4
+        assert _rel(G.cpu(), Gp.cpu()) < 1e-4
+        before = dict(tbanded.banded_kernel_launches)
+        Wd, Gd = tbanded.banded_spmm_cuda(op, U, with_gram=True)
+        after = tbanded.banded_kernel_launches
+        assert after["gram_rows_bf16"] == before["gram_rows_bf16"] + int(
+            lo <= k <= hi)
+        assert after["rows_bf16"] == before["rows_bf16"]
+        if lo <= k <= hi:
+            assert torch.equal(Wd, W) and torch.equal(Gd, G)
+    op = ops[0]
+    gen = torch.Generator("cuda").manual_seed(k)
+    U = torch.randn((op.n, k), generator=gen, device="cuda")
+    gW = torch.randn((op.n, k), generator=gen, device="cuda")
+    gG = torch.randn((k, k), generator=gen, device="cuda")
+    Uk = U.clone().requires_grad_(True)
+    Wk, Gk = tbanded.banded_spmm_gram(op, Uk)
+    ((Wk * gW).sum() + (Gk * gG).sum()).backward()
+    At = op.transpose_banded if op.transpose_banded is not None else op
+    Wp = tbanded.banded_spmm_plain(op, U)
+    ref = tbanded.banded_spmm_plain(At, gW + U @ gG) + Wp @ gG.T
+    assert _rel(Uk.grad.cpu(), ref.cpu()) < 1e-4
 
 
 @pytest.mark.cuda

@@ -51,18 +51,25 @@ from eigenpinns_torch.sparse.occupancy import (
     BAND_BF16_ROWS_K,
     BAND_GRAM_ROWS_K,
     BAND_ROWS_K,
+    FULL_GRAM_ROWS_K,
     ROWS_GRAM_MAX_K,
     band_grid,
 )
+
+F32_GRAM, BF16_GRAM = (FULL_GRAM_ROWS_K[torch.float32],
+                       FULL_GRAM_ROWS_K[torch.bfloat16])
 from eigenpinns_torch.utils.fixtures import adversarial_rolling_matrix
 
 torch.set_num_threads(2)
 
 
-def _cloud():
+def _cloud_points():
     X = np.random.default_rng(20240818).normal(size=(900, 3))
-    X /= np.linalg.norm(X, axis=1, keepdims=True)
-    return point_cloud_laplacian(X, n_neighbors=12)[0].tocsr()
+    return X / np.linalg.norm(X, axis=1, keepdims=True)
+
+
+def _cloud():
+    return point_cloud_laplacian(_cloud_points(), n_neighbors=12)[0].tocsr()
 
 
 def _asym800():
@@ -349,6 +356,67 @@ def _rel_np(a, b):
 
 
 @pytest.fixture(scope="module")
+def split_cores():
+    """The cloud's split operators (window 128) in both packages, built
+    from one Hilbert permutation, in fp32 and bf16: {dtype: (torch core,
+    JAX core)}, each a BandedELL; the torch core carries its table."""
+    from eigenpinns_tpu.sparse import split as jsplit
+    from eigenpinns_torch.sparse import split as tsplit
+
+    X, L = _cloud_points(), _cloud()
+    perm = tsplit.hilbert_order(X)
+    out = {}
+    for tdt, jdt in ((torch.float32, jnp.float32),
+                     (torch.bfloat16, jnp.bfloat16)):
+        top, tperm = tsplit.SplitBanded.from_scipy(
+            L, X=X, window=128, order=perm, dtype=tdt, device="cpu")
+        jop, jperm = jsplit.SplitBanded.from_scipy(L, X=X, window=128,
+                                                   order=perm, dtype=jdt)
+        np.testing.assert_array_equal(tperm, jperm)
+        out[tdt] = (top.core, jop.core)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [20, 60])
+def test_full_band_table_gram_matches_plain_and_pallas(split_cores, k,
+                                                       dtype):
+    """K5's Gram on the row-wise route as its kernels sum it: W read from
+    the split core's table (`table_spmm_plain`; a bf16 table rounds U),
+    then `gram_partials_plain` (per 128-row tile partials of U^T W from
+    the unrounded U, rows in order, then the reduce's order). Each tile's
+    partial and G against float64 sums at rel 1e-6; G against
+    `banded_spmm_gram_plain` at rel 1e-6 and against the JAX package's
+    `banded_spmm_gram_pallas(interpret=True)` at rel 1e-5 (sums in
+    another order); in bf16 W also against JAX's
+    `banded_spmm_gram_reference`, which does not round U (F10), at rel
+    4e-3."""
+    core, jcore = split_cores[dtype]
+    t = core.narrow
+    assert t is not None and t.val.dtype == dtype
+    U = np.random.default_rng(k).normal(size=(core.n, k)).astype(np.float32)
+    Ut, Uj = torch.from_numpy(U), jnp.asarray(U)
+    n_tiles = core.band.shape[0] // 128
+    W = table_spmm_plain(t, Ut, core.n)
+    partial, G = gram_partials_plain(Ut, W, n_tiles)
+    assert partial.shape == (n_tiles, k, k) and G.shape == (k, k)
+    U64 = np.zeros((n_tiles * 128, k))
+    W64 = np.zeros((n_tiles * 128, k))
+    U64[:core.n], W64[:core.n] = U, W.numpy()
+    tiles = np.einsum("tri,trj->tij", U64.reshape(n_tiles, 128, k),
+                      W64.reshape(n_tiles, 128, k))
+    assert _rel_np(partial.numpy(), tiles) < 1e-6
+    assert _rel_np(G.numpy(), tiles.sum(axis=0)) < 1e-6
+    _, Gp = tbanded.banded_spmm_gram_plain(core, Ut)
+    assert _rel_np(G.numpy(), Gp.numpy()) < 1e-6
+    _, Gj = jsparse.banded.banded_spmm_gram_pallas(jcore, Uj, interpret=True)
+    assert _rel_np(G.numpy(), np.asarray(Gj)) < 1e-5
+    if dtype == torch.bfloat16:
+        Wr, _ = jsparse.banded.banded_spmm_gram_reference(jcore, Uj)
+        assert _rel_np(W.numpy(), np.asarray(Wr)) < 4e-3
+
+
+@pytest.fixture(scope="module")
 def strips():
     """The cloud's strip-BSR K in both packages (the same RCM order), its
     bf16 copy by `with_precision` and a bf16 build."""
@@ -486,9 +554,10 @@ def test_band_grid_takes_the_rows_route(n_tiles, k, dtype, gram, rows,
 
 def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
     """A forced row-wise route needs a band with its table, no warps and
-    k <= ROWS_KERNEL_MAX_K, and takes the Gram on a rolling band only, at
-    k <= ROWS_GRAM_MAX_K; a given col_block or warps names a grid of the
-    block routes, which the default then keeps."""
+    k <= ROWS_KERNEL_MAX_K, and takes the Gram on either band (rolling,
+    or full window: K5) at k <= ROWS_GRAM_MAX_K; a given col_block or
+    warps names a grid of the block routes, which the default then
+    keeps."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert band_grid(34, 10, f32, 132, True, col_block=32,
                      rows=True) == ("walk", 32, 8)
@@ -508,9 +577,16 @@ def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
                      rows=True) == ("rows", 32, 8)
     assert band_grid(2344, 84, bf16, 132, route="rows", rows=True,
                      window=512) == ("rows", 32, 8)
+    assert band_grid(2344, 84, f32, 132, True, route="rows", rows=True,
+                     window=1024) == ("rows", 64, 8)
+    assert band_grid(2344, 20, bf16, 132, True, route="rows", rows=True,
+                     window=512) == ("rows", 32, 8)
+    assert band_grid(2344, 20, bf16, 132, True, col_block=32, rows=True,
+                     window=512) == ("walk", 32, 8)
     for kw in (dict(dtype=bf16, rows=False), dict(dtype=f32, rows=False),
-               dict(dtype=f32, rows=True, with_gram=True, window=1024),
-               dict(dtype=bf16, rows=True, with_gram=True, window=512,
+               dict(dtype=f32, rows=True, with_gram=True, window=1024,
+                    k=ROWS_GRAM_MAX_K + 1),
+               dict(dtype=bf16, rows=False, with_gram=True, window=512,
                     k=20),
                dict(dtype=f32, rows=True, with_gram=True,
                     k=ROWS_GRAM_MAX_K + 1),
@@ -531,8 +607,8 @@ def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
     (10, torch.float32, False, True, 384, ("rows", 32, 8)),
     (5, torch.float32, False, True, 1024, ("staged", 32, 8)),
     (85, torch.float32, False, True, 1024, ("walk", 64, 8)),
-    (84, torch.float32, True, True, 1024, ("walk", 64, 8)),
-    (28, torch.float32, True, True, 1024, ("staged", 32, 8)),
+    (84, torch.float32, True, True, 1024, ("rows", 64, 8)),    # K5
+    (28, torch.float32, True, True, 1024, ("rows", 32, 8)),
     (28, torch.float32, False, False, 1024, ("staged", 32, 8)),
     (20, torch.float32, False, True, 512, ("rows", 32, 8)),
     (28, torch.float32, False, True, 512, ("rows", 32, 8)),    # polish K X
@@ -547,8 +623,20 @@ def test_band_grid_refuses_the_rows_route_where_it_cannot_run():
     (28, torch.bfloat16, False, True, 512, ("rows", 32, 8)),
     (19, torch.bfloat16, False, True, 512, ("walk", 32, 8)),
     (29, torch.bfloat16, False, True, 512, ("walk", 32, 8)),
-    (20, torch.bfloat16, True, True, 512, ("walk", 32, 8)),    # K5
-    (20, torch.bfloat16, False, False, 512, ("walk", 32, 8))])
+    (20, torch.bfloat16, True, True, 512, ("rows", 32, 8)),    # K5
+    (20, torch.bfloat16, False, False, 512, ("walk", 32, 8)),
+    (60, torch.float32, True, True, 1024, ("rows", 64, 8)),    # K5 cluster
+    (60, torch.float32, True, True, 512, ("rows", 64, 8)),
+    (F32_GRAM[0], torch.float32, True, True, 1024, ("rows", 32, 8)),
+    (F32_GRAM[0] - 1, torch.float32, True, True, 1024, ("staged", 32, 8)),
+    (F32_GRAM[1], torch.float32, True, True, 512, ("rows", 64, 8)),
+    (F32_GRAM[1] + 1, torch.float32, True, True, 1024, ("walk", 64, 8)),
+    (60, torch.float32, True, False, 1024, ("staged", 64, 8)),
+    (BF16_GRAM[0], torch.bfloat16, True, True, 512, ("rows", 32, 8)),
+    (BF16_GRAM[0] - 1, torch.bfloat16, True, True, 512, ("walk", 32, 8)),
+    (BF16_GRAM[1], torch.bfloat16, True, True, 512, ("rows", 32, 8)),
+    (BF16_GRAM[1] + 1, torch.bfloat16, True, True, 512, ("walk", 32, 8)),
+    (20, torch.bfloat16, True, False, 512, ("walk", 32, 8))])
 def test_band_grid_takes_the_rows_route_on_full_bands(k, dtype, gram, rows,
                                                       window, want):
     """A full-window band with its table (`BandedELL.narrow`) takes the
@@ -556,9 +644,12 @@ def test_band_grid_takes_the_rows_route_on_full_bands(k, dtype, gram, rows,
     k = 6 to 84, bf16 at k = 20 to 28; in fp32 where the staged route
     would run one block of 64 columns (32 < k <= 64) only on a window of
     FULL_ROWS_MIN_WINDOW_64 (1024) columns or more (the cluster cores,
-    not the Hilbert core's 512); elsewhere, with the Gram or without a
-    table, the routes it took before. A rolling band of the same type and
-    width keeps its own widths (with the Gram too)."""
+    not the Hilbert core's 512); with the Gram (K5) in FULL_GRAM_ROWS_K
+    of its type, on any window (fp32 k = 10 to 84, bf16 12 to 28: the
+    fused-Gram training's k = 20 and the cluster cores' k = 60);
+    elsewhere, or without a table, the routes it took before. A rolling
+    band of the same type and width keeps its own widths (with the Gram
+    too)."""
     assert band_grid(2344, k, dtype, 132, gram, rows=rows,
                      window=window) == want
     rolling = band_grid(2344, k, dtype, 132, gram, rows=rows)
