@@ -998,10 +998,11 @@ class Phases:
 
 
 def traced():
-    """A torch.profiler run of CPU and CUDA activities."""
-    from torch.profiler import ProfilerActivity, profile
+    """A torch.profiler run of CPU and CUDA activities, the port's spans
+    as ranges in it (`spectral_basis.solve` among them)."""
+    from eigenpinns_torch.utils.profiling import trace
 
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    return trace(None)
 
 
 def device_report(label: str, prof, span: str, steps: int = 1,

@@ -12,6 +12,10 @@ Every epoch runs the model on all N points, the loss SpMMs (the operator's
 kernel, in `loss_mxu_precision`) and the k x k Grams in fp32, on the
 device of the operators; the host syncs once per chunk of `scan_chunk`
 epochs (`train/loop.py`; `timing_chunks` runs its throughput probe).
+A job's spans: `train.prepare` before the loop (X to the device, the
+network, the optimizer, the loss operators' precision), a `train.chunk`
+span a chunk, and `train.finish` after it (the Rayleigh-Ritz finish and
+the copies to the host).
 
 `batch_nodes > 0` trains node-minibatched (penalty mode only): each step
 still runs the model on all N points, but the loss reads a random block
@@ -41,6 +45,7 @@ from eigenpinns_torch.sparse.formats import Diagonal, SparseELL
 from eigenpinns_torch.sparse.ops import hdot, rayleigh_quotients
 from eigenpinns_torch.train.loop import module_state_fns, run_chunked_loop
 from eigenpinns_torch.train.optim import adam_exp_decay
+from eigenpinns_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -116,42 +121,47 @@ def train_joint(
             if not isinstance(A, (Diagonal, SparseELL)):
                 raise TypeError(f"minibatching needs Diagonal/SparseELL "
                                 f"operators, got {type(A).__name__}")
-    device = torch.device(device) if device is not None else (
-        K.diagonal().device)
-    X = torch.as_tensor(np.asarray(X), dtype=torch.float32, device=device)
+    with span("train.prepare"):
+        device = torch.device(device) if device is not None else (
+            K.diagonal().device)
+        X = torch.as_tensor(np.asarray(X), dtype=torch.float32,
+                            device=device)
 
-    model = JointEigenNet(X.shape[1], tuple(hidden), n_modes,
-                          activation=activation,
-                          compute_dtype=mlp_compute_dtype).to(device)
-    if init_params is not None:
-        model.load_state_dict(init_params)
-    else:
-        model.reset_parameters(generator if generator is not None else
-                               torch.Generator(device).manual_seed(seed))
-    params = list(model.parameters())
-    opt, _ = adam_exp_decay(params, lr_start, lr_end, epochs)
-
-    # The loss SpMMs run in loss_mxu_precision; the finish below keeps
-    # the original ('highest') operators. 'highest' and 'high' share the
-    # fp32 strips.
-    K_l = (K.with_precision(loss_mxu_precision)
-           if hasattr(K, "with_precision") else K)
-    M_l = (M.with_precision(loss_mxu_precision)
-           if hasattr(M, "with_precision") else M)
-
-    n_nodes = X.shape[0]
-    if batch_nodes:
-        if batch_rows is not None:
-            batch_rows = torch.as_tensor(np.asarray(batch_rows),
-                                         dtype=torch.int64, device=device)
-            if (batch_rows.dim() != 2 or batch_rows.shape[0] < epochs
-                    or batch_rows.shape[1] != batch_nodes):
-                raise ValueError(f"batch_rows must hold a row of "
-                                 f"{batch_nodes} for each of the {epochs} "
-                                 f"epochs, got {tuple(batch_rows.shape)}")
+        model = JointEigenNet(X.shape[1], tuple(hidden), n_modes,
+                              activation=activation,
+                              compute_dtype=mlp_compute_dtype).to(device)
+        if init_params is not None:
+            model.load_state_dict(init_params)
         else:
-            row_gen = torch.Generator(device).manual_seed(seed + 13)
-        eye = torch.eye(n_modes, dtype=torch.float32, device=device)
+            model.reset_parameters(
+                generator if generator is not None else
+                torch.Generator(device).manual_seed(seed))
+        params = list(model.parameters())
+        opt, _ = adam_exp_decay(params, lr_start, lr_end, epochs)
+
+        # The loss SpMMs run in loss_mxu_precision; the finish below
+        # keeps the original ('highest') operators. 'highest' and 'high'
+        # share the fp32 strips.
+        K_l = (K.with_precision(loss_mxu_precision)
+               if hasattr(K, "with_precision") else K)
+        M_l = (M.with_precision(loss_mxu_precision)
+               if hasattr(M, "with_precision") else M)
+
+        n_nodes = X.shape[0]
+        if batch_nodes:
+            if batch_rows is not None:
+                batch_rows = torch.as_tensor(
+                    np.asarray(batch_rows), dtype=torch.int64,
+                    device=device)
+                if (batch_rows.dim() != 2 or batch_rows.shape[0] < epochs
+                        or batch_rows.shape[1] != batch_nodes):
+                    raise ValueError(
+                        f"batch_rows must hold a row of {batch_nodes} "
+                        f"for each of the {epochs} epochs, got "
+                        f"{tuple(batch_rows.shape)}")
+            else:
+                row_gen = torch.Generator(device).manual_seed(seed + 13)
+            eye = torch.eye(n_modes, dtype=torch.float32, device=device)
 
     def minibatch_loss(epoch: int):
         U = model(X)
@@ -208,24 +218,25 @@ def train_joint(
                               device=device, timing_chunks=timing_chunks,
                               state_fns=module_state_fns(params, opt))
 
-    with torch.no_grad():
-        U = model(X)
-        if mode == "whiten":
-            U = newton_schulz_orthonormalize(U, M, n_iters=ns_iters)
-        if rayleigh_ritz_finish:
-            lam, U = rayleigh_ritz_robust(U, K, M)
-            lam, U = lam[:n_modes], U[:, :n_modes]
-        else:
-            lam = rayleigh_quotients(U, K, M)
-    return DirectResult(
-        eigenvalues=lam.cpu().numpy(),
-        eigenvectors=U.cpu().numpy(),
-        history=result.history,
-        epochs_run=result.epochs_run,
-        wall_time=result.wall_time,
-        chunk_times=result.chunk_times,
-        steady_steps_per_sec=result.steady_rate,
-    )
+    with span("train.finish"):
+        with torch.no_grad():
+            U = model(X)
+            if mode == "whiten":
+                U = newton_schulz_orthonormalize(U, M, n_iters=ns_iters)
+            if rayleigh_ritz_finish:
+                lam, U = rayleigh_ritz_robust(U, K, M)
+                lam, U = lam[:n_modes], U[:, :n_modes]
+            else:
+                lam = rayleigh_quotients(U, K, M)
+        return DirectResult(
+            eigenvalues=lam.cpu().numpy(),
+            eigenvectors=U.cpu().numpy(),
+            history=result.history,
+            epochs_run=result.epochs_run,
+            wall_time=result.wall_time,
+            chunk_times=result.chunk_times,
+            steady_steps_per_sec=result.steady_rate,
+        )
 
 
 def _take_rows(U: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

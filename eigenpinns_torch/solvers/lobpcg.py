@@ -12,6 +12,9 @@ Rayleigh-Ritz step's, and the two whitenings' in
 `rayleigh_ritz.filtered_whiten`) checks its result on the host, and the
 boolean index `C[good]` sizes its result there (CUDA's sync debug mode
 counted 84 syncs in 20 iterations of the 1M polish, `chip_smoke.py`).
+Each call is a `lobpcg` span; its Grams, eigensolves and products are
+spans inside it, and each host sync is counted by its site (`sync.eigh`,
+`sync.select`, `sync.stop_check`; `utils/profiling.py`).
 
 `lobpcg_blocked` runs it in deflated sweeps for large mode counts.
 
@@ -54,11 +57,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from eigenpinns_torch.sparse.ops import gram, hdot, node_reduce, spmm
+from eigenpinns_torch.sparse.ops import hdot, node_reduce, spmm
 from eigenpinns_torch.solvers.rayleigh_ritz import (
+    eigh,
     eigh_generalized,
     filtered_whiten,
+    node_gram,
 )
+from eigenpinns_torch.utils.profiling import count, span
 
 _CHECK_EVERY = 10   # iterations between host reads of the stop flag
 
@@ -82,8 +88,7 @@ def _b_orthonormalize(X, M, eps):
                                min=0.0))
     X = X * torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-30),
                         torch.zeros_like(d))[None, :]
-    Xw, good, _ = filtered_whiten(X, node_reduce(M, gram(X, spmm(M, X))),
-                                  eps=eps)
+    Xw, good, _ = filtered_whiten(X, node_gram(M, X, spmm(M, X)), eps=eps)
     # In fp32 the whitening of an exactly dependent block can keep a
     # noise direction (its Gram eigenvalue sits just above eps * e_max)
     # whose M-norm comes out far from 1; in the Rayleigh-Ritz step such a
@@ -116,8 +121,8 @@ def _residual_norms(X, KX, MX, lam, M):
 
 def _project_out(Y, X, MX, M):
     """Y - X (X^T M Y), applied twice for f32 robustness."""
-    Y = Y - hdot(X, node_reduce(M, gram(MX, Y)))
-    return Y - hdot(X, node_reduce(M, gram(MX, Y)))
+    Y = Y - hdot(X, node_gram(M, MX, Y))
+    return Y - hdot(X, node_gram(M, MX, Y))
 
 
 @torch.no_grad()
@@ -129,67 +134,71 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
     `Y` (N, j), M-orthonormal: deflation constraints — the iteration
     stays in the M-orthogonal complement of span(Y).
     """
-    if k is None:
-        k = X0.shape[1]
-    precond = 1.0 / torch.clamp(K.diagonal(), min=1e-12)
-    MY = spmm(M, Y) if Y is not None else None
+    with span("lobpcg"):
+        if k is None:
+            k = X0.shape[1]
+        precond = 1.0 / torch.clamp(K.diagonal(), min=1e-12)
+        MY = spmm(M, Y) if Y is not None else None
 
-    def _deflate(V):
-        return _project_out(V, Y, MY, M) if Y is not None else V
+        def _deflate(V):
+            return _project_out(V, Y, MY, M) if Y is not None else V
 
-    def body(X, P, good_x):
-        MX = spmm(M, X)
-        KX = spmm(K, X)
+        def body(X, P, good_x):
+            MX = spmm(M, X)
+            KX = spmm(K, X)
+            lam = _rayleigh_quotients(X, KX, MX, M)
+            R = KX - MX * lam[None, :]
+            res = _column_norms(R, M) / torch.clamp(lam.abs(), min=1.0)
+            W = precond[:, None] * R
+            W = _project_out(_deflate(W), X, MX, M)
+            W, good_w = _b_orthonormalize(W, M, whiten_eps)
+            MW = spmm(M, W)
+            P = _project_out(_project_out(_deflate(P), X, MX, M), W, MW, M)
+            P, good_p = _b_orthonormalize(P, M, whiten_eps)
+
+            S = torch.cat([X, W, P], dim=1)            # (N, 3k)
+            A = node_gram(M, S, spmm(K, S))
+            good = torch.cat([good_x, good_w, good_p])
+            A = 0.5 * (A + A.T)
+            A = A + torch.diag(torch.where(
+                good, torch.zeros((), device=A.device), _sentinel(A)))
+            # fp64 eigh (F11): fp32's error, eps * |A|, reaches the gaps of
+            # near-degenerate pairs once W holds high Rayleigh quotients.
+            C = eigh(A.double())[1][:, :k].to(A.dtype)
+            C_wp = C.clone()
+            C_wp[:k] = 0.0                              # W/P contribution only
+            # A selected Ritz vector is good when it lies in the kept
+            # directions (its unit coefficient vector weighs > 1/2 there).
+            count("sync.select")
+            good_x = (C[good] ** 2).sum(0) > 0.5
+            return hdot(S, C), hdot(S, C_wp), res, good_x
+
+        # Directions of X0 that the whitening drops (a rank-deficient warm
+        # start, e.g. a collapsed learned subspace) are zero columns. The JAX
+        # package keeps them flagged good, so they come back as Ritz pairs
+        # (0, 0) and never leave the block; here they are flagged as dropped,
+        # the sentinel moves them out, and W/P directions take their place.
+        # For a full-rank X0 the two are the same iteration.
+        X, good_x = _b_orthonormalize(_deflate(X0), M, whiten_eps)
+        P = torch.zeros_like(X)
+        it = torch.zeros((), dtype=torch.int64, device=X.device)
+        res = torch.full((k,), float("inf"), dtype=X.dtype, device=X.device)
+        for i in range(max_iter):
+            active = res.max() > tol
+            X_n, P_n, res_n, good_n = body(X, P, good_x)
+            X = torch.where(active, X_n, X)
+            P = torch.where(active, P_n, P)
+            res = torch.where(active, res_n, res)
+            good_x = torch.where(active, good_n, good_x)
+            it = it + active.to(it.dtype)
+            if (i + 1) % _CHECK_EVERY == 0:
+                count("sync.stop_check")
+                if not bool(res.max() > tol):
+                    break
+
+        KX, MX = spmm(K, X), spmm(M, X)
         lam = _rayleigh_quotients(X, KX, MX, M)
-        R = KX - MX * lam[None, :]
-        res = _column_norms(R, M) / torch.clamp(lam.abs(), min=1.0)
-        W = precond[:, None] * R
-        W = _project_out(_deflate(W), X, MX, M)
-        W, good_w = _b_orthonormalize(W, M, whiten_eps)
-        MW = spmm(M, W)
-        P = _project_out(_project_out(_deflate(P), X, MX, M), W, MW, M)
-        P, good_p = _b_orthonormalize(P, M, whiten_eps)
-
-        S = torch.cat([X, W, P], dim=1)            # (N, 3k)
-        A = node_reduce(M, gram(S, spmm(K, S)))
-        good = torch.cat([good_x, good_w, good_p])
-        A = 0.5 * (A + A.T)
-        A = A + torch.diag(torch.where(good, torch.zeros((), device=A.device),
-                                       _sentinel(A)))
-        # fp64 eigh (F11): fp32's error, eps * |A|, reaches the gaps of
-        # near-degenerate pairs once W holds high Rayleigh quotients.
-        C = torch.linalg.eigh(A.double())[1][:, :k].to(A.dtype)
-        C_wp = C.clone()
-        C_wp[:k] = 0.0                              # W/P contribution only
-        # A selected Ritz vector is good when it lies in the kept
-        # directions (its unit coefficient vector weighs > 1/2 there).
-        good_x = (C[good] ** 2).sum(0) > 0.5
-        return hdot(S, C), hdot(S, C_wp), res, good_x
-
-    # Directions of X0 that the whitening drops (a rank-deficient warm
-    # start, e.g. a collapsed learned subspace) are zero columns. The JAX
-    # package keeps them flagged good, so they come back as Ritz pairs
-    # (0, 0) and never leave the block; here they are flagged as dropped,
-    # the sentinel moves them out, and W/P directions take their place.
-    # For a full-rank X0 the two are the same iteration.
-    X, good_x = _b_orthonormalize(_deflate(X0), M, whiten_eps)
-    P = torch.zeros_like(X)
-    it = torch.zeros((), dtype=torch.int64, device=X.device)
-    res = torch.full((k,), float("inf"), dtype=X.dtype, device=X.device)
-    for i in range(max_iter):
-        active = res.max() > tol
-        X_n, P_n, res_n, good_n = body(X, P, good_x)
-        X = torch.where(active, X_n, X)
-        P = torch.where(active, P_n, P)
-        res = torch.where(active, res_n, res)
-        good_x = torch.where(active, good_n, good_x)
-        it = it + active.to(it.dtype)
-        if (i + 1) % _CHECK_EVERY == 0 and not bool(res.max() > tol):
-            break
-
-    KX, MX = spmm(K, X), spmm(M, X)
-    lam = _rayleigh_quotients(X, KX, MX, M)
-    return LobpcgResult(lam, X, it, _residual_norms(X, KX, MX, lam, M))
+        return LobpcgResult(lam, X, it, _residual_norms(X, KX, MX, lam, M))
 
 
 @torch.no_grad()
@@ -197,8 +206,8 @@ def _rayleigh_ritz_f64(K, M, V: torch.Tensor):
     """Rayleigh-Ritz of span(V) with the k x k Grams and their eigh in
     fp64: (Ritz values, rotated V, residual norms)."""
     KV, MV = spmm(K, V), spmm(M, V)
-    A = node_reduce(M, V.double().T @ KV.double())
-    B = node_reduce(M, V.double().T @ MV.double())
+    A = node_gram(M, V.double(), KV.double())
+    B = node_gram(M, V.double(), MV.double())
     C = eigh_generalized(0.5 * (A + A.T), 0.5 * (B + B.T))[1].to(V.dtype)
     V, KV, MV = hdot(V, C), hdot(KV, C), hdot(MV, C)
     lam = _rayleigh_quotients(V, KV, MV, M)

@@ -36,6 +36,7 @@ from eigenpinns_torch.sparse.banded import _round_up
 from eigenpinns_torch.sparse.bsr import BSRTile
 from eigenpinns_torch.sparse.formats import Diagonal
 from eigenpinns_torch.sparse.split import SplitBanded
+from eigenpinns_torch.utils.profiling import span
 
 OPERATOR_FORMATS = ("bsr", "split")
 
@@ -169,9 +170,7 @@ def spectral_basis(
                    f"{float(res.residual_norms[:keep].max()):.2e}")
 
     t0 = time.time()
-    # The span bounds the solve in a torch.profiler trace (a no-op
-    # without a profiler).
-    with torch.profiler.record_function("spectral_basis.solve"):
+    with span("spectral_basis.solve"):
         vals, vecs, resids = lobpcg_blocked(
             op, M_op, k, block=block, guard=guard, max_iter=max_iter,
             tol=tol, X0_full=torch.as_tensor(X0_full[perm], device=device),

@@ -13,6 +13,10 @@ from the operator (`node_reduce`): a `FunctionOperator` over a sharded
 SpMM (`parallel/`) carries the all-reduce over the mesh's data axis, and
 every other operator's rows are all on one device, so the local sum is
 the whole.
+
+A product of a format with a hand kernel (BandedELL, RollingBanded,
+SplitBanded, BSRTile) runs in a `sparse.spmm` span (`utils/profiling.py`),
+its forward pass only: autograd runs the backward pass outside it.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from eigenpinns_torch.sparse.split import (
     split_spmm,
     split_spmm_gram,
 )
+from eigenpinns_torch.utils.profiling import span
 
 
 class FunctionOperator:
@@ -110,13 +115,17 @@ def spmm(A, U: torch.Tensor) -> torch.Tensor:
         t = A.transpose_ell if A.transpose_ell is not None else A
         return _EllSpmm.apply(U, A.indices, A.values, t.indices, t.values)
     if isinstance(A, BandedELL):
-        return banded_spmm(A, U)
+        with span("sparse.spmm"):
+            return banded_spmm(A, U)
     if isinstance(A, RollingBanded):
-        return rolling_spmm(A, U)
+        with span("sparse.spmm"):
+            return rolling_spmm(A, U)
     if isinstance(A, SplitBanded):
-        return split_spmm(A, U)
+        with span("sparse.spmm"):
+            return split_spmm(A, U)
     if isinstance(A, BSRTile):
-        return bsr_spmm(A, U)
+        with span("sparse.spmm"):
+            return bsr_spmm(A, U)
     if isinstance(A, FunctionOperator):
         return A.fn(U)
     raise TypeError(f"unsupported operator {type(A)}")
@@ -132,13 +141,17 @@ def spmm_gram(A, U: torch.Tensor):
     split formats, the kernel plus an fp32 matmul epilogue for strip-BSR,
     the two-pass form for other formats."""
     if isinstance(A, BandedELL):
-        return banded_spmm_gram(A, U)
+        with span("sparse.spmm"):
+            return banded_spmm_gram(A, U)
     if isinstance(A, RollingBanded):
-        return rolling_spmm_gram(A, U)
+        with span("sparse.spmm"):
+            return rolling_spmm_gram(A, U)
     if isinstance(A, SplitBanded):
-        return split_spmm_gram(A, U)
+        with span("sparse.spmm"):
+            return split_spmm_gram(A, U)
     if isinstance(A, BSRTile):
-        return bsr_spmm_gram(A, U)
+        with span("sparse.spmm"):
+            return bsr_spmm_gram(A, U)
     W = spmm(A, U)
     return W, node_reduce(A, gram(U, W))
 

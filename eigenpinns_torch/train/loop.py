@@ -3,8 +3,10 @@
 Port of `eigenpinns_tpu/train/loop.py::run_scan_loop`. The JAX loop fuses
 `chunk` epochs into one compiled `lax.scan`; here the epochs of a chunk
 are enqueued eagerly and the host waits on the device once per chunk, to
-read that chunk's metrics and the early-stop counter. The best-loss
-counter and the optional best-parameter snapshot live on the device.
+read that chunk's metrics and the early-stop counter. Each chunk, its
+sync included, is a `train.chunk` span (`utils/profiling.py`). The
+best-loss counter and the optional best-parameter snapshot live on the
+device.
 
 The `timing_chunks` probe is the JAX loop's chained probe: after
 training, 3 x `timing_chunks` more chunks run back to back with one sync
@@ -20,6 +22,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from eigenpinns_torch.utils.profiling import span
 
 
 class LoopResult(NamedTuple):
@@ -86,29 +90,31 @@ def run_chunked_loop(
         t_chunk = time.time()
         length = min(chunk, n_epochs - epochs_run)
         rows = []
-        for i in range(length):
-            metrics = step_fn(start_epoch + epochs_run + i)
-            val = metrics[early_stop_metric].detach()
-            if early_stop_mode == "below_tol":
-                loss_val = metrics.get("loss", val).detach()
-                improved = loss_val < best
-                best = torch.where(improved, loss_val, best)
-                flat = val.abs() < early_stop_tol
-                patience = torch.where(flat, patience + 1,
-                                       torch.zeros_like(patience))
-            else:
-                improved = val < best
-                best = torch.where(improved, val, best)
-                patience = torch.where(improved, torch.zeros_like(patience),
-                                       patience + 1)
-            if best_params is not None:
-                with torch.no_grad():
-                    for b, p in zip(best_params, track_params):
-                        b.copy_(torch.where(improved, p, b))
-            rows.append(torch.stack([v.detach().float()
-                                     for v in metrics.values()]))
-        names = list(metrics)
-        block = torch.stack(rows).cpu().numpy()   # the chunk's one sync
+        with span("train.chunk"):
+            for i in range(length):
+                metrics = step_fn(start_epoch + epochs_run + i)
+                val = metrics[early_stop_metric].detach()
+                if early_stop_mode == "below_tol":
+                    loss_val = metrics.get("loss", val).detach()
+                    improved = loss_val < best
+                    best = torch.where(improved, loss_val, best)
+                    flat = val.abs() < early_stop_tol
+                    patience = torch.where(flat, patience + 1,
+                                           torch.zeros_like(patience))
+                else:
+                    improved = val < best
+                    best = torch.where(improved, val, best)
+                    patience = torch.where(improved,
+                                           torch.zeros_like(patience),
+                                           patience + 1)
+                if best_params is not None:
+                    with torch.no_grad():
+                        for b, p in zip(best_params, track_params):
+                            b.copy_(torch.where(improved, p, b))
+                rows.append(torch.stack([v.detach().float()
+                                         for v in metrics.values()]))
+            names = list(metrics)
+            block = torch.stack(rows).cpu().numpy()   # the chunk's one sync
         chunk_times.append((length, time.time() - t_chunk))
         for j, name in enumerate(names):
             history.setdefault(name, []).append(block[:, j])

@@ -24,6 +24,7 @@ route gives the staged route's W.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -1185,3 +1186,57 @@ def test_rolling_bf16_rows_route_matches_plain(case, k):
     Wp = tsparse.rolling_spmm_plain(op, U)
     ref = tsparse.rolling_spmm_plain(At, gW + U @ gG) + Wp @ gG.T
     assert _rel(Uk.grad.cpu(), ref.cpu()) < 1e-4
+
+
+# cuSOLVER's kernels of a dense eigensolve (`torch.linalg.eigh`) and
+# ATen's check of its result.
+EIGH_KERNELS = re.compile(
+    r"(sy|he)(trd|evd|evj)|ormtr|orgtr|ste(dc|qr)|sterf|lar[fg]|latrd|"
+    r"lansy|lascl|copy_info", re.IGNORECASE)
+
+
+@pytest.mark.cuda
+def test_tracer_spans_share_the_device_trace_clock():
+    """Under a profile of CUDA activity alone (the benchmark's traced
+    window) tracing is on, every span of a small polish has a device
+    time, and every cuSOLVER kernel of its eigensolves starts inside the
+    host interval of a `lobpcg.eigh` span: the spans' host times and the
+    device trace share one clock."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from eigenpinns_torch.solvers import lobpcg
+    from eigenpinns_torch.utils import profiling
+    from eigenpinns_torch.utils.fixtures import make_cloud
+
+    L, Mmat = point_cloud_laplacian(make_cloud(4000, seed=1),
+                                    n_neighbors=15)
+    K, perm = tsparse.BSRTile.from_scipy(L, device="cuda")
+    M = tsparse.Diagonal(torch.as_tensor(
+        np.asarray(Mmat.diagonal())[perm], dtype=torch.float32,
+        device="cuda"))
+    X0 = torch.randn((L.shape[0], 28), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+    lobpcg(K, M, X0, max_iter=2, tol=0.0)
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert torch.autograd._profiler_enabled()
+        lobpcg(K, M, X0, max_iter=20, tol=0.0)
+        torch.cuda.synchronize()
+    recs = profiling.records()
+    profiling.reset()
+    assert {r["name"] for r in recs} == {"lobpcg", "lobpcg.eigh",
+                                         "lobpcg.gram", "sparse.spmm"}
+    assert all(r["device_ms"] is not None and r["device_ms"] >= 0
+               for r in recs)
+    eighs = [(r["start_ns"], r["end_ns"]) for r in recs
+             if r["name"] == "lobpcg.eigh"]
+    assert len(eighs) == 3 * 20 + 1
+    starts = [e.start_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation()
+              and EIGH_KERNELS.search(e.name())]
+    assert starts
+    assert all(any(a <= s <= b for a, b in eighs) for s in starts)

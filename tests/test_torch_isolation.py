@@ -9,8 +9,9 @@
     file has a namesake in the port's file of the same path, except the
     names the port leaves out on purpose: the TPU workarounds, the pytree state
     classes, the flax and scan helpers that have a torch counterpart of
-    another name, and the Pallas entry points and their references
-    (`*_cuda` / `*_plain` in the port).
+    another name, the Pallas entry points and their references
+    (`*_cuda` / `*_plain` in the port), and the profiling helpers that
+    the port's spans and counters replace.
 """
 
 import ast
@@ -43,6 +44,8 @@ NOT_PORTED = {
     "sparse/rolling.py": {"rolling_spmm_pallas", "rolling_spmm_reference",
                           "rolling_spmm_gram_pallas",
                           "rolling_spmm_gram_reference"},
+    # Read by nothing: `span` and `count` are the port's in-program tracing.
+    "utils/profiling.py": {"PhaseTimer", "annotate"},
 }
 
 
