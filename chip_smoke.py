@@ -9,13 +9,14 @@ It exits non-zero, before printing any result, when no CUDA device is
 present or the package is not beside it. On the card it:
 
   1. prints the card (torch's name; nvidia-smi's name and power limit)
-     and builds the three sources in parallel, each with its own
+     and builds the four sources in parallel, each with its own
      compiler process: eigenpinns_torch/csrc/bsr_spmm.cu (K2 and K3, the
-     grouped and burst strip-BSR SpMMs) and banded_spmm.cu (K4 and K5,
+     grouped and burst strip-BSR SpMMs), banded_spmm.cu (K4 and K5,
      the full-window band SpMM and its fused Gram, and K1, the
      rolling-band SpMM with and without the Gram: the same kernel with
-     implicit, wrapping window starts) with nvcc, printing the -Xptxas
-     -v reports, and geometry_kernels.cpp (the native host stage: kNN,
+     implicit, wrapping window starts) and small_eigh.cu (E1, the
+     polish's small symmetric eigensolver) with nvcc, printing the
+     -Xptxas -v reports, and geometry_kernels.cpp (the native host stage: kNN,
      farthest-point sampling, local triangulations, intrinsic-Delaunay
      flips) with the host's C++ compiler, printing each job's wall; then
      starts the 1M host stage: `make_cloud(1_000_000)`, its native
@@ -24,7 +25,12 @@ present or the package is not beside it. On the card it:
      which runs behind every 300k phase on a core of its own, so that
      the card never waits for it; the 1M phases collect it. Every
      point-cloud Laplacian of the script passes use_native=True, so a
-     missing native library fails the run;
+     missing native library fails the run; every direct slice's polish
+     must launch E1 three times an iteration run and once for its start,
+     and after step 17 E1 is held to torch.linalg.eigh at the polish's
+     shapes (`small_eigh_rows`: the 1M polish's own Grams, fp64 at n =
+     84 and fp32 at 28, and a random matrix of each) within
+     SMALL_EIGH_BOUNDS and timed against it;
   2. holds K1 against its plain torch version on the card, at the
      shapes the multigrid path gives it: the fused block-diagonal K_blk
      at k = 10 and the finest level's K at k = 39 (the LOBPCG block),
@@ -236,7 +242,8 @@ present or the package is not beside it. On the card it:
      form with its launches in that CLI, K2 and K4
      with their 1M rows and launches, K2 with its k = 1 row and launches
      on the Dirichlet path (and how many of them were narrow) and its
-     launches and k = 64 row in CLI run B, the narrow path as a kernel
+     launches and k = 64 row in CLI run B, E1 with its rows and its
+     launches in the 300k and 1M polishes, the narrow path as a kernel
      of its own (its launches those of the Dirichlet CG), K3 with its
      launches in run B (0), K5 with its cluster-core rows at k = 60;
      the row-wise route as kernels of their own (`bsr_spmm_rows`, its
@@ -619,7 +626,15 @@ PHASE_EIGS = {}
 BEFORE_ROW_ROUTES = {"direct": 265.33, "xl": 95.37, "gram_polish_s": 10.803}
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+# fp64 without tensor cores (FMA), the small eigensolver's arithmetic.
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "fp64": 34e12}
+# E1's bounds against torch.linalg.eigh at the polish's shapes: the
+# eigenvalues' largest error (against the fp64 library's) and the
+# residual ||A V - V diag(w)||_F in units of n eps ||A||_F, and
+# ||V^T V - I||_F in units of n eps; about twice the largest reading on
+# an H100 (PERF.md, row E1).
+SMALL_EIGH_BOUNDS = {"eigenvalues": 0.25, "residual": 0.6,
+                     "orthonormality": 8.0}
 
 
 def eigsh_values(L, M, k: int) -> np.ndarray:
@@ -1708,6 +1723,91 @@ def check_k2_1m(bsr, K, K_sp, seed):
     return row
 
 
+def eigh_errors(A: torch.Tensor, w: torch.Tensor, V: torch.Tensor) -> dict:
+    """E1's readings of (w, V) for the symmetric A (n x n, precision eps),
+    in the units of SMALL_EIGH_BOUNDS."""
+    n, eps = A.shape[0], torch.finfo(A.dtype).eps
+    Ad, Vd, wd = A.double(), V.double(), w.double()
+    norm = float(torch.linalg.matrix_norm(Ad))
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    return {"eigenvalues": float((wd - torch.linalg.eigvalsh(Ad)).abs().max())
+            / (n * eps * norm),
+            "residual": float(torch.linalg.matrix_norm(Ad @ Vd - Vd * wd))
+            / (n * eps * norm),
+            "orthonormality": float(torch.linalg.matrix_norm(Vd.T @ Vd - eye))
+            / (n * eps)}
+
+
+def small_eigh_rows(device) -> dict:
+    """E1, the small symmetric eigensolver (`solvers/small_eigh.py`), held
+    to torch.linalg.eigh on the card at the polish's shapes: the three
+    eigensolves of one iteration of the 1M polish (`tests/data/
+    polish1m_grams.npz`: the fp64 Rayleigh-Ritz Gram at n = 84 and the two
+    fp32 whitening Grams at n = 28) and a random symmetric matrix of each
+    shape. Each within SMALL_EIGH_BOUNDS, with the library's own readings
+    beside; timed by launch (`median_ms`) and on the card (`device_ms`),
+    the library by launch and by its kernels' time under the profiler (it
+    syncs on the host each call, so `device_ms` cannot queue it); and the
+    bound: a dense symmetric eigensolve's ~9 n^3 operations at one SM's
+    share of the type's peak (the kernel is one block). Returns {label:
+    row}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eigenpinns_torch.solvers import small_eigh
+
+    grams = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "data", "polish1m_grams.npz"))
+    g = torch.Generator().manual_seed(0)
+    cases = {f"1m_polish_{name}": torch.as_tensor(grams[name])
+             for name in ("rayleigh_ritz", "whiten_w", "whiten_p")}
+    for n, dtype in ((84, torch.float64), (28, torch.float32)):
+        X = torch.randn((n, n), generator=g, dtype=torch.float64)
+        cases[f"random_{n}"] = (X + X.T).to(dtype)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = {}
+    for label, A in cases.items():
+        A = A.to(device)
+        n, kind = A.shape[0], str(A.dtype)[6:].replace("float", "fp")
+        status = torch.zeros((), dtype=torch.int32, device=device)
+        w, V = small_eigh.small_eigh_cuda(A, status)
+        errs = eigh_errors(A, w, V)
+        lib = eigh_errors(A, *torch.linalg.eigh(A))
+        check(int(status) == 0, f"E1 {label}: status {int(status)}")
+        check(all(errs[key] <= b for key, b in SMALL_EIGH_BOUNDS.items()),
+              f"E1 {label}: {errs} past {SMALL_EIGH_BOUNDS}")
+
+        def kernel():
+            small_eigh.small_eigh_cuda(A, status)
+
+        row = {"n": n, "dtype": kind, "grid": small_eigh.grid(n),
+               "ms": median_ms(kernel), "device_ms": device_ms(kernel),
+               "library_ms": median_ms(lambda: torch.linalg.eigh(A))}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                torch.linalg.eigh(A)
+            torch.cuda.synchronize()
+        row["library_device_ms"] = sum(
+            e.self_device_time_total for e in prof.key_averages()) / 20e3
+        row.update({f"err_{key}": v for key, v in errs.items()})
+        row.update({f"library_err_{key}": v for key, v in lib.items()})
+        # One block: one SM's share of the peak (the operations x SMs).
+        row.update(bound(0.0, {kind: 9 * n ** 3 * sms}))
+        print(f"[E1] {label} n = {n} {kind} (S, P, threads) = {row['grid']}:"
+              f" on the card {row['device_ms']:.4f} ms (by launch "
+              f"{row['ms']:.4f}); torch.linalg.eigh on the card "
+              f"{row['library_device_ms']:.4f} (by launch "
+              f"{row['library_ms']:.4f}); bound {row['bound_ms']:.4f} "
+              f"(operations, one SM); eigenvalues / residual / "
+              f"orthonormality {errs['eigenvalues']:.3f} / "
+              f"{errs['residual']:.3f} / {errs['orthonormality']:.3f} "
+              f"(library {lib['eigenvalues']:.3f} / {lib['residual']:.3f} / "
+              f"{lib['orthonormality']:.3f}; bounds "
+              f"{list(SMALL_EIGH_BOUNDS.values())})", flush=True)
+        rows[label] = row
+    return rows
+
+
 def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
                  bar=MAX_REL_ERR, profile_iters=0):
     """train_joint on the strip-BSR K (`cfg`), then the guarded LOBPCG
@@ -1716,7 +1816,7 @@ def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
     polish is run again from the same start for that many iterations
     under the profiler, and for SYNC_POLISH_ITERS under CUDA's sync debug
     mode, which names every line that makes the host wait for the card."""
-    from eigenpinns_torch.solvers import lobpcg, train_joint
+    from eigenpinns_torch.solvers import lobpcg, small_eigh, train_joint
 
     device = K.data.device
     torch.cuda.synchronize()
@@ -1734,10 +1834,12 @@ def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
         size=(K.n, POLISH_GUARD)).astype(np.float32), device=device)
     X0 = torch.cat([torch.as_tensor(res.eigenvectors, device=device),
                     guards], dim=1)
+    small_eigh.small_eigh_launches = 0
     pol = lobpcg(K, M, X0, max_iter=POLISH_ITERS, tol=POLISH_TOL)
     torch.cuda.synchronize()
     polish_s = time.time() - t0
     launches = dict(bsr.bsr_kernel_launches)
+    launches["small_eigh"] = small_eigh.small_eigh_launches
     peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
 
     k = cfg["n_modes"]
@@ -1790,6 +1892,15 @@ def direct_slice(bsr, K, M, X, oracle, label="direct", cfg=DIRECT_CFG,
                and np.isfinite(lam_pol).all()), f"non-finite {label} results")
     check(polished.max() <= bar,
           f"{label} polished max rel err {polished.max():.3e} > {bar}")
+    # E1 takes the polish's three eigensolves an iteration and the start's
+    # whitening; the loop runs to the first stop check past convergence.
+    every = sys.modules["eigenpinns_torch.solvers.lobpcg"]._CHECK_EVERY
+    ran = min(POLISH_ITERS, -(-int(pol.iterations) // every) * every)
+    print(f"[{label}] E1 launches in the polish: {launches['small_eigh']} "
+          f"for {ran} iterations run", flush=True)
+    check(launches["small_eigh"] == 3 * ran + 1,
+          f"{label}: E1 launched {launches['small_eigh']} times in "
+          f"{ran} polish iterations, not {3 * ran + 1}")
     return launches, loss
 
 
@@ -2606,6 +2717,7 @@ def xl_phases(bsr, banded, X, L, m_diag, oracle, device, phases):
                                      profile_iters=PROFILE_POLISH_ITERS)
     k2_xl = k2_xl_launches["grouped"]
     row_1m["launches_rows"] = k2_xl_launches["rows"]
+    row_1m["launches_small_eigh"] = k2_xl_launches["small_eigh"]
     row_1m["launches_rows_bf16"] = k2_xl_launches["rows_bf16"]
     del K, M
     torch.cuda.empty_cache()
@@ -4974,6 +5086,7 @@ def smoke(oracles: list) -> int:
         RollingBanded,
         SplitBanded,
     )
+    from eigenpinns_torch.solvers import small_eigh
     from eigenpinns_torch.sparse import banded, bsr, rolling
     from eigenpinns_torch.utils.cuda_build import build_logs
     from eigenpinns_torch.utils.fixtures import make_cloud, perturbed_icosphere
@@ -4993,16 +5106,18 @@ def smoke(oracles: list) -> int:
     # banded_spmm.cu), and the host geometry kernels with the C++
     # compiler (`native.require` raises with the compiler's stderr).
     jobs = {"bsr_spmm": bsr.build_kernel, "banded_spmm": banded.build_kernel,
+            "small_eigh": small_eigh.build_kernel,
             "geometry_kernels": native.require}
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
         build_s = {name: f.result() for name, f in futures.items()}
-    for name in ("bsr_spmm", "banded_spmm"):
+    for name in ("bsr_spmm", "banded_spmm", "small_eigh"):
         print(build_logs.get(name, "").strip(), flush=True)
     print("[build] wall of each job: " + ", ".join(
         f"{name} {t:.2f} s" + ("" if name in build_logs else " (built before)")
         for name, t in build_s.items()), flush=True)
-    phases.done("build of bsr_spmm.cu, banded_spmm.cu, geometry_kernels.cpp")
+    phases.done("build of bsr_spmm.cu, banded_spmm.cu, small_eigh.cu, "
+                "geometry_kernels.cpp")
 
     # 1b. The 1M host stage: the cloud, its native Laplacian and the
     # 50-mode eigsh oracle, in one one-thread worker process that runs
@@ -5301,6 +5416,11 @@ def smoke(oracles: list) -> int:
     surface = surface_slice(rolling, L, m_diag, X, oracle, L_xl, m_xl,
                             X_xl, oracle_xl, device, phases)
 
+    # 18. E1 against torch.linalg.eigh at the polish's shapes, last: its
+    # profile of the library leaves the process's launches slower.
+    e1_rows = small_eigh_rows(device)
+    phases.done("E1 checks")
+
     print(json.dumps({"kernels": [
         {"name": "rolling_spmm", "route": "cuda",
          "source": "eigenpinns_torch/csrc/banded_spmm.cu",
@@ -5426,7 +5546,13 @@ def smoke(oracles: list) -> int:
         {"name": "rolling_spmm_rows_bf16", "route": "cuda",
          "source": "eigenpinns_torch/csrc/nonzero_spmm.cuh",
          "replaces": "eigenpinns_tpu/sparse/rolling.py:344",
-         "launches": k1_trained["rows_bf16"], **row_300k_bf16_rows}]}))
+         "launches": k1_trained["rows_bf16"], **row_300k_bf16_rows},
+        {"name": "small_eigh", "route": "cuda",
+         "source": "eigenpinns_torch/csrc/small_eigh.cu",
+         "replaces": "torch.linalg.eigh (no TPU kernel)",
+         "launches": k2_direct["small_eigh"],
+         **e1_rows["1m_polish_rayleigh_ritz"],
+         "launches_1m": row_1m["launches_small_eigh"], "rows": e1_rows}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,15 +6,20 @@ Jacobi preconditioning). The JAX `lax.while_loop` exits on tolerance
 without a host sync. Here every iteration runs under an on-device
 `active` flag that freezes the state once max(res) <= tol, and the host
 reads the flag only every `_CHECK_EVERY` iterations, so the iteration
-count is that of the JAX loop. The host still waits for the card four
-times in every iteration: each CUDA `torch.linalg.eigh` (the
-Rayleigh-Ritz step's, and the two whitenings' in
-`rayleigh_ritz.filtered_whiten`) checks its result on the host, and the
-boolean index `C[good]` sizes its result there (CUDA's sync debug mode
-counted 84 syncs in 20 iterations of the 1M polish, `chip_smoke.py`).
-Each call is a `lobpcg` span; its Grams, eigensolves and products are
-spans inside it, and each host sync is counted by its site (`sync.eigh`,
-`sync.select`, `sync.stop_check`; `utils/profiling.py`).
+count is that of the JAX loop. On CUDA an iteration makes no other host
+read: its three eigensolves (the Rayleigh-Ritz step's at 3k, the two
+whitenings' at k in `rayleigh_ritz.filtered_whiten`) run on the
+hand-written kernel up to n = 84 (`solvers/small_eigh.py`), which
+records a failure in the call's status word on the card instead of
+checking it on the host; the stop check reads that word in the same
+transfer as the stop flag and raises `torch.linalg.LinAlgError` for a
+failed solve. The selection of the good Ritz vectors is a masked sum of
+fixed shape. (Wider problems, 3k > 84, take `torch.linalg.eigh`, which
+checks each result on the host.) Each call is a `lobpcg` span; its Grams,
+eigensolves and products are spans inside it, and each host sync is
+counted by its site (`sync.eigh`, `sync.select`, `sync.stop_check`; 0 for
+a site that no longer waits) and each kernel eigensolve by `eigh.kernel`
+(`utils/profiling.py`).
 
 `lobpcg_blocked` runs it in deflated sweeps for large mode counts.
 
@@ -82,13 +87,15 @@ def _sentinel(A: torch.Tensor) -> torch.Tensor:
     return 10.0 * A.diagonal().abs().max() + 1.0
 
 
-def _b_orthonormalize(X, M, eps):
-    """Spectral M-orthonormalization of a block; dropped directions -> 0."""
+def _b_orthonormalize(X, M, eps, status=None):
+    """Spectral M-orthonormalization of a block; dropped directions -> 0.
+    `status`: the eigensolve's failure word (`rayleigh_ritz.eigh`)."""
     d = torch.sqrt(torch.clamp(node_reduce(M, (X * spmm(M, X)).sum(0)),
                                min=0.0))
     X = X * torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-30),
                         torch.zeros_like(d))[None, :]
-    Xw, good, _ = filtered_whiten(X, node_gram(M, X, spmm(M, X)), eps=eps)
+    Xw, good, _ = filtered_whiten(X, node_gram(M, X, spmm(M, X)), eps=eps,
+                                  status=status)
     # In fp32 the whitening of an exactly dependent block can keep a
     # noise direction (its Gram eigenvalue sits just above eps * e_max)
     # whose M-norm comes out far from 1; in the Rayleigh-Ritz step such a
@@ -119,6 +126,29 @@ def _residual_norms(X, KX, MX, lam, M):
     return _column_norms(R, M) / torch.clamp(lam.abs(), min=1.0)
 
 
+def _keep_going(res, tol, status) -> bool:
+    """Whether max(res) > tol: one host read, which on CUDA also reads the
+    eigensolves' failure word and raises LinAlgError when it is set (the
+    failed solve's NaN would otherwise read as converged)."""
+    flag = res.max() > tol
+    if status is None:
+        return bool(flag)
+    go, failed = torch.stack([flag.to(torch.int32), status]).tolist()
+    if failed:
+        raise torch.linalg.LinAlgError(
+            "lobpcg: a dense eigensolve failed (a nonfinite Gram, or no "
+            "convergence)")
+    return bool(go)
+
+
+def _good_ritz(C, good):
+    """Which selected Ritz vectors are good: those whose unit coefficient
+    vector (a column of C) weighs > 1/2 in the kept directions `good`,
+    summed as a masked sum of fixed shape (no host read; the same flags
+    as `(C[good] ** 2).sum(0) > 0.5`)."""
+    return ((C * good[:, None]) ** 2).sum(0) > 0.5
+
+
 def _project_out(Y, X, MX, M):
     """Y - X (X^T M Y), applied twice for f32 robustness."""
     Y = Y - hdot(X, node_gram(M, MX, Y))
@@ -137,6 +167,9 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
     with span("lobpcg"):
         if k is None:
             k = X0.shape[1]
+        # The eigensolves' failure word on the card, read with the stop flag.
+        status = (torch.zeros((), dtype=torch.int32, device=X0.device)
+                  if X0.is_cuda else None)
         precond = 1.0 / torch.clamp(K.diagonal(), min=1e-12)
         MY = spmm(M, Y) if Y is not None else None
 
@@ -151,10 +184,10 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
             res = _column_norms(R, M) / torch.clamp(lam.abs(), min=1.0)
             W = precond[:, None] * R
             W = _project_out(_deflate(W), X, MX, M)
-            W, good_w = _b_orthonormalize(W, M, whiten_eps)
+            W, good_w = _b_orthonormalize(W, M, whiten_eps, status)
             MW = spmm(M, W)
             P = _project_out(_project_out(_deflate(P), X, MX, M), W, MW, M)
-            P, good_p = _b_orthonormalize(P, M, whiten_eps)
+            P, good_p = _b_orthonormalize(P, M, whiten_eps, status)
 
             S = torch.cat([X, W, P], dim=1)            # (N, 3k)
             A = node_gram(M, S, spmm(K, S))
@@ -164,13 +197,11 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
                 good, torch.zeros((), device=A.device), _sentinel(A)))
             # fp64 eigh (F11): fp32's error, eps * |A|, reaches the gaps of
             # near-degenerate pairs once W holds high Rayleigh quotients.
-            C = eigh(A.double())[1][:, :k].to(A.dtype)
+            C = eigh(A.double(), status)[1][:, :k].to(A.dtype)
             C_wp = C.clone()
             C_wp[:k] = 0.0                              # W/P contribution only
-            # A selected Ritz vector is good when it lies in the kept
-            # directions (its unit coefficient vector weighs > 1/2 there).
-            count("sync.select")
-            good_x = (C[good] ** 2).sum(0) > 0.5
+            count("sync.select", 0)
+            good_x = _good_ritz(C, good)
             return hdot(S, C), hdot(S, C_wp), res, good_x
 
         # Directions of X0 that the whitening drops (a rank-deficient warm
@@ -179,10 +210,11 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
         # (0, 0) and never leave the block; here they are flagged as dropped,
         # the sentinel moves them out, and W/P directions take their place.
         # For a full-rank X0 the two are the same iteration.
-        X, good_x = _b_orthonormalize(_deflate(X0), M, whiten_eps)
+        X, good_x = _b_orthonormalize(_deflate(X0), M, whiten_eps, status)
         P = torch.zeros_like(X)
         it = torch.zeros((), dtype=torch.int64, device=X.device)
         res = torch.full((k,), float("inf"), dtype=X.dtype, device=X.device)
+        checked = False     # the last iteration run read the status word
         for i in range(max_iter):
             active = res.max() > tol
             X_n, P_n, res_n, good_n = body(X, P, good_x)
@@ -191,10 +223,14 @@ def lobpcg(K, M, X0: torch.Tensor, k: int | None = None,
             res = torch.where(active, res_n, res)
             good_x = torch.where(active, good_n, good_x)
             it = it + active.to(it.dtype)
-            if (i + 1) % _CHECK_EVERY == 0:
+            checked = (i + 1) % _CHECK_EVERY == 0
+            if checked:
                 count("sync.stop_check")
-                if not bool(res.max() > tol):
+                if not _keep_going(res, tol, status):
                     break
+        if status is not None and not checked:
+            count("sync.stop_check")
+            _keep_going(res, tol, status)
 
         KX, MX = spmm(K, X), spmm(M, X)
         lam = _rayleigh_quotients(X, KX, MX, M)

@@ -74,6 +74,15 @@ bf16 at k = 12, 20 and 28. Every width is put on the row-wise route for
 it (`occupancy.BAND_GRAM_ROWS_K`, `BAND_BF16_ROWS_K` and
 `FULL_GRAM_ROWS_K` widened in the process).
 
+With --eigh it runs instead `chip_smoke.small_eigh_rows`: E1, the
+small symmetric eigensolver (`solvers/small_eigh.py`,
+`csrc/small_eigh.cu`), held to torch.linalg.eigh and timed against it on
+the three eigensolves of one iteration of the benchmark's 1M polish
+(`tests/data/polish1m_grams.npz`: the fp64 Rayleigh-Ritz Gram at n = 84
+and the two fp32 whitening Grams at n = 28) and on a random symmetric
+matrix of each shape, with the bound. It needs no operator and no host
+stage.
+
 With --polish it also times the guarded LOBPCG polish an iteration (k =
 28 columns, tol 0, so every iteration runs) on the 300k and 1M strip-BSR
 K and the 300k rolling band, on the routes before this route existed
@@ -84,7 +93,7 @@ before, after, after, before.
 Run on a machine with one NVIDIA GPU from the root of a checkout:
 
     python3 polish_products.py [--skip-1m] [--polish | --tables |
-                                            --shards | --gram]
+                                            --shards | --gram | --eigh]
 
 Exits non-zero without a card. The 1M host stage (cloud and native
 Laplacian) takes 1-2 minutes of it.
@@ -323,6 +332,16 @@ def gram_routes(L, X, device) -> None:
         torch.cuda.empty_cache()
 
 
+def eigh_rows(device) -> None:
+    """The --eigh rows (see the module's docstring)."""
+    import chip_smoke as cs
+    from eigenpinns_torch.solvers import small_eigh
+
+    small_eigh.build_kernel()
+    ptxas_report("small_eigh", ("small_eigh_kernel",))
+    cs.small_eigh_rows(device)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-1m", action="store_true",
@@ -336,6 +355,8 @@ def main() -> int:
                     help="time K4 on the sharded paths' blocks instead")
     ap.add_argument("--gram", action="store_true",
                     help="time K1's row-wise Gram and bf16 routes instead")
+    ap.add_argument("--eigh", action="store_true",
+                    help="time the small symmetric eigensolver instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("polish_products: no CUDA device", file=sys.stderr)
@@ -368,6 +389,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(f"device {torch.cuda.get_device_name(0)} ({smi})", flush=True)
+    if args.eigh:
+        eigh_rows(device)
+        print(smi, flush=True)
+        return 0
     t0 = time.time()
     for build in (bsr.build_kernel, banded.build_kernel, native.require):
         build()

@@ -1188,20 +1188,22 @@ def test_rolling_bf16_rows_route_matches_plain(case, k):
     assert _rel(Uk.grad.cpu(), ref.cpu()) < 1e-4
 
 
-# cuSOLVER's kernels of a dense eigensolve (`torch.linalg.eigh`) and
+# The kernels of a dense eigensolve: the hand-written one
+# (`csrc/small_eigh.cu`, n <= 84), cuSOLVER's (`torch.linalg.eigh`) and
 # ATen's check of its result.
 EIGH_KERNELS = re.compile(
-    r"(sy|he)(trd|evd|evj)|ormtr|orgtr|ste(dc|qr)|sterf|lar[fg]|latrd|"
-    r"lansy|lascl|copy_info", re.IGNORECASE)
+    r"small_eigh|(sy|he)(trd|evd|evj)|ormtr|orgtr|ste(dc|qr)|sterf|"
+    r"lar[fg]|latrd|lansy|lascl|copy_info", re.IGNORECASE)
 
 
 @pytest.mark.cuda
 def test_tracer_spans_share_the_device_trace_clock():
     """Under a profile of CUDA activity alone (the benchmark's traced
     window) tracing is on, every span of a small polish has a device
-    time, and every cuSOLVER kernel of its eigensolves starts inside the
-    host interval of a `lobpcg.eigh` span: the spans' host times and the
-    device trace share one clock."""
+    time, and every kernel of its eigensolves (the hand-written
+    eigensolver's at 3k = 84 and k = 28) starts inside the host interval
+    of a `lobpcg.eigh` span: the spans' host times and the device trace
+    share one clock."""
     _need_card()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1240,3 +1242,257 @@ def test_tracer_spans_share_the_device_trace_clock():
               and EIGH_KERNELS.search(e.name())]
     assert starts
     assert all(any(a <= s <= b for a, b in eighs) for s in starts)
+
+
+# ---- the small symmetric eigensolver (csrc/small_eigh.cu) -------------------
+#
+# Against torch.linalg.eigh on the card, for an n x n input in precision
+# eps: eigenvalues (against the fp64 library's) and the residual
+# ||A V - V diag(w)||_F within EIGH_VAL n eps ||A||_F, orthonormality
+# ||V^T V - I||_F within EIGH_ORTH n eps. The largest the kernel reads
+# over these tests' inputs on an H100: eigenvalues 0.41, residual 0.54,
+# orthonormality 10.8 (fp32, n = 80 and 84; 3.7 in fp64); the library's
+# fp32 orthonormality reads up to 16.1 on the same inputs.
+
+EIGH_VAL = 1.0
+EIGH_ORTH = 16.0
+
+
+def _small_eigh(A):
+    from eigenpinns_torch.solvers import small_eigh
+
+    status = torch.zeros((), dtype=torch.int32, device=A.device)
+    before = small_eigh.small_eigh_launches
+    w, V = small_eigh.small_eigh_cuda(A, status)
+    torch.cuda.synchronize()
+    assert small_eigh.small_eigh_launches == before + 1
+    return w, V, int(status)
+
+
+def _check_eigh(A, w, V):
+    n, eps = A.shape[0], torch.finfo(A.dtype).eps
+    assert w.dtype == V.dtype == A.dtype
+    Ad, Vd, wd = A.double(), V.double(), w.double()
+    norm = torch.linalg.matrix_norm(Ad)
+    assert torch.all(wd[1:] >= wd[:-1])
+    assert (wd - torch.linalg.eigvalsh(Ad)).abs().max() <= (
+        EIGH_VAL * n * eps * norm)
+    assert torch.linalg.matrix_norm(Ad @ Vd - Vd * wd) <= (
+        EIGH_VAL * n * eps * norm)
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    assert torch.linalg.matrix_norm(Vd.T @ Vd - eye) <= EIGH_ORTH * n * eps
+
+
+def _sym_card(n, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn((n, n), generator=g, dtype=torch.float64)
+    return (X + X.T).to(dtype).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 27, 28, 84])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_small_eigh_matches_linalg(n, dtype):
+    _need_card()
+    A = _sym_card(n, dtype, n)
+    w, V, status = _small_eigh(A)
+    assert status == 0
+    _check_eigh(A, w, V)
+    # The lower triangle is what it reads.
+    w2, V2, _ = _small_eigh(A + torch.triu(torch.full_like(A, 3.0), 1))
+    assert torch.equal(w2, w) and torch.equal(V2, V)
+
+
+@pytest.mark.cuda
+def test_small_eigh_every_n_on_its_grid():
+    """Every n the kernel takes, in both types: its launch grid (m = S * P
+    covers n with at most 7 padded positions, S <= 16 positions a thread,
+    within the launch bound) and its result against the library's."""
+    _need_card()
+    from eigenpinns_torch.solvers import small_eigh
+
+    for n in range(1, small_eigh.MAX_N + 1):
+        S, P, threads = small_eigh.grid(n)
+        assert S % 2 == 0 and S <= 16 and n <= S * P <= n + 7
+        assert threads % 32 == 0 and threads <= 576
+        for dtype in (torch.float32, torch.float64):
+            A = _sym_card(n, dtype, 1000 + n)
+            w, V, status = _small_eigh(A)
+            assert status == 0
+            _check_eigh(A, w, V)
+    assert small_eigh.grid(84)[:2] == (14, 6)
+    assert small_eigh.grid(28)[:2] == (4, 7)
+    for bad in (0, small_eigh.MAX_N + 1):
+        with pytest.raises(ValueError):
+            small_eigh.grid(bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [85, 127, 128])
+def test_eigh_past_the_kernel_takes_the_library(n):
+    """Past n = 84 `rayleigh_ritz.eigh` on the card is torch.linalg.eigh
+    bit for bit, one host sync and no kernel launch."""
+    _need_card()
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from eigenpinns_torch.solvers import small_eigh
+    from eigenpinns_torch.utils import profiling
+
+    rr = sys.modules["eigenpinns_torch.solvers.rayleigh_ritz"]
+    A = _sym_card(n, torch.float64, n)
+    before = small_eigh.small_eigh_launches
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        w, V = rr.eigh(A)
+    counts = profiling.counters()
+    profiling.reset()
+    assert counts == {"sync.eigh": 1}
+    assert small_eigh.small_eigh_launches == before
+    wl, Vl = torch.linalg.eigh(A)
+    assert torch.equal(w, wl) and torch.equal(V, Vl)
+
+
+@pytest.mark.cuda
+def test_small_eigh_near_degenerate_pair():
+    """A pair 1e-9 apart (relative) in fp64: its subspace is the
+    library's, whatever rotation inside it each returns."""
+    _need_card()
+    n = 84
+    g = torch.Generator().manual_seed(11)
+    Q = torch.linalg.qr(torch.randn((n, n), generator=g,
+                                    dtype=torch.float64))[0]
+    lam = torch.sort(torch.rand(n, generator=g, dtype=torch.float64)
+                     * 100).values
+    lam[11] = lam[10] * (1 + 1e-9)
+    A = ((Q * lam) @ Q.T).cuda()
+    w, V, status = _small_eigh(A)
+    assert status == 0
+    _check_eigh(A, w, V)
+    Vl = torch.linalg.eigh(A)[1]
+    proj = V[:, 10:12] @ V[:, 10:12].T - Vl[:, 10:12] @ Vl[:, 10:12].T
+    assert torch.linalg.matrix_norm(proj) < 1e-8
+
+
+@pytest.mark.cuda
+def test_small_eigh_rank_deficient_whitening_gram():
+    """A whitening Gram of rank 20 at n = 28 in fp32, eigenvalues at and
+    below zero."""
+    _need_card()
+    g = torch.Generator().manual_seed(5)
+    B = torch.randn((28, 20), generator=g, dtype=torch.float64)
+    G = (B @ B.T).float().cuda()
+    w, V, status = _small_eigh(G)
+    assert status == 0 and float(w[:8].abs().max()) < 1e-4
+    assert float(torch.linalg.eigvalsh(G.double()).min()) < 0
+    _check_eigh(G, w, V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rayleigh_ritz", "whiten_w", "whiten_p"])
+def test_small_eigh_on_the_1m_polish_grams(name):
+    """The three eigensolves' inputs of one iteration (the 400th) of the
+    benchmark's 1M polish (`direct1m_bsr.solve`, seed 1): the fp64
+    Rayleigh-Ritz Gram at 84 and the two fp32 whitening Grams at 28."""
+    _need_card()
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        "polish1m_grams.npz")
+    A = torch.as_tensor(np.load(path)[name]).cuda()
+    assert A.shape == ((84, 84) if name == "rayleigh_ritz" else (28, 28))
+    w, V, status = _small_eigh(A)
+    assert status == 0
+    _check_eigh(A, w, V)
+
+
+@pytest.mark.cuda
+def test_small_eigh_nonfinite_input_fails_on_the_card():
+    """A NaN input: NaN outputs and the status word set, no host sync;
+    `rayleigh_ritz.eigh` without a status word raises LinAlgError as
+    torch.linalg.eigh does."""
+    _need_card()
+    import sys
+
+    rr = sys.modules["eigenpinns_torch.solvers.rayleigh_ritz"]
+    A = torch.eye(28, device="cuda")
+    A[5, 2] = float("nan")
+    w, V, status = _small_eigh(A)
+    assert status == 1 and torch.isnan(w).all() and torch.isnan(V).all()
+    with pytest.raises(torch.linalg.LinAlgError):
+        rr.eigh(A)
+
+
+def _small_polish_problem(k=8):
+    from eigenpinns_torch.utils.fixtures import make_cloud
+
+    L, Mmat = point_cloud_laplacian(make_cloud(2000, seed=2),
+                                    n_neighbors=15)
+    K, perm = tsparse.BSRTile.from_scipy(L, device="cuda")
+    M = tsparse.Diagonal(torch.as_tensor(
+        np.asarray(Mmat.diagonal())[perm], dtype=torch.float32,
+        device="cuda"))
+    X0 = torch.randn((L.shape[0], k), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+    return K, M, X0
+
+
+@pytest.mark.cuda
+def test_lobpcg_raises_on_a_failed_eigensolve():
+    """A NaN in the start makes the start's whitening eigensolve fail on
+    the card; the first stop check reads the status word with the stop
+    flag and raises LinAlgError, where the NaN residuals alone would read
+    as converged."""
+    _need_card()
+    from eigenpinns_torch.solvers import lobpcg
+
+    K, M, X0 = _small_polish_problem()
+    X0[7, 3] = float("nan")
+    with pytest.raises(torch.linalg.LinAlgError):
+        lobpcg(K, M, X0, max_iter=10, tol=1e-6)
+    with pytest.raises(torch.linalg.LinAlgError):   # no check in the loop
+        lobpcg(K, M, X0, max_iter=3, tol=1e-6)
+
+
+@pytest.mark.cuda
+def test_lobpcg_iterations_make_no_host_sync(monkeypatch):
+    """Between two stop checks a polish iteration on the card runs under
+    CUDA's sync debug mode "error" (any host sync raises): its eigensolves
+    are the kernel's and its selection a masked sum. Its counters: three
+    kernel eigensolves an iteration (and the start's), no sync at the
+    eigensolves or the selection, one at each stop check."""
+    _need_card()
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from eigenpinns_torch.utils import profiling
+
+    lob = sys.modules["eigenpinns_torch.solvers.lobpcg"]
+    K, M, X0 = _small_polish_problem()
+    lob.lobpcg(K, M, X0, max_iter=2, tol=0.0)    # builds, first-use checks
+    torch.cuda.synchronize()
+    check = lob._keep_going
+
+    def allowed(res, tol, status):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return check(res, tol, status)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(lob, "_keep_going", allowed)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = lob.lobpcg(K, M, X0, max_iter=30, tol=0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset()
+    assert int(res.iterations) == 30
+    assert counts == {"eigh.kernel": 3 * 30 + 1, "sync.eigh": 0,
+                      "sync.select": 0, "sync.stop_check": 3}

@@ -137,6 +137,64 @@ def test_lobpcg_recovers_from_rank_deficient_warm_start(problem):
     assert _rel(lam[1:], vals[1:]) < 1e-4
 
 
+@pytest.mark.parametrize("start", ["warm", "rank_deficient"])
+def test_lobpcg_masked_select_matches_the_boolean_index(problem, start,
+                                                        monkeypatch):
+    """The good Ritz vectors' flags, a masked sum of fixed shape, are those
+    of the boolean index `(C[good] ** 2).sum(0) > 0.5` bit for bit at
+    every iteration of the two warm starts above (`good` has False entries:
+    the first iteration's P is zero, and the rank-deficient start drops
+    directions of X)."""
+    import sys
+
+    lob = sys.modules["eigenpinns_torch.solvers.lobpcg"]
+    rng = np.random.default_rng(0 if start == "warm" else 1)
+    X0 = problem["vecs"][:, :8].copy()
+    if start == "warm":
+        X0 = X0 + 0.05 * rng.normal(size=X0.shape)
+    else:
+        X0[:, 3:6] = 0.0
+        X0 = np.concatenate([X0, rng.normal(size=(len(X0), 3))], axis=1)
+    seen = {"calls": 0, "dropped": 0}
+    masked = lob._good_ritz
+
+    def both(C, good):
+        flags = masked(C, good)
+        assert torch.equal(flags, (C[good] ** 2).sum(0) > 0.5)
+        seen["calls"] += 1
+        seen["dropped"] += int((~good).sum())
+        return flags
+
+    monkeypatch.setattr(lob, "_good_ritz", both)
+    K, M = _args(problem, "t", ["K", "M"])
+    res = tsolvers.lobpcg(K, M, torch.from_numpy(X0.astype(np.float32)),
+                          max_iter=60, tol=1e-6)
+    assert seen["calls"] == int(res.iterations) > 0
+    assert seen["dropped"] > 0
+
+
+@pytest.mark.parametrize("kept", ["none", "one", "half", "all"])
+def test_masked_select_on_edge_masks(kept):
+    """The masked sum's flags equal the boolean index's for a Ritz
+    coefficient block C (3k x k, unit columns) when `good` keeps no
+    direction, one, a random half or all of them."""
+    import sys
+
+    lob = sys.modules["eigenpinns_torch.solvers.lobpcg"]
+    k = 12
+    g = torch.Generator().manual_seed(4)
+    C = torch.linalg.qr(torch.randn((3 * k, 3 * k), generator=g))[0][:, :k]
+    good = {"none": torch.zeros(3 * k, dtype=torch.bool),
+            "one": torch.arange(3 * k) == 5,
+            "half": torch.randperm(3 * k, generator=g) < 3 * k // 2,
+            "all": torch.ones(3 * k, dtype=torch.bool)}[kept]
+    flags = lob._good_ritz(C, good)
+    assert flags.shape == (k,)
+    assert torch.equal(flags, (C[good] ** 2).sum(0) > 0.5)
+    if kept in ("none", "all"):
+        assert bool(flags.all()) is (kept == "all")
+
+
 def test_lobpcg_from_random_is_seeded(problem):
     K, M = _args(problem, "t", ["K", "M"])
     a = tsolvers.lobpcg_from_random(
